@@ -4,18 +4,24 @@ plain PyTorch twin.
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. the card's name and power limit, torch/CUDA versions; build both CUDA
-     kernels from csrc/ (one nvcc each, started together).
+  1. the card's name and power limit, torch/CUDA versions; build every CUDA
+     kernel from csrc/ (one nvcc per source, all started together).
   2. guided_sample: kernel vs plain twin at the main path's shapes
      (2048-leaf table, 131,072 lanes); times by CUDA events.
   3. EM sufficient statistics: kernel vs plain twin at 2048 leaves and
      2.8 M samples; times by CUDA events.
-  4. the main path: SDMMTrainer(...).run on a programmatic Cornell box at
+  4. the fused guided bounce: trace and shade kernels vs their plain twins
+     at 131,072 lanes on the Cornell box and on the four-type box (every
+     in-kernel BSDF type), shade on a bf16 2048-leaf table; the twin's hit
+     buffer feeds both shade calls. Times by CUDA events on the Cornell box.
+  5. the main path: SDMMTrainer(...).run on a programmatic Cornell box at
      640x360, max depth 10, TrainerConfig() defaults with tail_chunk_spp=16,
-     64 spp (4 training iterations with EM, then the frozen tail in 3
-     chunks), with both kernels' launch counts read around the run; the
-     image is checked against an unguided render (bsdf_fraction=1.0) at
-     equal spp through the same pool.
+     64 spp (4 training iterations with EM on the eager pool, then the
+     frozen tail in 3 chunks on the fused trace + shade pool), with every
+     kernel's launch count read around the run; the image is checked
+     against an unguided render (bsdf_fraction=1.0) at equal spp through
+     the eager pool, and the fused pool against the eager guided pool at
+     equal spp on the same guide state.
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last the {"ok": true, "device": ...} line.
 """
@@ -32,6 +38,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+# tests/torch_parity.py holds the lane-wave generator the CPU and gpu tests
+# use too; it imports only the port, numpy and torch.
+sys.path.insert(1, os.path.join(ROOT, "tests"))
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and FP32
 # operations/s outside the tensor cores (an FMA counts as two operations).
@@ -50,6 +59,20 @@ GUIDED_OPS_PER_LANE = 16 * (43 + 5 + 11 + 2 + 176) + 100
 # solve, Gaussian pdf, posterior) + 4 (normalisation, floor, weight) + 41
 # (the 21 accumulations).
 EM_OPS_PER_SAMPLE = 16 * (102 + 4 + 41)
+# FP32 operations of trace, the same way (csrc/bounce_math.cuh woop_tri and
+# csrc/guided_step.cu trace_kernel): 60 per lane and triangle (the Woop
+# transform, the barycentric tests, the closest-hit update), 80 per lane
+# after the sweep (shading-normal interpolation and normalisation, hit
+# position, emission and escape).
+TRACE_OPS_PER_TRI = 60
+TRACE_OPS_PER_LANE = 80
+# shade: guided_tile's work as guided_sample's, plus 200 per lane (frame,
+# disk sample, world directions, the MIS combine, roulette, splat and
+# state), plus the BSDF branch of the lane's type: 60 for a conductor
+# (three Fresnel channels), 45 for a dielectric, 170 for a rough conductor
+# (VNDF sample, GGX eval, three Fresnel channels).
+SHADE_OPS_PER_LANE = GUIDED_OPS_PER_LANE + 200
+SHADE_OPS_BY_TYPE = {1: 60, 2: 45, 3: 170}
 
 
 def check(cond, msg):
@@ -277,11 +300,16 @@ def phase_em(dev):
             "library_ms": None}
 
 
-def cornell_box(width, height, dev):
+def cornell_box(width, height, dev, extra_bsdfs=False):
     """The closed box of tests/test_render.py with its ceiling light, plus
-    the two classic Cornell blocks, all diffuse."""
+    the two classic Cornell blocks, all diffuse. ``extra_bsdfs`` adds a
+    conductor, a dielectric and a rough-conductor cube (the four-type box
+    of tests/torch_parity.py)."""
     from sdmm_tpu_torch.scene import shapes
-    from sdmm_tpu_torch.scene.scene import BSDF_DIFFUSE, SceneBuilder
+    from sdmm_tpu_torch.scene.scene import (
+        BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_ROUGHCONDUCTOR,
+        SceneBuilder,
+    )
 
     def compose(translate, scale, rx=0.0, ry=0.0):
         m = np.eye(4)
@@ -316,6 +344,16 @@ def cornell_box(width, height, dev):
                                          [0.28, 0.6, 0.28], ry=18)), white)
     b.add_shape(shapes.make_cube(compose([0.35, 0.3, 0.3],
                                          [0.28, 0.3, 0.28], ry=-17)), white)
+    if extra_bsdfs:
+        cond = b.add_bsdf(BSDF_CONDUCTOR, specular=[0.9, 0.9, 0.9], eta=0.2,
+                          k=[3.9, 2.4, 2.1])
+        diel = b.add_bsdf(BSDF_DIELECTRIC, eta=1.5)
+        rough = b.add_bsdf(BSDF_ROUGHCONDUCTOR, alpha=0.2, eta=0.2,
+                           k=[3.9, 2.4, 2.1])
+        for tw, bs in (((-0.7, 0.2, 0.5), cond), ((0.7, 0.2, -0.6), diel),
+                       ((0.0, 1.3, -0.5), rough)):
+            b.add_shape(shapes.make_cube(compose(list(tw), [0.15] * 3,
+                                                 rx=30)), bs)
     cam = np.eye(4)
     cam[:3, 3] = [0.0, 1.0, 4.0]
     cam[0, 0] = -1.0
@@ -326,11 +364,131 @@ def cornell_box(width, height, dev):
     return b.build(device=dev)
 
 
+def phase_guided_step(dev, width=640, height=360):
+    """trace and shade against their twins on the Cornell box and the
+    four-type box; returns the two kernels' entries, measured on the
+    Cornell box (the main path's scene)."""
+    from sdmm_tpu_torch.ops import bounce as bo
+    from sdmm_tpu_torch.ops import guided_sample as gso
+    from sdmm_tpu_torch.ops import guided_step as gst
+    from torch_parity import lane_wave
+
+    N, L = 131_072, 2048
+    max_depth, rr_depth, frac = 10, 10, 0.5
+    sdmm, prep, init = mixture_state(L, 3, dev)
+    table16 = gso.pack_guided_rows(prep, sdmm.weight, init).T.to(
+        torch.bfloat16).contiguous()
+    entries = {}
+    for scene_name, extra in (("cornell", False), ("four-type", True)):
+        scene, cfg = cornell_box(width, height, dev, extra_bsdfs=extra)
+        types = cfg.bsdf_types
+        tri, _, env = bo.build_tables(scene)
+        state, meta, rand = (
+            torch.as_tensor(a, device=dev) for a in
+            lane_wave(N, 21 + extra, width * height, max_depth))
+        st_k, hit_k = gst.trace(state, meta, tri, env, types)
+        st_p, hit_p = gst.trace_plain(state, meta, tri, env, types)
+        torch.cuda.synchronize()
+        exact = [3, 4, 5] + list(range(9, 22))
+        ok_exact = (hit_k[exact] == hit_p[exact]).all(0)
+        ok_close = torch.isclose(hit_k[[0, 1, 2, 6, 7, 8]],
+                                 hit_p[[0, 1, 2, 6, 7, 8]], rtol=1e-5,
+                                 atol=1e-6).all(0)
+        ok_state = torch.isclose(st_k, st_p, rtol=1e-5, atol=1e-6,
+                                 equal_nan=True).all(0)
+        ok_t = ok_exact & ok_close & ok_state
+        err_t = float((hit_k[0:3] - hit_p[0:3]).abs()[:, ok_exact].max())
+        on = hit_p[21] > 0.5
+        n_types = {int(t): int(((hit_p[12] == t) & on).sum())
+                   for t in range(4)}
+        print(f"trace [{scene_name}, {tri.shape[1]} triangles]: lanes on a "
+              f"surface {int(on.sum())}/{N} by type {n_types}; winner "
+              f"attributes equal {float(ok_exact.float().mean()):.6f}, all "
+              f"rows within rtol 1e-5 {float(ok_t.float().mean()):.6f}, "
+              f"max|hit position err| {err_t:.3g}", flush=True)
+        check(float(ok_t.float().mean()) >= 0.998, "trace: kernel and twin "
+              "disagree")
+        check(all(n_types[t] > 0 for t in types), "trace: a BSDF type was "
+              "never hit")
+
+        # Shade from the twin's hit buffer, so errors do not compound.
+        rs = np.random.RandomState(31 + extra)
+        leaf = torch.as_tensor(rs.randint(0, L, N).astype(np.int32),
+                               device=dev)
+        span = (scene.aabb_hi - scene.aabb_lo).max()
+        cpos = ((hit_p[0:3].T - scene.aabb_lo) / span).T.contiguous()
+        out_k = gst.shade(st_p, meta, hit_p, cpos, leaf, table16, rand,
+                          types, max_depth, rr_depth, frac)
+        rows_t = table16[leaf.long()].T.float()
+        out_p = gst.shade_plain(st_p, meta, hit_p, cpos, rows_t, rand, types,
+                                max_depth, rr_depth, frac)
+        torch.cuda.synchronize()
+        ok_s = torch.isclose(out_k[0], out_p[0], rtol=2e-4, atol=1e-5,
+                             equal_nan=True).all(0)
+        ok_m = out_k[1] == out_p[1]
+        ok_sp = (out_k[2] == out_p[2]).all(0)
+        fin = torch.isfinite(out_p[0]) & torch.isfinite(out_k[0])
+        err_s = float((out_k[0] - out_p[0]).abs()[fin & ok_m[None]].max())
+        shares = [float(x.float().mean()) for x in (ok_s, ok_m, ok_sp)]
+        sp = out_p[2].sum(1)
+        print(f"shade [{scene_name}]: state/meta/splat equal on "
+              f"{shares[0]:.6f}/{shares[1]:.6f}/{shares[2]:.6f} of the "
+              f"lanes; max|state err| on lanes with equal meta {err_s:.3g}; "
+              f"done {int(sp[6])}, on surface {int(sp[7])}, cond tries "
+              f"{int(sp[8])}, cond ok {int(sp[9])}", flush=True)
+        check(all(x >= 0.998 for x in shares), "shade: kernel and twin "
+              "disagree")
+        check(bool(torch.isfinite(out_k[2]).all()), "shade: splat not finite")
+        check(0 < int(sp[9]) <= int(sp[8]), "shade: comparison is vacuous")
+        if scene_name != "cornell":
+            continue
+
+        ms_t = time_ms(lambda: gst.trace(state, meta, tri, env, types),
+                       reps=20, graph=True)
+        plain_t = time_ms(lambda: gst.trace_plain(state, meta, tri, env,
+                                                  types), reps=5)
+        ms_s = time_ms(lambda: gst.shade(st_p, meta, hit_p, cpos, leaf,
+                                         table16, rand, types, max_depth,
+                                         rr_depth, frac), reps=20, graph=True)
+        plain_s = time_ms(lambda: gst.shade_plain(
+            st_p, meta, hit_p, cpos, table16[leaf.long()].T.float(), rand,
+            types, max_depth, rr_depth, frac), reps=5)
+        n_tris = tri.shape[1]
+        b_t = (N * (16 * 4 + 4) + tri.numel() * 4 + env.numel() * 4
+               + N * (16 + gst.HIT_ROWS) * 4)
+        o_t = N * (n_tris * TRACE_OPS_PER_TRI + TRACE_OPS_PER_LANE)
+        b_s = (N * (16 * 4 + 4 + gst.HIT_ROWS * 4 + 12 + 4
+                    + gst.RAND_ROWS * 4) + table16.numel() * 2
+               + N * (16 * 4 + 4 + gst.SPLAT_ROWS * 4))
+        o_s = N * SHADE_OPS_PER_LANE + sum(
+            c * n_types[t] for t, c in SHADE_OPS_BY_TYPE.items())
+        for name, ms, plain, b, o, err, line in (
+                ("trace", ms_t, plain_t, b_t, o_t, err_t, ":571"),
+                ("shade", ms_s, plain_s, b_s, o_s, err_s, ":615")):
+            t_bytes = b / PEAK_BYTES * 1e3
+            t_ops = o / PEAK_FP32 * 1e3
+            print(f"{name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, ops "
+                  f"{t_ops:.4f})", flush=True)
+            entries[name] = {
+                "name": name, "route": "cuda",
+                "source": "sdmm_tpu_torch/csrc/guided_step.cu",
+                "replaces": "sdmm_tpu/ops/guided_step_pallas.py" + line,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "library_ms": None}
+    return [entries["trace"], entries["shade"]]
+
+
 def phase_main_path(dev, width=640, height=360):
     from sdmm_tpu_torch.guiding.trainer import SDMMTrainer, TrainerConfig
     from sdmm_tpu_torch.ops import em_suffstats as ems
     from sdmm_tpu_torch.ops import guided_sample as gso
-    from sdmm_tpu_torch.render.guided import render_pool_guided
+    from sdmm_tpu_torch.ops import guided_step as gst
+    from sdmm_tpu_torch.render.guided import (
+        render_pool_guided, render_pool_guided_fused,
+    )
     from sdmm_tpu_torch.utils import metrics
 
     scene, cfg = cornell_box(width, height, dev)
@@ -346,13 +504,16 @@ def phase_main_path(dev, width=640, height=360):
 
     gso.guided_sample.launches = 0
     ems.suffstats.launches = 0
+    gst.trace.launches = 0
+    gst.shade.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     img, iters = tr.run(total_spp=64, on_iteration=on_iteration)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {"guided_sample": gso.guided_sample.launches,
-                "em_suffstats": ems.suffstats.launches}
+                "em_suffstats": ems.suffstats.launches,
+                "trace": gst.trace.launches, "shade": gst.shade.launches}
     print(f"main path: {len(iters)} iterations, {wall:.2f} s, launches "
           f"{launches}", flush=True)
 
@@ -389,6 +550,34 @@ def phase_main_path(dev, width=640, height=360):
           f"{metrics.smape(img, ref):.4f}", flush=True)
     check(rel < 0.05, "main path: image mean disagrees with the unguided "
           "render")
+
+    # The fused frozen-model pool against the eager guided pool, equal spp,
+    # the same guide state.
+    kw = dict(n_lanes=min(tc.rays_per_wave * 2, width * height * 64),
+              spp=64, width=width, height=height, max_depth=10, rr_depth=10,
+              bsdf_fraction=tc.bsdf_fraction, device=dev)
+    gs = tr.guide_state()
+    means = {}
+    for name, fn, types in (
+            ("fused", render_pool_guided_fused, tuple(cfg.bsdf_types)),
+            ("eager", render_pool_guided, cfg.bsdf_types)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn(tr.scene, gs, torch.Generator(device=dev).manual_seed(7),
+                 bsdf_types=types, **kw)
+        im = out["image"] / out["weight"].clamp_min(1.0)[:, None]
+        means[name] = float(im.mean())
+        torch.cuda.synchronize()
+        print(f"main path: {name} guided pool, 64 spp: {time.time() - t0:.3f}"
+              f" s, {out['steps']} steps, image mean {means[name]:.5f}, "
+              f"weight {float(out['weight'].sum()):.0f}", flush=True)
+        check(float(out["weight"].sum()) == width * height * 64,
+              f"main path: the {name} pool did not spend its budget")
+    rel_f = abs(means["fused"] - means["eager"]) / means["eager"]
+    print(f"main path: fused vs eager guided pool, rel {rel_f:.4f}",
+          flush=True)
+    check(rel_f < 0.02, "main path: the fused pool disagrees with the eager "
+          "guided pool")
     return launches
 
 
@@ -405,14 +594,15 @@ def main():
           f", {torch.cuda.get_device_name(0)}", flush=True)
     dev = torch.device("cuda", 0)
     t0 = time.time()
-    reports = _build.build_all(["guided_sample", "em_suffstats"])
+    reports = _build.build_all(["guided_sample", "em_suffstats",
+                                "guided_step"])
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    kernels = [phase_guided(dev), phase_em(dev)]
+    kernels = [phase_guided(dev), phase_em(dev), *phase_guided_step(dev)]
     launches = phase_main_path(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -7,8 +7,10 @@ Builds the Cornell box of chip_smoke.py at the protocol size (640x360,
 max depth 10, TrainerConfig() defaults), warms the trainer up with four
 training iterations (so that each measured one runs one EM step, as
 the steady state does), then profiles one training iteration (guided render
-with vertex collection + optimize) and one frozen-model iteration (guided
-render at 4 spp) under torch.profiler. For each phase it prints the wall
+with vertex collection + optimize), one frozen-model iteration (guided
+render at 4 spp, the fused trace + shade pool the trainer takes on the
+card) and the same frozen render on the eager pool (render_pool_guided, for
+comparison) under torch.profiler. For each phase it prints the wall
 time, the time the device was busy (the union of its kernel intervals),
 its share of the unprofiled wall time, the number of kernel launches,
 and the kernels that took the most device time; ``--json`` also writes the summary to a file.
@@ -100,8 +102,9 @@ def main():
     import chip_smoke
     from sdmm_tpu_torch.guiding.trainer import SDMMTrainer, TrainerConfig
     from sdmm_tpu_torch.ops import _build
+    from sdmm_tpu_torch.render.guided import render_pool_guided
 
-    _build.build_all(["guided_sample", "em_suffstats"])
+    _build.build_all(["guided_sample", "em_suffstats", "guided_step"])
     dev = torch.device("cuda", 0)
     print(chip_smoke.nvidia_smi_line(), flush=True)
     scene, cfg = chip_smoke.cornell_box(args.width, args.height, dev)
@@ -113,6 +116,17 @@ def main():
         tr.iteration += 1
         tr.total_spp += tr.cfg.samples_per_iteration
 
+    def frozen_eager():
+        c, rc = tr.cfg, tr.render_cfg
+        render_pool_guided(
+            tr.scene, tr.guide_state(),
+            torch.Generator(device=dev).manual_seed(tr.iteration),
+            n_lanes=min(c.rays_per_wave * 2, rc.width * rc.height * 4),
+            spp=c.samples_per_iteration, width=rc.width, height=rc.height,
+            max_depth=rc.max_depth, rr_depth=rc.rr_depth,
+            bsdf_fraction=c.bsdf_fraction, bsdf_types=rc.bsdf_types,
+            fov_axis=rc.fov_axis, device=dev)
+
     for _ in range(4):  # warm-up: first launches, the tree fills up
         train_iteration()
     t_render = statistics.median(_wall(
@@ -122,8 +136,10 @@ def main():
     phases = [
         profile_phase("training iteration (render + optimize)",
                       train_iteration),
-        profile_phase("frozen iteration (render, 4 spp)",
+        profile_phase("frozen iteration (fused render, 4 spp)",
                       lambda: tr.render_iteration(collect=False)),
+        profile_phase("frozen iteration on the eager pool (render, 4 spp)",
+                      frozen_eager),
     ]
     if args.json:
         with open(args.json, "w") as f:

@@ -13,104 +13,24 @@
 // (185 MB written and read back per step at 131,072 lanes). Here one thread
 // owns one lane and reads its leaf's 353-float row straight from the
 // [L, 353] table (2.9 MB at L = 2048, resident in the 50 MB L2). The lane
-// count needs no padding: the tail block is masked. guided_tile's four
-// passes are kept as four unrolled k-loops that re-read the row instead of
-// holding 16 x 22 values per thread; only the per-component log-weight and
-// the two conditional tangent-mean coordinates stay in registers (48
-// floats). The selected component's frame is rebuilt from the table with a
-// dynamic row offset, so no register array is indexed dynamically.
+// count needs no padding: the tail block is masked. The math is
+// guided_tile.cuh's, read through its float32 row reader; the shade kernel
+// of guided_step.cu runs the same function on bfloat16 rows.
 //
 // Bound. Per lane the kernel does on the order of 4,000 FP32 operations
 // (16 components x two log-map pdfs, an exp map and two frames each) against
 // 68 bytes of lane data, so it is bound by operations, not bytes. The row
-// reads come from L2. Registers: nvcc -Xptxas -v for sm_90a (CUDA 12.8)
-// reports 100 registers, a 0-byte stack frame and no spills; chip_smoke.py
-// prints the report of every build.
+// reads come from L2. Registers: chip_smoke.py prints nvcc's -Xptxas -v
+// report of every build (PERF.md keeps the counts).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "guided_tile.cuh"
+
 namespace {
 
-constexpr int K = 16;
-constexpr int RPK = 22;
-constexpr int NROWS = K * RPK + 1;
-constexpr float PI_F = 3.141592653589793f;
-constexpr float INV_PI = 0.3183098861837907f;
-constexpr float INV_TWO_PI = 0.15915494309189535f;
-constexpr float NEG = -1.0e30f;
 constexpr int THREADS = 128;
-
-// sin and cos through sincospif(x / pi). Its argument reduction is exact in
-// units of pi, so, unlike sinf and cosf, it compiles no Payne-Hanek slow
-// path with its local-memory scratch array.
-__device__ __forceinline__ void sincos_f(float x, float* s, float* c) {
-  sincospif(x * INV_PI, s, c);
-}
-
-// sin(x) / x and cos(x).
-__device__ __forceinline__ void sinc_cos(float x, float* sinc, float* c) {
-  float s;
-  sincos_f(x, &s, c);
-  *sinc = fabsf(x) < 1e-4f ? 1.0f - x * x / 6.0f : s / x;
-}
-
-__device__ __forceinline__ float acos_cubic(float x) {
-  const float xa = fabsf(x);
-  const float poly =
-      1.5707288f + xa * (-0.2121144f + xa * (0.0742610f - 0.0187293f * xa));
-  const float ang = sqrtf(fmaxf(1.0f - xa, 0.0f)) * poly;
-  return x >= 0.0f ? ang : PI_F - ang;
-}
-
-// Duff et al. branchless frame (s, t) around unit m.
-__device__ __forceinline__ void coord_system(float mx, float my, float mz,
-                                             float s[3], float t[3]) {
-  const float sign = mz >= 0.0f ? 1.0f : -1.0f;
-  const float a = -1.0f / (sign + mz);
-  const float b = mx * my * a;
-  s[0] = 1.0f + sign * mx * mx * a;
-  s[1] = sign * b;
-  s[2] = -sign * mx;
-  t[0] = b;
-  t[1] = sign + my * my * a;
-  t[2] = -my;
-}
-
-// Conditional mean direction of one component: exp map of (tm0, tm1) in the
-// frame of its unit mean direction md.
-__device__ __forceinline__ void cond_mean(float tm0, float tm1, float mdx,
-                                          float mdy, float mdz, float mu[3]) {
-  const float ln = sqrtf(fmaxf(tm0 * tm0 + tm1 * tm1, 0.0f));
-  float s_, rel2;
-  sinc_cos(ln, &s_, &rel2);
-  const float rel0 = tm0 * s_, rel1 = tm1 * s_;
-  float cs[3], ct[3];
-  coord_system(mdx, mdy, mdz, cs, ct);
-  mu[0] = cs[0] * rel0 + ct[0] * rel1 + mdx * rel2;
-  mu[1] = cs[1] * rel0 + ct[1] * rel1 + mdy * rel2;
-  mu[2] = cs[2] * rel0 + ct[2] * rel1 + mdz * rel2;
-}
-
-__device__ __forceinline__ float log_map_pdf(const float s[3], const float t[3],
-                                             const float m[3], float dx,
-                                             float dy, float dz, float i00,
-                                             float i10, float i11,
-                                             float inv_det) {
-  const float rel0 = s[0] * dx + s[1] * dy + s[2] * dz;
-  const float rel1 = t[0] * dx + t[1] * dy + t[2] * dz;
-  const float rel2 = m[0] * dx + m[1] * dy + m[2] * dz;
-  const float cosa = fminf(fmaxf(rel2, -1.0f), 1.0f);
-  const float d2 = dx * dx + dy * dy + dz * dz;
-  const bool ok = (cosa > -1.0f + 1e-7f) && (d2 > 0.0f);
-  const float sina = sqrtf(fmaxf(1.0f - cosa * cosa, 0.0f));
-  const float aos = sina < 1e-3f ? 1.0f : acos_cubic(cosa) / fmaxf(sina, 1e-12f);
-  const float t0 = rel0 * aos, t1 = rel1 * aos;
-  const float z0 = i00 * t0;
-  const float z1 = i10 * t0 + i11 * t1;
-  const float pdf = INV_TWO_PI * expf(-0.5f * (z0 * z0 + z1 * z1)) * inv_det * aos;
-  return ok ? pdf : 0.0f;
-}
 
 __global__ void __launch_bounds__(THREADS)
 guided_sample_kernel(const float* __restrict__ table,
@@ -124,113 +44,15 @@ guided_sample_kernel(const float* __restrict__ table,
   if (i >= n) return;
   // Out-of-range leaf ids are clamped, like an XLA gather.
   const int l = min(max(leaf[i], 0), n_leaves - 1);
-  const float* __restrict__ row = table + (size_t)l * NROWS;
-  const float px = pos[3 * i], py = pos[3 * i + 1], pz = pos[3 * i + 2];
-  const float bx = wob[3 * i], by = wob[3 * i + 1], bz = wob[3 * i + 2];
-  const float u_sel = u[3 * i], u_r = u[3 * i + 1], u_th = u[3 * i + 2];
-
-  // ---- pass 1: log spatial-marginal weights + conditional tangent means ----
-  float lw[K], tm0[K], tm1[K];
-  float lmax = NEG;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float* b = row + k * RPK;
-    const float d0 = px - __ldg(b + 1);
-    const float d1 = py - __ldg(b + 2);
-    const float d2 = pz - __ldg(b + 3);
-    const float m00 = __ldg(b + 4), m10 = __ldg(b + 5), m11 = __ldg(b + 6);
-    const float m20 = __ldg(b + 7), m21 = __ldg(b + 8), m22 = __ldg(b + 9);
-    const float z0 = m00 * d0;
-    const float z1 = m10 * d0 + m11 * d1;
-    const float z2 = m20 * d0 + m21 * d1 + m22 * d2;
-    const float q = z0 * z0 + z1 * z1 + z2 * z2;
-    const float wd = __ldg(b) * m00 * m11 * m22;
-    lw[k] = wd > 0.0f ? logf(fmaxf(wd, 1e-38f)) - 0.5f * q : NEG;
-    const float cl = fminf(1.0f, 3.0f / sqrtf(fmaxf(q, 1e-30f)));
-    tm0[k] = cl * (__ldg(b + 10) * d0 + __ldg(b + 11) * d1 + __ldg(b + 12) * d2);
-    tm1[k] = cl * (__ldg(b + 13) * d0 + __ldg(b + 14) * d1 + __ldg(b + 15) * d2);
-    lmax = fmaxf(lmax, lw[k]);
-  }
-  // fmaxf drops NaN operands where jnp.maximum propagates them; a NaN
-  // log-weight can only come from a NaN table row, which pack_guided_rows
-  // never writes for a live component.
-  const bool cond_valid = (lmax > 0.5f * NEG) && (lmax < -NEG);
-  const float lref = cond_valid ? lmax : 0.0f;
-
-  // ---- pass 2: normalised weights (kept in lw) ----
-  float total = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float w = lw[k] > 0.5f * NEG ? expf(fmaxf(lw[k] - lref, -80.0f)) : 0.0f;
-    lw[k] = w;
-    total += w;
-  }
-  const float inv_total = cond_valid ? 1.0f / fmaxf(total, 1e-38f) : 0.0f;
-
-  // ---- pass 3: zero out-of-range conditional means, CDF selection ----
-  float cdf = 0.0f;
-  int sel = 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float ln = sqrtf(fmaxf(tm0[k] * tm0[k] + tm1[k] * tm1[k], 0.0f));
-    lw[k] = ln < PI_F ? lw[k] * inv_total : 0.0f;
-    cdf += lw[k];
-    sel += u_sel > cdf ? 1 : 0;
-  }
-  sel = min(sel, K - 1);
-  float sel_tm0 = 0.0f, sel_tm1 = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    sel_tm0 = k == sel ? tm0[k] : sel_tm0;
-    sel_tm1 = k == sel ? tm1[k] : sel_tm1;
-  }
-  const float* bs = row + sel * RPK;
-  float smu[3];
-  cond_mean(sel_tm0, sel_tm1, __ldg(bs + 16), __ldg(bs + 17), __ldg(bs + 18), smu);
-  const float sc00 = __ldg(bs + 19), sc10 = __ldg(bs + 20), sc11 = __ldg(bs + 21);
-
-  // ---- Box-Muller sample in the selected component's tangent frame ----
-  const float r = sqrtf(fmaxf(0.0f, -2.0f * logf(1.0f - fminf(u_r, 1.0f - 1e-7f))));
-  float sth, cth;  // sin and cos of 2 pi u_th
-  sincospif(2.0f * u_th, &sth, &cth);
-  const float zz0 = r * sth;
-  const float zz1 = r * cth;
-  const float t0 = sc00 * zz0;
-  const float t1 = sc10 * zz0 + sc11 * zz1;
-  const float lg = sqrtf(fmaxf(t0 * t0 + t1 * t1, 0.0f));
-  const bool g_ok = lg < PI_F;
-  float sg, rg2;
-  sinc_cos(lg, &sg, &rg2);
-  const float rg0 = t0 * sg, rg1 = t1 * sg;
-  float gs[3], gt[3];
-  coord_system(smu[0], smu[1], smu[2], gs, gt);
-  const float gx = gs[0] * rg0 + gt[0] * rg1 + smu[0] * rg2;
-  const float gy = gs[1] * rg0 + gt[1] * rg1 + smu[1] * rg2;
-  const float gz = gs[2] * rg0 + gt[2] * rg1 + smu[2] * rg2;
-
-  // ---- pass 4: mixture pdf at both candidate directions ----
-  float pdf_g = 0.0f, pdf_b = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float* b = row + k * RPK;
-    float mu[3], fs[3], ft[3];
-    cond_mean(tm0[k], tm1[k], __ldg(b + 16), __ldg(b + 17), __ldg(b + 18), mu);
-    coord_system(mu[0], mu[1], mu[2], fs, ft);
-    const float c00 = __ldg(b + 19), c10 = __ldg(b + 20), c11 = __ldg(b + 21);
-    const float i00 = 1.0f / c00;
-    const float i11 = 1.0f / c11;
-    const float i10 = -c10 * i00 * i11;
-    const float inv_det = i00 * i11;
-    pdf_g += lw[k] * log_map_pdf(fs, ft, mu, gx, gy, gz, i00, i10, i11, inv_det);
-    pdf_b += lw[k] * log_map_pdf(fs, ft, mu, bx, by, bz, i00, i10, i11, inv_det);
-  }
-
-  const bool init = __ldg(row + NROWS - 1) > 0.5f;
-  dg[3 * i] = gx;
-  dg[3 * i + 1] = gy;
-  dg[3 * i + 2] = gz;
-  misc[i] = make_float4(g_ok ? 1.0f : 0.0f, pdf_g, pdf_b,
-                        (cond_valid && init) ? 1.0f : 0.0f);
+  const guided::RowF32 row{table + (size_t)l * guided::NROWS};
+  const guided::TileOut g = guided::guided_tile(
+      row, pos[3 * i], pos[3 * i + 1], pos[3 * i + 2], wob[3 * i],
+      wob[3 * i + 1], wob[3 * i + 2], u[3 * i], u[3 * i + 1], u[3 * i + 2]);
+  dg[3 * i] = g.d[0];
+  dg[3 * i + 1] = g.d[1];
+  dg[3 * i + 2] = g.d[2];
+  misc[i] = make_float4(g.g_ok ? 1.0f : 0.0f, g.pdf_g, g.pdf_b,
+                        (g.cond_valid && g.init) ? 1.0f : 0.0f);
 }
 
 }  // namespace

@@ -20,7 +20,10 @@ import torch
 
 from ..core.device import resolve_device
 from ..ops import guided_sample as gso
-from ..render.guided import GuideState, render_pool_guided
+from ..render.guided import (
+    GuideState, guided_fused_supported, render_pool_guided,
+    render_pool_guided_fused,
+)
 from ..scene.scene import scene_to
 from ..utils.stats import trainer_counters
 from . import em as em_mod
@@ -168,7 +171,10 @@ class SDMMTrainer:
 
     def render_iteration(self, collect: bool, spp: int | None = None):
         """Render ``spp`` (default samples_per_iteration) spp on the guided
-        lane pool; returns (image, sqr, weight, sample batches)."""
+        lane pool; returns (image, sqr, weight, sample batches). A frozen
+        iteration (``collect=False``) on the card takes the fused trace +
+        shade pool where the scene allows it, as the reference does on its
+        accelerator."""
         rc, c = self.render_cfg, self.cfg
         spp = c.samples_per_iteration if spp is None else spp
         w, h = rc.width, rc.height
@@ -178,6 +184,16 @@ class SDMMTrainer:
                 "images above 2^20 pixels take the scan tracer, not ported")
         gs = self.guide_state()
         lanes = min(c.rays_per_wave * 2, n_pix * spp)
+        if not collect and self.device.type == "cuda" and \
+                guided_fused_supported(self.scene, rc, gs):
+            out = render_pool_guided_fused(
+                self.scene, gs, _seeded(self.device, c.seed, self.iteration),
+                n_lanes=max(2048, lanes // 2048 * 2048), spp=spp, width=w,
+                height=h, max_depth=rc.max_depth, rr_depth=rc.rr_depth,
+                bsdf_fraction=c.bsdf_fraction,
+                bsdf_types=tuple(rc.bsdf_types), fov_axis=rc.fov_axis,
+                device=self.device)
+            return self._frozen_result(out, n_pix * spp)
         cap = 0
         if collect:
             cap = min(c.sample_capacity,
@@ -193,16 +209,22 @@ class SDMMTrainer:
             collect_cap=cap, saved_samples_per_path=c.saved_samples_per_path,
             device=self.device,
         )
-        n_paths = max(1, n_pix * spp)
+        if not collect:
+            return self._frozen_result(out, n_pix * spp)
+        self._last_mean_path_length = float(out["n_vertices"]) / max(
+            1, n_pix * spp)
+        return out["image"], out["sqr"], out["weight"], [out["samples"]]
+
+    def _frozen_result(self, out, n_paths: int):
+        """Counters of a frozen iteration; returns its render outputs."""
+        n_paths = max(1, n_paths)
         n_vertices = float(out["n_vertices"])
         self._last_mean_path_length = n_vertices / n_paths
-        if not collect:
-            self.counters["avg_path_length"].add(n_vertices, n_paths)
-            self._last_samples_count = 0
-            self.counters["avg_found_conditional"].add(
-                float(out["n_cond_ok"]), max(1, int(out["n_cond_try"])))
-            return out["image"], out["sqr"], out["weight"], []
-        return out["image"], out["sqr"], out["weight"], [out["samples"]]
+        self.counters["avg_path_length"].add(n_vertices, n_paths)
+        self._last_samples_count = 0
+        self.counters["avg_found_conditional"].add(
+            float(out["n_cond_ok"]), max(1, int(out["n_cond_try"])))
+        return out["image"], out["sqr"], out["weight"], []
 
     def _compact(self, mask, rcap, *arrays):
         """Fixed-size compaction of the rows where ``mask``; returns

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the root
-of the checkout, keyed by a hash of the source and the flags, then loaded
-with ``ctypes``. Nothing is compiled when the package is imported: the
-first launch (or ``build_all``) compiles.
+of the checkout, keyed by a hash of the source, the shared headers
+``csrc/*.cuh`` and the flags, then loaded with ``ctypes``. Nothing is
+compiled when the package is imported: the first launch (or ``build_all``)
+compiles.
 """
 
 from __future__ import annotations
@@ -38,9 +39,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    """The library of ``csrc/<name>.cu``, keyed by the source, every shared
+    header ``csrc/*.cuh`` it may include, and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -54,7 +59,8 @@ def _start(name: str):
     log = out.with_suffix(".log").open("w")
     try:
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT)
     finally:
         log.close()
@@ -92,6 +98,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _loaded[name] = lib
     return lib
+
+
+def check_inputs(kernel: str, specs):
+    """Raise ``ValueError`` unless every ``(name, tensor, shape, dtype)`` of
+    ``specs`` is a contiguous CUDA tensor of that dtype and shape on the
+    first one's device."""
+    dev = specs[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: tensors on {dev}: the kernel takes CUDA "
+                         "tensors, the plain twin CPU tensors")
+    for name, t, shape, dt in specs:
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous {dt} tensor of shape "
+                f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
 
 
 def check(rc: int, name: str):

@@ -172,17 +172,11 @@ def suffstats(samples, tile_leaf, tile_off, params, n_leaves: int):
     """Launch the two kernels on tiled samples; returns [L, K, 21]."""
     cap_tiles = tile_leaf.shape[0]
     dev = samples.device
-    for name, t, shape, dt in (
-            ("samples", samples, (ROWS, cap_tiles * TILE), torch.float32),
-            ("tile_leaf", tile_leaf, (cap_tiles,), torch.int32),
-            ("tile_off", tile_off, (n_leaves + 1,), torch.int32),
-            ("params", params, (n_leaves + 1, K, PARAM_COLS), torch.float32)):
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"em_suffstats: {name} must be a contiguous {dt} tensor of "
-                f"shape {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
+    _build.check_inputs("em_suffstats", (
+        ("samples", samples, (ROWS, cap_tiles * TILE), torch.float32),
+        ("tile_leaf", tile_leaf, (cap_tiles,), torch.int32),
+        ("tile_off", tile_off, (n_leaves + 1,), torch.int32),
+        ("params", params, (n_leaves + 1, K, PARAM_COLS), torch.float32)))
     partial = torch.empty((cap_tiles, K, NSTAT), device=dev)
     out = torch.empty((n_leaves, K, NSTAT), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -218,18 +218,12 @@ def guided_sample(table: torch.Tensor, leaf: torch.Tensor, pos: torch.Tensor,
             rows_t, pos.T, wo_b.T, u.T)
         return d.T, g_ok, pdf_g, pdf_b, valid
     n = leaf.shape[0]
-    for name, t, shape, dt in (
-            ("table", table, (table.shape[0], N_ROWS), torch.float32),
-            ("leaf", leaf, (n,), torch.int32),
-            ("pos", pos, (n, 3), torch.float32),
-            ("wo_b", wo_b, (n, 3), torch.float32),
-            ("u", u, (n, 3), torch.float32)):
-        if (t.device != table.device or t.dtype != dt
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"guided_sample: {name} must be a contiguous {dt} tensor of "
-                f"shape {shape} on {table.device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
+    _build.check_inputs("guided_sample", (
+        ("table", table, (table.shape[0], N_ROWS), torch.float32),
+        ("leaf", leaf, (n,), torch.int32),
+        ("pos", pos, (n, 3), torch.float32),
+        ("wo_b", wo_b, (n, 3), torch.float32),
+        ("u", u, (n, 3), torch.float32)))
     dg = torch.empty((n, 3), dtype=torch.float32, device=table.device)
     misc = torch.empty((n, 4), dtype=torch.float32, device=table.device)
     if n > 0:

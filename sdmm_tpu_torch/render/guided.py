@@ -1,14 +1,17 @@
 """Guided path tracer with SDMM directional sampling and training-vertex
 collection: the regenerating lane pool (port of sdmm_tpu/render/guided.py
-``GuideState``, ``canonical``, ``render_pool_guided`` and
-``_finalize_collect``, without media and learned-BSDF products).
+``GuideState``, ``canonical``, ``render_pool_guided``,
+``_finalize_collect``, ``guided_fused_supported`` and
+``render_pool_guided_fused``, without media and learned-BSDF products).
 
 Every pool step traces one bounce for all lanes; dead lanes restart on the
 next camera sample of a global counter until ``spp`` samples per pixel are
-spent. Guided sampling (conditioning + sample + pdf) runs through
-``ops.guided_sample``: the CUDA kernel for tensors on the card, its plain
-twin on the CPU. NEE is compiled out (MIS weight 1 on emitter hits), as in
-the reference package's guided path.
+spent. ``render_pool_guided`` is the eager pool: guided sampling
+(conditioning + sample + pdf) runs through ``ops.guided_sample``, the CUDA
+kernel for tensors on the card and its plain twin on the CPU.
+``render_pool_guided_fused`` is the frozen-model pool on the fused
+``ops.guided_step`` kernels (trace + shade). NEE is compiled out (MIS weight
+1 on emitter hits), as in the reference package's guided path.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from ..core.device import resolve_device
 from ..core.frame import to_local, to_world
 from ..guiding import mixture as mix
 from ..guiding import stree
+from ..ops import bounce as bo
 from ..ops import guided_sample as gso
+from ..ops import guided_step as gst
 from ..scene import emitters
 from ..scene.scene import scene_to
 from ..scene.sensor import generate_rays
@@ -339,4 +344,132 @@ def _finalize_collect(samp, path_rad, cursor, S: int) -> dict:
         "weight": torch.where(valid, w, -1.0),
         "valid": valid,
         "terminal": terminal,
+    }
+
+
+def guided_fused_supported(scene, cfg, gs: GuideState) -> bool:
+    """Whether ``render_pool_guided_fused`` can render ``scene``: in-kernel
+    BSDF types only, a triangle table within MAX_TRIS and a pixel index
+    that fits the meta word. The port's scenes hold no textures, media,
+    point lights or environment maps, and its guide state no learned BSDF,
+    so the reference gate's other terms hold by construction."""
+    return bool(
+        gs.kernel_table is not None
+        and len(cfg.bsdf_types) > 0
+        and all(t in bo.SUPPORTED_TYPES for t in cfg.bsdf_types)
+        and scene.tri_v0.shape[0] <= bo.MAX_TRIS
+        and cfg.width * cfg.height <= bo._PIX_MASK
+    )
+
+
+INNER = 4  # pool steps per host check of the loop condition and film add
+
+
+def render_pool_guided_fused(
+    scene,
+    gs: GuideState,
+    generator: torch.Generator,
+    n_lanes: int,
+    spp: int,
+    width: int,
+    height: int,
+    max_depth: int = 10,
+    rr_depth: int = 10,
+    bsdf_fraction: float = 0.5,
+    bsdf_types: tuple = (0,),
+    fov_axis: str = "x",
+    device: str | torch.device = "cuda",
+):
+    """Frozen-model guided render on the fused kernels: per pool step,
+    regenerate dead lanes, ``trace``, leaf lookup, ``shade`` on the bf16
+    conditioning table. The same estimator as ``render_pool_guided``
+    (the pdf in the MIS weight comes from the same rounded rows the sample
+    was drawn from, so it stays unbiased); callers pass
+    ``guided_fused_supported`` scenes. Returns the same dict (without
+    training vertices)."""
+    if n_lanes <= 0:
+        raise ValueError("n_lanes must be positive")
+    dev = resolve_device(device)
+    scene = scene_to(scene, dev)
+    gs = gs.to(dev)
+    n_pix = width * height
+    if n_pix > bo._PIX_MASK:
+        raise ValueError(f"{n_pix} pixels do not fit the lane meta word")
+    if max_depth > bo._DEPTH_MASK + 1:
+        raise ValueError(f"max_depth {max_depth} > {bo._DEPTH_MASK + 1}")
+    total = n_pix * spp
+    N = n_lanes
+    tri_rows, _, env_row = bo.build_tables(scene)
+    kt16 = gs.kernel_table.to(torch.bfloat16).contiguous()
+    types = tuple(bsdf_types)
+
+    film = torch.zeros((n_pix, 7), device=dev)
+    cursor = torch.zeros((), dtype=torch.int64, device=dev)
+    state = torch.zeros((16, N), device=dev)
+    state[5] = 1.0
+    state[6:9] = 1.0
+    state[12] = 1.0
+    meta = torch.zeros(N, dtype=torch.int32, device=dev)
+    # Rows 6-15 of a fresh lane's state: throughput 1, radiance 0, eta² 1,
+    # rows 13-15 zero.
+    fresh_tail = torch.zeros((10, N), device=dev)
+    fresh_tail[0:3] = 1.0
+    fresh_tail[6] = 1.0
+    # n_vert, n_cond_try, n_cond_ok: float64, exact past 2^24.
+    sums = torch.zeros(3, dtype=torch.float64, device=dev)
+    depth_bits = bo._DEPTH_MASK << bo._DEPTH_SHIFT
+    steps = 0
+    while bool((((meta & bo._ALIVE) != 0) | ((meta & bo._EXH) == 0)).any()):
+        pix_list, row_list = [], []
+        for _ in range(INNER):
+            rnd = torch.rand((2 + gst.RAND_ROWS, N), generator=generator,
+                             device=dev)
+            alive = (meta & bo._ALIVE) != 0
+            exhausted = (meta & bo._EXH) != 0
+            pix = (meta & bo._PIX_MASK).long()
+
+            # --- Regenerate dead lanes from the global sample counter ---
+            need = ~alive & ~exhausted
+            rank = torch.cumsum(need.long(), 0) - 1
+            g = cursor + rank
+            start = need & (g < total)
+            pix_n = torch.where(start, g % n_pix, 0)
+            px = (pix_n % width).float() + rnd[0]
+            py = (pix_n // width).float() + rnd[1]
+            ro_n, rd_n = generate_rays(scene, torch.stack([px, py], -1),
+                                       width, height, fov_axis)
+            exhausted = exhausted | (need & ~start)
+            cursor = cursor + start.sum()
+            pix = torch.where(start, pix_n, pix)
+            fresh = torch.cat([ro_n.T, rd_n.T, fresh_tail], dim=0)
+            state = torch.where(start[None, :], fresh, state)
+            meta = (pix.to(torch.int32)
+                    | torch.where(alive | start, bo._ALIVE, 0)
+                    | torch.where(exhausted, bo._EXH, 0)
+                    | torch.where(start, 0, meta & depth_bits)
+                    ).to(torch.int32)
+
+            # --- trace, leaf lookup, shade ---
+            state, hit = gst.trace(state, meta, tri_rows, env_row, types)
+            c_pos = canonical(gs, hit[0:3].T)
+            leaf = stree.find_leaf(gs.tables, c_pos).to(torch.int32)
+            state, meta, splat = gst.shade(
+                state, meta, hit, c_pos.T.contiguous(), leaf, kt16,
+                rnd[2:].contiguous(), types, max_depth, rr_depth,
+                bsdf_fraction)
+            sums = sums + splat[7:10].sum(dim=1, dtype=torch.float64)
+            pix_list.append(pix)
+            row_list.append(splat[0:7])
+        film.index_add_(0, torch.cat(pix_list),
+                        torch.cat(row_list, dim=1).T)
+        steps += 1
+
+    return {
+        "image": film[:, 0:3],
+        "sqr": film[:, 3:6],
+        "weight": film[:, 6],
+        "n_vertices": sums[0],
+        "steps": steps,
+        "n_cond_try": sums[1],
+        "n_cond_ok": sums[2],
     }

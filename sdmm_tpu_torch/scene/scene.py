@@ -3,8 +3,9 @@ sdmm_tpu/scene/scene.py, cut to what the guided training render reads).
 
 ``SceneData`` keeps the triangle arrays, the BSDF table of the four types
 the guided path supports in-kernel (diffuse, conductor, dielectric,
-roughconductor), the emitter radiance table, a constant environment, the
-camera and the scene AABB (the guiding normalization domain).
+roughconductor), the emitter radiance table with the power-weighted
+emissive-triangle distribution, a constant environment, the camera and the
+scene AABB (the guiding normalization domain).
 """
 
 from __future__ import annotations
@@ -45,6 +46,10 @@ class SceneData(NamedTuple):
     bsdf_eta: torch.Tensor  # [B]
     bsdf_k: torch.Tensor  # [B, 3]
     emitter_radiance: torch.Tensor  # [E, 3]
+    em_tri_idx: torch.Tensor  # [M] int32 triangle ids of emissive tris
+    em_tri_cdf: torch.Tensor  # [M] CDF over emissive tris (by power)
+    em_tri_pdf: torch.Tensor  # [M] discrete probability of each tri
+    em_tri_area: torch.Tensor  # [M]
     env_radiance: torch.Tensor  # [3] constant environment
     cam_to_world: torch.Tensor  # [4, 4]
     cam_tan_half_fov: torch.Tensor  # []
@@ -52,7 +57,13 @@ class SceneData(NamedTuple):
     aabb_hi: torch.Tensor  # [3]
 
 
-_INT_FIELDS = ("tri_bsdf", "tri_emitter", "bsdf_type")
+_INT_FIELDS = ("tri_bsdf", "tri_emitter", "bsdf_type", "em_tri_idx")
+
+
+def luminance(rgb):
+    """Relative luminance of linear RGB (the reference's getLuminance)."""
+    return rgb[..., 0] * 0.212671 + rgb[..., 1] * 0.715160 \
+        + rgb[..., 2] * 0.072169
 
 
 def scene_from_numpy(arrays: dict, device="cuda") -> SceneData:
@@ -159,6 +170,17 @@ class SceneBuilder:
         ng = np.cross(e1, e2)
         area2 = np.linalg.norm(ng, axis=-1)
         ng = ng / np.maximum(area2[:, None], 1e-20)
+        # Emissive triangle distribution, weighted by power (area x
+        # luminance), as the reference's power-weighted emitter CDF.
+        em_idx = np.nonzero(tri_emitter >= 0)[0].astype(np.int32)
+        if len(em_idx) > 0:
+            areas = 0.5 * area2[em_idx]
+            rad = np.array([self.emitters[tri_emitter[i]] for i in em_idx])
+            power = areas * np.maximum(luminance(rad), 1e-20)
+            pdf = power / power.sum()
+            cdf = np.cumsum(pdf)
+        else:
+            areas = pdf = cdf = np.zeros(0)
         if len(verts):
             pts = verts.reshape(-1, 3)
             aabb_lo, aabb_hi = pts.min(axis=0), pts.max(axis=0)
@@ -178,6 +200,8 @@ class SceneBuilder:
             bsdf_k=[b["k"] for b in self.bsdfs],
             emitter_radiance=(np.asarray(self.emitters).reshape(-1, 3)
                               if self.emitters else np.zeros((1, 3))),
+            em_tri_idx=em_idx, em_tri_cdf=cdf, em_tri_pdf=pdf,
+            em_tri_area=areas,
             env_radiance=(self.env_radiance if self.env_radiance is not None
                           else np.zeros(3)),
             cam_to_world=self.cam_to_world,

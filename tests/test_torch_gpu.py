@@ -9,17 +9,30 @@ Tolerances: guided sampling, directions 1e-4 absolute and pdfs rtol 2e-3 /
 atol 1e-5, each with ≤ 0.2% outliers (a u_sel within an ulp of a CDF step,
 the Duff-frame sign branch at mu_dir.z ≈ 0); EM statistics as in
 tests/test_em_pallas.py (rtol 2e-4 / 3e-4, atol 4e-4 of the magnitude:
-float32 sums in another order).
+float32 sums in another order); the fused bounce as in
+tests/test_torch_guided_step.py (trace: winner attributes exact, the rest
+rtol 1e-5; shade: state rtol 2e-4 / atol 1e-5, meta and splat equal; each
+on >= 99.8% of the lanes).
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from sdmm_tpu_torch.guiding import init as init_mod
-from sdmm_tpu_torch.guiding import mixture as mix
-from sdmm_tpu_torch.ops import em_suffstats as ems
-from sdmm_tpu_torch.ops import guided_sample as gso
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_parity import lane_wave, make_box  # noqa: E402
+
+from sdmm_tpu_torch.guiding import init as init_mod  # noqa: E402
+from sdmm_tpu_torch.guiding import mixture as mix  # noqa: E402
+from sdmm_tpu_torch.ops import bounce as bo  # noqa: E402
+from sdmm_tpu_torch.ops import em_suffstats as ems  # noqa: E402
+from sdmm_tpu_torch.ops import guided_sample as gso  # noqa: E402
+from sdmm_tpu_torch.ops import guided_step as gst  # noqa: E402
+from sdmm_tpu_torch.scene import scene as tscene  # noqa: E402
+from sdmm_tpu_torch.scene import shapes as tshapes  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -118,3 +131,66 @@ def test_em_suffstats_kernel_matches_twin(cuda, L, S):
                            (out[2], ref[2], 3e-4, 4e-4)):
         torch.testing.assert_close(a, b, rtol=rtol,
                                    atol=af * float(b.abs().max()) + 1e-12)
+
+
+def _wave(cuda, n, seed):
+    scene, cfg = make_box(tscene, tshapes, 16, 16, True).build(device=cuda)
+    tri, _, env = bo.build_tables(scene)
+    state, meta, rand = (torch.as_tensor(a, device=cuda)
+                         for a in lane_wave(n, seed, max_depth=10))
+    return scene, cfg.bsdf_types, tri, env, state, meta, rand
+
+
+# Lane counts that are no multiple of the 128-thread block.
+@pytest.mark.parametrize("n", [4_099, 50_003])
+def test_trace_kernel_matches_twin(cuda, n):
+    _, types, tri, env, state, meta, _ = _wave(cuda, n, 5)
+    before = gst.trace.launches
+    st_k, hit_k = gst.trace(state, meta, tri, env, types)
+    torch.cuda.synchronize()
+    assert gst.trace.launches == before + 1
+    st_p, hit_p = gst.trace_plain(state, meta, tri, env, types)
+    exact = [3, 4, 5] + list(range(9, 22))
+    ok = (hit_k[exact] == hit_p[exact]).all(0)
+    ok &= torch.isclose(hit_k, hit_p, rtol=1e-5, atol=1e-6).all(0)
+    ok &= torch.isclose(st_k, st_p, rtol=1e-5, atol=1e-6,
+                        equal_nan=True).all(0)
+    assert float(ok.float().mean()) >= 0.998
+    assert int((hit_p[21] > 0.5).sum()) > n // 4
+
+
+@pytest.mark.parametrize("n", [4_099, 50_003])
+def test_shade_kernel_matches_twin(cuda, n):
+    scene, types, tri, env, state, meta, rand = _wave(cuda, n, 6)
+    st, hit = gst.trace_plain(state, meta, tri, env, types)
+    L = 64
+    sdmm, init = _state(9, L, cuda)
+    table16 = gso.pack_guided_rows(mix.prepare(sdmm), sdmm.weight, init).T \
+        .to(torch.bfloat16).contiguous()
+    leaf = torch.as_tensor(np.random.RandomState(3).randint(0, L, n)
+                           .astype(np.int32), device=cuda)
+    cpos = ((hit[0:3].T - scene.aabb_lo) / 2.0).T.contiguous()
+    before = gst.shade.launches
+    out_k = gst.shade(st, meta, hit, cpos, leaf, table16, rand, types, 10, 5,
+                      0.5)
+    torch.cuda.synchronize()
+    assert gst.shade.launches == before + 1
+    out_p = gst.shade_plain(st, meta, hit, cpos,
+                            table16[leaf.long()].T.float(), rand, types, 10,
+                            5, 0.5)
+    for ok in (torch.isclose(out_k[0], out_p[0], rtol=2e-4, atol=1e-5,
+                             equal_nan=True).all(0),
+               out_k[1] == out_p[1], (out_k[2] == out_p[2]).all(0)):
+        assert float(ok.float().mean()) >= 0.998
+    assert int(out_p[2][9].sum()) > 0  # guided samples were drawn
+
+
+def test_guided_step_wrappers_reject_bad_inputs(cuda):
+    _, types, tri, env, state, meta, rand = _wave(cuda, 256, 7)
+    with pytest.raises(ValueError):
+        gst.trace(state, meta.long(), tri, env, types)  # meta not int32
+    table = torch.zeros((4, gso.N_ROWS), device=cuda)  # not bf16
+    with pytest.raises(ValueError):
+        gst.shade(state, meta, torch.zeros((gst.HIT_ROWS, 256), device=cuda),
+                  state[0:3].contiguous(), meta, table, rand, types, 10, 5,
+                  0.5)

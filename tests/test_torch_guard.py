@@ -17,6 +17,8 @@ from torch_parity import make_box  # noqa: E402
 
 from sdmm_tpu_torch.guiding import em as tem  # noqa: E402
 from sdmm_tpu_torch.guiding import trainer as ttrainer  # noqa: E402
+from sdmm_tpu_torch.ops import bounce as gbounce  # noqa: E402
+from sdmm_tpu_torch.ops import guided_step as gstep  # noqa: E402
 from sdmm_tpu_torch.render import guided as tguided  # noqa: E402
 from sdmm_tpu_torch.scene import scene as tscene  # noqa: E402
 from sdmm_tpu_torch.scene import shapes as tshapes  # noqa: E402
@@ -87,7 +89,26 @@ def test_entry_points_default_to_the_card(no_gpu):
                     torch.zeros(4), torch.zeros(4, dtype=torch.int32),
                     torch.zeros(8, dtype=torch.bool))
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        tguided.render_pool_guided_fused(scene, tr.guide_state(),
+                                         torch.Generator(), n_lanes=2048,
+                                         spp=1, width=8, height=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         make_box(tscene, tshapes, 8, 8).build()
+    # The kernel wrappers run the plain twin only for CPU tensors; any other
+    # device goes to the kernel, which takes CUDA tensors alone.
+    n = 128
+    state = torch.zeros((16, n), device="meta")
+    meta = torch.zeros(n, dtype=torch.int32, device="meta")
+    tri, _, env = gbounce.build_tables(scene)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gstep.trace(state, meta, tri.to("meta"), env.to("meta"), (0,))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gstep.shade(state, meta, torch.zeros((gstep.HIT_ROWS, n),
+                                             device="meta"),
+                    state[0:3], meta,
+                    torch.zeros((4, 353), dtype=torch.bfloat16,
+                                device="meta"),
+                    state[0:8], (0,), 10, 10, 0.5)
 
 
 @pytest.mark.parametrize("option", [

@@ -106,3 +106,33 @@ def make_mixture_state(seed=0, L=8, K=16):
     return {"weight": w.astype(np.float32),
             "mean": np.asarray(sdmm.mean, np.float32),
             "cov": cov.astype(np.float32), "initialized": initialized}
+
+
+def lane_wave(n, seed=0, n_pix=256, max_depth=5):
+    """A wave of n lanes for the fused bounce kernels, as numpy: state
+    [16, n] (a quarter camera rays into the box, the rest from random
+    points inside it in random directions; random throughput, radiance and
+    eta², a few NaN radiances), meta [n] (random pixel and depth, 85%
+    alive, 10% exhausted) and rand [8, n]."""
+    from sdmm_tpu_torch.ops import bounce as bo
+
+    rs = np.random.RandomState(seed)
+    lo = np.array([-0.95, 0.05, -0.95])
+    o = rs.rand(n, 3) * 1.9 + lo
+    d = rs.randn(n, 3)
+    cam = rs.rand(n) < 0.25
+    o[cam] = [0.0, 1.0, 4.0]
+    d[cam] = (rs.rand(n, 3) * 1.8 + lo)[cam] - o[cam]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    state = np.zeros((16, n), np.float32)
+    state[0:3] = o.T
+    state[3:6] = d.T
+    state[6:9] = rs.uniform(0.2, 1.5, (3, n))
+    state[9:12] = rs.uniform(0.0, 2.0, (3, n))
+    state[9, ::97] = np.nan
+    state[12] = rs.uniform(0.5, 2.0, n)
+    meta = (rs.randint(0, n_pix, n)
+            | rs.randint(0, max_depth, n) << bo._DEPTH_SHIFT
+            | np.where(rs.rand(n) < 0.85, bo._ALIVE, 0)
+            | np.where(rs.rand(n) < 0.1, bo._EXH, 0)).astype(np.int32)
+    return state, meta, rs.rand(8, n).astype(np.float32)
