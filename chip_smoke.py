@@ -13,7 +13,9 @@ Phases (any failure raises and the script exits non-zero):
   4. the fused guided bounce: trace and shade kernels vs their plain twins
      at 131,072 lanes on the Cornell box and on the four-type box (every
      in-kernel BSDF type), shade on a bf16 2048-leaf table; the twin's hit
-     buffer feeds both shade calls. Times by CUDA events on the Cornell box.
+     buffer feeds both shade calls. Kernel and twin may disagree on 1e-4 of
+     all lanes and on 1e-3 of each BSDF type's lanes. Times by CUDA events
+     on the Cornell box.
   5. the main path: SDMMTrainer(...).run on a programmatic Cornell box at
      640x360, max depth 10, TrainerConfig() defaults with tail_chunk_spp=16,
      64 spp (4 training iterations with EM on the eager pool, then the
@@ -73,6 +75,12 @@ TRACE_OPS_PER_LANE = 80
 # (VNDF sample, GGX eval, three Fresnel channels).
 SHADE_OPS_PER_LANE = GUIDED_OPS_PER_LANE + 200
 SHADE_OPS_BY_TYPE = {1: 60, 2: 45, 3: 170}
+# trace and shade against their twins: the share of lanes on which they may
+# disagree, over all lanes and within each group of lanes (each BSDF type the
+# twin's hit buffer names, and the lanes off any surface), so that a fault in
+# one branch of a rare type cannot hide among the diffuse lanes.
+MAX_OFF_SHARE = 1e-4
+MAX_OFF_SHARE_GROUP = 1e-3
 
 
 def check(cond, msg):
@@ -85,6 +93,22 @@ def nvidia_smi_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def agreement(name, ok, groups):
+    """Print and check the share of lanes where kernel and twin agree
+    (``ok`` [N] bool), overall and within each of ``groups``."""
+    shares = {g: float(ok[m].float().mean()) for g, m in groups.items()
+              if bool(m.any())}
+    overall = float(ok.float().mean())
+    print(f"  {name}: equal on {overall:.6f} of the lanes; by group "
+          + ", ".join(f"{g} {v:.6f} of {int(groups[g].sum())}"
+                      for g, v in shares.items()), flush=True)
+    check(overall >= 1.0 - MAX_OFF_SHARE, f"{name}: kernel and twin disagree")
+    for g, v in shares.items():
+        check(v >= 1.0 - MAX_OFF_SHARE_GROUP,
+              f"{name}: kernel and twin disagree on {g}")
+    return overall
 
 
 def time_ms(fn, reps=20, graph=False):
@@ -401,15 +425,15 @@ def phase_guided_step(dev, width=640, height=360):
         on = hit_p[21] > 0.5
         n_types = {int(t): int(((hit_p[12] == t) & on).sum())
                    for t in range(4)}
+        groups = {f"type {t}": on & (hit_p[12] == t) for t in types}
+        groups["off surface"] = ~on
         print(f"trace [{scene_name}, {tri.shape[1]} triangles]: lanes on a "
               f"surface {int(on.sum())}/{N} by type {n_types}; winner "
-              f"attributes equal {float(ok_exact.float().mean()):.6f}, all "
-              f"rows within rtol 1e-5 {float(ok_t.float().mean()):.6f}, "
+              f"attributes equal {float(ok_exact.float().mean()):.6f}, "
               f"max|hit position err| {err_t:.3g}", flush=True)
-        check(float(ok_t.float().mean()) >= 0.998, "trace: kernel and twin "
-              "disagree")
         check(all(n_types[t] > 0 for t in types), "trace: a BSDF type was "
               "never hit")
+        agreement("trace, all rows within rtol 1e-5", ok_t, groups)
 
         # Shade from the twin's hit buffer, so errors do not compound.
         rs = np.random.RandomState(31 + extra)
@@ -429,15 +453,13 @@ def phase_guided_step(dev, width=640, height=360):
         ok_sp = (out_k[2] == out_p[2]).all(0)
         fin = torch.isfinite(out_p[0]) & torch.isfinite(out_k[0])
         err_s = float((out_k[0] - out_p[0]).abs()[fin & ok_m[None]].max())
-        shares = [float(x.float().mean()) for x in (ok_s, ok_m, ok_sp)]
         sp = out_p[2].sum(1)
-        print(f"shade [{scene_name}]: state/meta/splat equal on "
-              f"{shares[0]:.6f}/{shares[1]:.6f}/{shares[2]:.6f} of the "
-              f"lanes; max|state err| on lanes with equal meta {err_s:.3g}; "
-              f"done {int(sp[6])}, on surface {int(sp[7])}, cond tries "
-              f"{int(sp[8])}, cond ok {int(sp[9])}", flush=True)
-        check(all(x >= 0.998 for x in shares), "shade: kernel and twin "
-              "disagree")
+        print(f"shade [{scene_name}]: max|state err| on lanes with equal "
+              f"meta {err_s:.3g}; done {int(sp[6])}, on surface {int(sp[7])}"
+              f", cond tries {int(sp[8])}, cond ok {int(sp[9])}", flush=True)
+        for what, ok in (("state (rtol 2e-4, atol 1e-5)", ok_s),
+                         ("meta", ok_m), ("splat", ok_sp)):
+            agreement(f"shade {what}", ok, groups)
         check(bool(torch.isfinite(out_k[2]).all()), "shade: splat not finite")
         check(0 < int(sp[9]) <= int(sp[8]), "shade: comparison is vacuous")
         if scene_name != "cornell":
@@ -454,10 +476,19 @@ def phase_guided_step(dev, width=640, height=360):
             st_p, meta, hit_p, cpos, table16[leaf.long()].T.float(), rand,
             types, max_depth, rr_depth, frac), reps=5)
         n_tris = tri.shape[1]
-        b_t = (N * (16 * 4 + 4) + tri.numel() * 4 + env.numel() * 4
+        # trace reads every state row (0-15) and meta per lane, triangle
+        # rows 0-26 and 28-39 once (the Woop rows and the attributes; not
+        # 27, the NEE pdf, nor 40-42), the env row's three entries; it
+        # writes 16 state rows and 22 hit rows.
+        b_t = (N * (16 * 4 + 4) + 39 * n_tris * 4 + 3 * 4
                + N * (16 + gst.HIT_ROWS) * 4)
         o_t = N * (n_tris * TRACE_OPS_PER_TRI + TRACE_OPS_PER_LANE)
-        b_s = (N * (16 * 4 + 4 + gst.HIT_ROWS * 4 + 12 + 4
+        # shade reads state rows 3-12 (direction, throughput, radiance,
+        # eta²; rows 0-2 of the new state come from the hit buffer and rows
+        # 13-15 are never read), meta, 22 hit rows, 3 cpos rows, the leaf
+        # index, 8 rand rows and the bf16 table once; it writes 16 state
+        # rows, meta and 10 splat rows.
+        b_s = (N * (10 * 4 + 4 + gst.HIT_ROWS * 4 + 3 * 4 + 4
                     + gst.RAND_ROWS * 4) + table16.numel() * 2
                + N * (16 * 4 + 4 + gst.SPLAT_ROWS * 4))
         o_s = N * SHADE_OPS_PER_LANE + sum(

@@ -3,10 +3,12 @@
 // Device counterparts of the helpers of sdmm_tpu/ops/bounce_pallas.py
 // (_woop_tri, _coordinate_system, _disk_concentric, _fresnel_dielectric,
 // _fresnel_conductor_1, _ggx_d, _smith_g1, _sample_vndf, _vndf_pdf); their
-// plain PyTorch twins are in ops/bounce.py. Each is the reference's math
-// line for line on one lane's scalars. sin and cos go through sincospif,
-// whose argument reduction is exact in units of pi: sinf and cosf would
-// compile a Payne-Hanek slow path with a local-memory scratch array.
+// plain PyTorch twins are in ops/bounce.py, core/frame.py, core/warp.py and
+// bsdf/fresnel.py. guided_tile.cuh takes its frame and constants from here.
+// Each is the reference's math line for line on one lane's scalars. sin and
+// cos go through sincospif, whose argument reduction is exact in units of
+// pi: sinf and cosf would compile a Payne-Hanek slow path with a
+// local-memory scratch array.
 
 #pragma once
 

@@ -17,18 +17,25 @@
 // (bounce_math.cuh woop_tri), so kernel and twin pick the same winner. The
 // reference re-sweeps all triangles to select the winner's attributes
 // because a TPU tile cannot gather; here the thread reads the winner's
-// attribute column once by its index. Bound: per lane 16 + 1 state rows in
-// and 16 + 22 rows out (220 bytes) against ~60 operations per triangle;
-// with tens of triangles the sweep's operations bound it.
+// attribute column once by its index. Bound: per lane the 16 state rows
+// and meta in, 16 state and 22 hit rows out (220 bytes), against ~60
+// operations per triangle and ~80 after the sweep. On an H100 (3.35 TB/s,
+// 67 TFLOP/s FP32) bytes bound it up to ~72 triangles: at the Cornell box's
+// 36 and 131,072 lanes, 28.8 MB or 8.6 us against 2.9e8 operations or
+// 4.4 us (chip_smoke.py computes both from the run).
 //
 // shade_kernel. Shading frame, the BSDF sample of the lane's type (a
 // run-time branch where the reference specialised on the scene's type set;
 // a lane's results are the same), guided_tile.cuh on the lane's leaf row
 // read as bfloat16 straight from the [L, 353] table (no gathered row
 // matrix; the table stays in L2), the one-sample MIS combine, Russian
-// roulette, the 10 splat rows and the new meta word. Bound: ~4,300
-// operations per lane (the mixture's 16 components dominate) against 296
-// bytes, so operations bound it.
+// roulette, the 10 splat rows and the new meta word. Bound: per lane it
+// reads state rows 3-12 (40 bytes: direction, throughput, radiance, eta^2),
+// meta, 22 hit rows, cpos, leaf and 8 rand rows, and writes 16 state rows,
+// meta and 10 splat rows: 288 bytes, plus the bf16 table once (1.4 MB at
+// 2048 leaves). Against ~4,100 operations per lane (the mixture's 16
+// components dominate) bytes bound it: at 131,072 lanes 39.2 MB or 11.7 us
+// against 5.4e8 operations or 8.0 us (chip_smoke.py computes both).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -22,13 +22,17 @@
 
 #include <stdint.h>
 
+#include "bounce_math.cuh"
+
 namespace guided {
+
+using bounce::coordinate_system;
+using bounce::INV_PI;
+using bounce::PI_F;
 
 constexpr int K = 16;
 constexpr int RPK = 22;
 constexpr int NROWS = K * RPK + 1;
-constexpr float PI_F = 3.141592653589793f;
-constexpr float INV_PI = 0.3183098861837907f;
 constexpr float INV_TWO_PI = 0.15915494309189535f;
 constexpr float NEG = -1.0e30f;
 
@@ -71,20 +75,6 @@ __device__ __forceinline__ float acos_cubic(float x) {
   return x >= 0.0f ? ang : PI_F - ang;
 }
 
-// Duff et al. branchless frame (s, t) around unit m.
-__device__ __forceinline__ void coord_system(float mx, float my, float mz,
-                                             float s[3], float t[3]) {
-  const float sign = mz >= 0.0f ? 1.0f : -1.0f;
-  const float a = -1.0f / (sign + mz);
-  const float b = mx * my * a;
-  s[0] = 1.0f + sign * mx * mx * a;
-  s[1] = sign * b;
-  s[2] = -sign * mx;
-  t[0] = b;
-  t[1] = sign + my * my * a;
-  t[2] = -my;
-}
-
 // Conditional mean direction of one component: exp map of (tm0, tm1) in the
 // frame of its unit mean direction md.
 __device__ __forceinline__ void cond_mean(float tm0, float tm1, float mdx,
@@ -94,7 +84,7 @@ __device__ __forceinline__ void cond_mean(float tm0, float tm1, float mdx,
   sinc_cos(ln, &s_, &rel2);
   const float rel0 = tm0 * s_, rel1 = tm1 * s_;
   float cs[3], ct[3];
-  coord_system(mdx, mdy, mdz, cs, ct);
+  coordinate_system(mdx, mdy, mdz, cs, ct);
   mu[0] = cs[0] * rel0 + ct[0] * rel1 + mdx * rel2;
   mu[1] = cs[1] * rel0 + ct[1] * rel1 + mdy * rel2;
   mu[2] = cs[2] * rel0 + ct[2] * rel1 + mdz * rel2;
@@ -212,7 +202,7 @@ __device__ __forceinline__ TileOut guided_tile(const Row& row, float px,
   sinc_cos(lg, &sg, &rg2);
   const float rg0 = t0 * sg, rg1 = t1 * sg;
   float gs[3], gt[3];
-  coord_system(smu[0], smu[1], smu[2], gs, gt);
+  coordinate_system(smu[0], smu[1], smu[2], gs, gt);
   const float gx = gs[0] * rg0 + gt[0] * rg1 + smu[0] * rg2;
   const float gy = gs[1] * rg0 + gt[1] * rg1 + smu[1] * rg2;
   const float gz = gs[2] * rg0 + gt[2] * rg1 + smu[2] * rg2;
@@ -224,7 +214,7 @@ __device__ __forceinline__ TileOut guided_tile(const Row& row, float px,
     const int b = k * RPK;
     float mu[3], fs[3], ft[3];
     cond_mean(tm0[k], tm1[k], row(b + 16), row(b + 17), row(b + 18), mu);
-    coord_system(mu[0], mu[1], mu[2], fs, ft);
+    coordinate_system(mu[0], mu[1], mu[2], fs, ft);
     const float c00 = row(b + 19), c10 = row(b + 20), c11 = row(b + 21);
     const float i00 = 1.0f / c00;
     const float i11 = 1.0f / c11;

@@ -123,6 +123,14 @@ def build_tables(scene):
 
 
 # ---- plain per-lane helpers (twins of csrc/bounce_math.cuh) ----
+#
+# The twins of coordinate_system, disk_concentric, fresnel_dielectric and
+# fresnel_conductor_1 are the port's core/frame.py, core/warp.py and
+# bsdf/fresnel.py functions, whose math is the same line for line. The
+# helpers below have no such counterpart: the Woop test, and GGX in the
+# per-lane scalar form of bounce_pallas (bsdf/microfacet.py works on stacked
+# local vectors, and its sample_vndf normalises by division where the
+# kernel takes rsqrt).
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -146,69 +154,6 @@ def _woop_tri(rox, roy, roz, rdx, rdy, rdz, tri, j):
         b3 * rdx + b4 * rdy + b5 * rdz)
     ok = good & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
     return t, u, v, ok
-
-
-def _coordinate_system(nx, ny, nz):
-    """Duff et al. branchless orthonormal basis (s, t) around n."""
-    sign = torch.where(nz >= 0.0, 1.0, -1.0)
-    a = -1.0 / (sign + nz)
-    b = nx * ny * a
-    return (1.0 + sign * nx * nx * a, sign * b, -sign * nx,
-            b, sign + ny * ny * a, -ny)
-
-
-def _disk_concentric(u0, u1):
-    """Shirley's concentric square → disk map."""
-    ox = 2.0 * u0 - 1.0
-    oy = 2.0 * u1 - 1.0
-    zero = (ox == 0.0) & (oy == 0.0)
-    cond = ox.abs() > oy.abs()
-    r = torch.where(cond, ox, oy)
-    safe_div = torch.where(
-        cond,
-        torch.where(ox != 0.0, oy / torch.where(ox == 0.0, 1.0, ox), 0.0),
-        torch.where(oy != 0.0, ox / torch.where(oy == 0.0, 1.0, oy), 0.0),
-    )
-    theta = torch.where(cond, (PI / 4.0) * safe_div,
-                        (PI / 2.0) - (PI / 4.0) * safe_div)
-    r = torch.where(zero, 0.0, r)
-    return r * torch.cos(theta), r * torch.sin(theta)
-
-
-def _fresnel_dielectric(cos_i, eta):
-    """Dielectric Fresnel with a per-lane scalar eta. Returns
-    (F, cos_t, eta_it, eta_ti); cos_t carries -sign(cos_i), 0 at 0."""
-    outside = cos_i >= 0.0
-    rcp = 1.0 / eta
-    eta_it = torch.where(outside, eta, rcp)
-    eta_ti = torch.where(outside, rcp, eta)
-    cos_t2 = 1.0 - eta_ti * eta_ti * (1.0 - cos_i * cos_i)
-    aci = cos_i.abs()
-    cos_t = torch.sqrt(cos_t2.clamp_min(0.0))
-    rs = (aci - eta_it * cos_t) / (aci + eta_it * cos_t).clamp_min(1e-12)
-    rp = (eta_it * aci - cos_t) / (eta_it * aci + cos_t).clamp_min(1e-12)
-    f = 0.5 * (rs * rs + rp * rp)
-    f = torch.where(cos_t2 <= 0.0, 1.0, f)
-    cos_t = torch.where(cos_t2 <= 0.0, 0.0, -torch.sign(cos_i) * cos_t)
-    return f, cos_t, eta_it, eta_ti
-
-
-def _fresnel_conductor_1(cos_i, eta, k):
-    """One channel of the conductor Fresnel term."""
-    c2 = cos_i * cos_i
-    s2 = 1.0 - c2
-    e2 = eta * eta
-    k2 = k * k
-    t0 = e2 - k2 - s2
-    a2b2 = torch.sqrt((t0 * t0 + 4.0 * e2 * k2).clamp_min(0.0))
-    t1 = a2b2 + c2
-    a = torch.sqrt((0.5 * (a2b2 + t0)).clamp_min(0.0))
-    t2 = 2.0 * a * cos_i.abs()
-    rs = (t1 - t2) / (t1 + t2).clamp_min(1e-12)
-    t3 = c2 * a2b2 + s2 * s2
-    t4 = t2 * s2
-    rp = rs * (t3 - t4) / (t3 + t4).clamp_min(1e-12)
-    return 0.5 * (rp + rs)
 
 
 def _ggx_d(mz, alpha):

@@ -26,10 +26,12 @@ import ctypes
 
 import torch
 
+from ..bsdf import fresnel
+from ..core import frame, warp
 from . import _build
 from . import bounce as bo
 from .bounce import (
-    EPS, INF, INV_PI, RAY_EPS, T_CONDUCTOR, T_DIELECTRIC, T_DIFFUSE,
+    CHUNK, EPS, INF, INV_PI, RAY_EPS, T_CONDUCTOR, T_DIELECTRIC, T_DIFFUSE,
     T_ROUGHCONDUCTOR, _ALIVE, _DEPTH_MASK, _DEPTH_SHIFT, _EXH, _PIX_MASK,
     _TAL, _TALP, _TEM, _TETA, _TK, _TNG, _TNS, _TSP, _TTY, _dot3,
 )
@@ -59,13 +61,22 @@ def trace_plain(state, meta, tri_rows, env_row, types):
     bu = torch.zeros_like(rox)
     bv = torch.zeros_like(rox)
     bj = torch.full(rox.shape, -1, dtype=torch.long, device=rox.device)
-    for j in range(tri_rows.shape[1]):
-        t, u, v, okg = bo._woop_tri(rox, roy, roz, rdx, rdy, rdz, tri_rows, j)
-        better = okg & (t > EPS) & (t < best_t)
-        best_t = torch.where(better, t, best_t)
-        bu = torch.where(better, u, bu)
-        bv = torch.where(better, v, bv)
-        bj = torch.where(better, j, bj)
+    # The kernel's sweep in index order with a strict t < best_t picks the
+    # lowest index among equal t. Here each chunk of triangles is one
+    # [C, N] block: argmin takes the first minimum within it, and a strict
+    # < against the earlier chunks' best keeps their index on a tie.
+    for j0 in range(0, tri_rows.shape[1], CHUNK):
+        cols = tri_rows[:, j0:j0 + CHUNK, None]  # [43, C, 1]
+        t, u, v, okg = bo._woop_tri(rox, roy, roz, rdx, rdy, rdz, cols,
+                                    slice(None))
+        t = torch.where(okg & (t > EPS), t, INF)
+        jmin = t.argmin(0, keepdim=True)
+        tmin = t.gather(0, jmin)[0]
+        better = tmin < best_t
+        best_t = torch.where(better, tmin, best_t)
+        bu = torch.where(better, u.gather(0, jmin)[0], bu)
+        bv = torch.where(better, v.gather(0, jmin)[0], bv)
+        bj = torch.where(better, j0 + jmin[0], bj)
 
     hit_valid = best_t < INF
     # The winner's attribute columns; a miss keeps the defaults below.
@@ -130,7 +141,7 @@ def shade_plain(state, meta, hit, cpos, rows_t, rand, types, max_depth: int,
     b_nsx, b_nsy, b_nsz = hit[6:9]
     b_alr, b_alg, b_alb = hit[9:12]
     b_ty, b_alp, b_eta = hit[12], hit[13], hit[14]
-    b_kr, b_kg, b_kb = hit[15:18]
+    b_k = hit[15:18].T  # [N, 3]
     b_sr, b_sg, b_sb = hit[18:21]
     on_surface = alive & (hit[21] > 0.5)
     ones = torch.ones_like(px_)
@@ -145,7 +156,9 @@ def shade_plain(state, meta, hit, cpos, rows_t, rand, types, max_depth: int,
     cos_i_ns = -_dot3(b_nsx, b_nsy, b_nsz, rdx, rdy, rdz)
     flip = torch.where((cos_i_ns < 0.0) & ~is_diel, -1.0, 1.0)
     nx, ny, nz = b_nsx * flip, b_nsy * flip, b_nsz * flip
-    sx, sy, sz, tx_, ty_, tz_ = bo._coordinate_system(nx, ny, nz)
+    s_, t_ = frame.coordinate_system(torch.stack([nx, ny, nz], -1))
+    sx, sy, sz = s_.unbind(-1)
+    tx_, ty_, tz_ = t_.unbind(-1)
     wi_z = -_dot3(nx, ny, nz, rdx, rdy, rdz)
     wi_x = -_dot3(sx, sy, sz, rdx, rdy, rdz)
     wi_y = -_dot3(tx_, ty_, tz_, rdx, rdy, rdz)
@@ -154,7 +167,7 @@ def shade_plain(state, meta, hit, cpos, rows_t, rand, types, max_depth: int,
     delta_only = is_cond | is_diel
 
     # BSDF sample of the lane's type.
-    dxc, dyc = bo._disk_concentric(rand[2], rand[3])
+    dxc, dyc = warp.square_to_uniform_disk_concentric(rand[2:4].T).unbind(-1)
     wo_x, wo_y = dxc, dyc
     wo_z = torch.sqrt((1.0 - dxc * dxc - dyc * dyc).clamp_min(0.0))
     w_r, w_g, w_b = b_alr, b_alg, b_alb
@@ -162,8 +175,7 @@ def shade_plain(state, meta, hit, cpos, rows_t, rand, types, max_depth: int,
     sampled_delta = false
     eta_factor = ones
     if has_cond:
-        f_c = [bo._fresnel_conductor_1(wi_z, b_eta, kk)
-               for kk in (b_kr, b_kg, b_kb)]
+        f_c = fresnel.fresnel_conductor(wi_z, b_eta[:, None], b_k).unbind(-1)
         wo_x = torch.where(is_cond, -wi_x, wo_x)
         wo_y = torch.where(is_cond, -wi_y, wo_y)
         wo_z = torch.where(is_cond, wi_z, wo_z)
@@ -174,7 +186,7 @@ def shade_plain(state, meta, hit, cpos, rows_t, rand, types, max_depth: int,
                            good)
         sampled_delta = sampled_delta | is_cond
     if has_diel:
-        fr, cos_t, eta_it, eta_ti = bo._fresnel_dielectric(wi_z, b_eta)
+        fr, cos_t, eta_it, eta_ti = fresnel.fresnel_dielectric(wi_z, b_eta)
         refl = rand[1] < fr
         w_dr = torch.where(refl, b_sr, b_alr * eta_ti * eta_ti)
         w_dg = torch.where(refl, b_sg, b_alg * eta_ti * eta_ti)
@@ -245,10 +257,9 @@ def shade_plain(state, meta, hit, cpos, rows_t, rand, types, max_depth: int,
             bo._vndf_pdf(wi_x, wi_y, wi_z, hx, hy, hz, b_alp)
             / (4.0 * _dot3(wl_x, wl_y, wl_z, hx, hy, hz).abs())
             .clamp_min(1e-12), 0.0)
-        f_ev = [torch.where(is_rc, s * bo._fresnel_conductor_1(widoth, b_eta,
-                                                               kk) * spec, f)
-                for s, kk, f in zip((b_sr, b_sg, b_sb), (b_kr, b_kg, b_kb),
-                                    f_ev)]
+        f_rc = fresnel.fresnel_conductor(widoth, b_eta[:, None], b_k)
+        f_ev = [torch.where(is_rc, s * f_rc[:, c] * spec, f)
+                for c, (s, f) in enumerate(zip((b_sr, b_sg, b_sb), f_ev))]
         pdf_ev = torch.where(is_rc, pdf_rc, pdf_ev)
 
     gmm_pdf = torch.where(guide_ok, torch.where(take_bsdf, pdf_b, pdf_g), 0.0)

@@ -5,13 +5,13 @@ inputs.
 
 The reference kernels run once each, in interpret mode, on one 16 x 128
 lane tile of the four-type box (every in-kernel BSDF type), in one
-module-scoped fixture. Tolerances: tables rtol 1e-6 (the same float32 3x3
-inverse, LU in both); helpers rtol 1e-5; trace: the winner's attributes
-exact, positions, shading normals and radiance rtol 1e-5; shade: state
-rtol 2e-4 / atol 1e-5 (the mixture pdf divides the throughput; sums in
-another order), meta and splat rows equal, each on >= 99.8% of the lanes
-(a u_sel within an ulp of a CDF step or a roulette draw within an ulp of
-q flips a lane). The fused pool draws its own random numbers, so it agrees
+module-scoped fixture that starts them in a background thread.
+Tolerances: tables rtol 1e-6 (the same float32 3x3 inverse, LU in both);
+helpers rtol 1e-5; trace: the winner's attributes exact, positions,
+shading normals and radiance rtol 1e-5; shade: state rtol 2e-4 / atol
+1e-5 (the mixture pdf divides the throughput; sums in another order), meta
+and splat rows equal, each on >= 99.8% of the lanes (a u_sel within an ulp
+of a CDF step or a roulette draw within an ulp of q flips a lane). The fused pool draws its own random numbers, so it agrees
 with the reference's XLA pool in expectation, within the bounds of
 tests/test_guided_pallas.py's fused-pool test (mean 12%, median 4x4-block
 difference 0.3). Both render 256 spp: the guide of the synthetic-sample
@@ -23,6 +23,7 @@ in block median over seeds 3-7.
 
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,9 @@ from sdmm_tpu.ops import guided_step_pallas as gsp  # noqa: E402
 from sdmm_tpu.render import guided as jguided  # noqa: E402
 from sdmm_tpu.scene import scene as jscene  # noqa: E402
 from sdmm_tpu.scene import shapes as jshapes  # noqa: E402
+from sdmm_tpu_torch.bsdf import fresnel as tfresnel  # noqa: E402
+from sdmm_tpu_torch.core import frame as tframe  # noqa: E402
+from sdmm_tpu_torch.core import warp as twarp  # noqa: E402
 from sdmm_tpu_torch.guiding import convert  # noqa: E402
 from sdmm_tpu_torch.guiding import mixture as tmix  # noqa: E402
 from sdmm_tpu_torch.ops import bounce as bo  # noqa: E402
@@ -63,18 +67,35 @@ def _scenes(extra):
     return js, ts, tcfg
 
 
-@pytest.fixture(scope="module")
-def kernels():
+def _reference_kernels():
     """One interpret-mode call of each reference kernel on one lane tile of
-    the four-type box, with every input as numpy."""
+    the four-type box, with every input as numpy. Nearly all of its time
+    is XLA's compile, which releases the GIL: shade is lowered first from
+    its shapes alone and compiled in a second thread while trace is
+    lowered, compiled and run; shade then runs on trace's hit buffer."""
     js, _, tcfg = _scenes(True)
     assert tcfg.bsdf_types == TYPES
     tri, _, env = (np.asarray(a) for a in bp.build_tables(js))
     state, meta, rand = lane_wave(N, seed=7, max_depth=MAX_DEPTH)
-    st_j, hit_j = gsp.trace(
-        jnp.asarray(state.reshape(16, R, 128)), jnp.asarray(meta.reshape(R, 128)),
-        jnp.asarray(tri), jnp.asarray(env), n_tris=js.tri_v0.shape[0],
-        types=TYPES, interpret=True)
+    tile = (R, 128)
+
+    def spec(rows, dtype=jnp.float32):
+        return jax.ShapeDtypeStruct((rows, *tile), dtype)
+
+    shade_j = jax.jit(lambda *a: gsp.shade(
+        *a, types=TYPES, max_depth=MAX_DEPTH, rr_depth=RR_DEPTH,
+        bsdf_fraction=FRACTION, interpret=True)).lower(
+            spec(16), jax.ShapeDtypeStruct(tile, jnp.int32),
+            spec(gst.HIT_ROWS), spec(3),
+            spec(gso.N_ROWS, jnp.bfloat16), spec(gst.RAND_ROWS))
+    with ThreadPoolExecutor(1) as ex:
+        shade_j = ex.submit(shade_j.compile)
+        st_j, hit_j = gsp.trace(
+            jnp.asarray(state.reshape(16, *tile)),
+            jnp.asarray(meta.reshape(tile)), jnp.asarray(tri),
+            jnp.asarray(env), n_tris=js.tri_v0.shape[0], types=TYPES,
+            interpret=True)
+        shade_j = shade_j.result()
     st_j = np.asarray(st_j).reshape(16, N)
     hit_j = np.asarray(hit_j).reshape(gst.HIT_ROWS, N)
 
@@ -89,19 +110,30 @@ def kernels():
     cpos = ((hit_j[0:3] - np.array([[-1.0], [0.0], [-1.0]])) / 2.0
             ).astype(np.float32)
     rows_t = table16.float().numpy()[leaf].T  # exact bf16 values
-    out_j = gsp.shade(
-        jnp.asarray(st_j.reshape(16, R, 128)), jnp.asarray(meta.reshape(R, 128)),
-        jnp.asarray(hit_j.reshape(gst.HIT_ROWS, R, 128)),
-        jnp.asarray(cpos.reshape(3, R, 128)),
-        jnp.asarray(rows_t.reshape(gso.N_ROWS, R, 128)).astype(jnp.bfloat16),
-        jnp.asarray(rand.reshape(8, R, 128)), types=TYPES,
-        max_depth=MAX_DEPTH, rr_depth=RR_DEPTH, bsdf_fraction=FRACTION,
-        interpret=True)
+    out_j = shade_j(
+        jnp.asarray(st_j.reshape(16, *tile)), jnp.asarray(meta.reshape(tile)),
+        jnp.asarray(hit_j.reshape(gst.HIT_ROWS, *tile)),
+        jnp.asarray(cpos.reshape(3, *tile)),
+        jnp.asarray(rows_t.reshape(gso.N_ROWS, *tile)).astype(jnp.bfloat16),
+        jnp.asarray(rand.reshape(gst.RAND_ROWS, *tile)))
     shade_j = tuple(np.asarray(a).reshape(a.shape[0], N) if a.ndim == 3
                     else np.asarray(a).reshape(N) for a in out_j)
     return dict(tri=tri, env=env, state=state, meta=meta, rand=rand,
                 st_j=st_j, hit_j=hit_j, table16=table16, leaf=leaf,
                 cpos=cpos, shade_j=shade_j)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_run():
+    """Starts the reference kernels at the top of the module, so that
+    their compile overlaps the tests that do not need them."""
+    with ThreadPoolExecutor(1) as ex:
+        yield ex.submit(_reference_kernels)
+
+
+@pytest.fixture(scope="module")
+def kernels(_reference_run):
+    return _reference_run.result()
 
 
 @pytest.mark.parametrize("extra", [False, True])
@@ -159,18 +191,37 @@ def _helper_inputs(seed=0, n=4096):
                 alpha=rs.uniform(0.05, 0.8, n).astype(f), u=u.astype(f))
 
 
+def _same(call):
+    """A helper whose twin in ops/bounce.py has the reference's name and
+    signature."""
+    return (lambda x: call(bo, x), lambda x: call(bp, x))
+
+
+# name: (port twin, reference helper), each called on a dict of inputs. The
+# first four twins are the port's frame, warp and Fresnel functions.
 HELPERS = {
-    "coordinate_system": lambda m, x: m._coordinate_system(*x["v"]),
-    "disk_concentric": lambda m, x: m._disk_concentric(*x["u"]),
-    "fresnel_dielectric": lambda m, x: m._fresnel_dielectric(x["cos_i"],
-                                                             x["eta"]),
-    "fresnel_conductor_1": lambda m, x: m._fresnel_conductor_1(
-        x["cos_i"], x["eta"], x["k"]),
-    "ggx_d": lambda m, x: m._ggx_d(x["m"][2], x["alpha"]),
-    "smith_g1": lambda m, x: m._smith_g1(*x["v"], *x["m"], x["alpha"]),
-    "sample_vndf": lambda m, x: m._sample_vndf(*x["wi"], x["alpha"],
-                                               *x["u"]),
-    "vndf_pdf": lambda m, x: m._vndf_pdf(*x["v"], *x["m"], x["alpha"]),
+    "coordinate_system": (
+        lambda x: tuple(torch.cat(tframe.coordinate_system(
+            torch.stack(tuple(x["v"]), -1)), -1).unbind(-1)),
+        lambda x: bp._coordinate_system(*x["v"])),
+    "disk_concentric": (
+        lambda x: tuple(twarp.square_to_uniform_disk_concentric(
+            x["u"].T).unbind(-1)),
+        lambda x: bp._disk_concentric(*x["u"])),
+    "fresnel_dielectric": (
+        lambda x: tfresnel.fresnel_dielectric(x["cos_i"], x["eta"]),
+        lambda x: bp._fresnel_dielectric(x["cos_i"], x["eta"])),
+    "fresnel_conductor_1": (
+        lambda x: tfresnel.fresnel_conductor(
+            x["cos_i"], x["eta"][:, None], x["k"][:, None])[:, 0],
+        lambda x: bp._fresnel_conductor_1(x["cos_i"], x["eta"], x["k"])),
+    "ggx_d": _same(lambda m, x: m._ggx_d(x["m"][2], x["alpha"])),
+    "smith_g1": _same(lambda m, x: m._smith_g1(*x["v"], *x["m"],
+                                               x["alpha"])),
+    "sample_vndf": _same(lambda m, x: m._sample_vndf(*x["wi"], x["alpha"],
+                                                     *x["u"])),
+    "vndf_pdf": _same(lambda m, x: m._vndf_pdf(*x["v"], *x["m"],
+                                               x["alpha"])),
 }
 
 
@@ -180,8 +231,9 @@ TRIG = ("disk_concentric", "sample_vndf")
 @pytest.mark.parametrize("name", sorted(HELPERS))
 def test_helper_twins_match_reference(name):
     x = _helper_inputs()
-    out_t = HELPERS[name](bo, {k: torch.as_tensor(v) for k, v in x.items()})
-    out_j = HELPERS[name](bp, {k: jnp.asarray(v) for k, v in x.items()})
+    port, ref = HELPERS[name]
+    out_t = port({k: torch.as_tensor(v) for k, v in x.items()})
+    out_j = ref({k: jnp.asarray(v) for k, v in x.items()})
     out_t = out_t if isinstance(out_t, tuple) else (out_t,)
     out_j = out_j if isinstance(out_j, tuple) else (out_j,)
     assert len(out_t) == len(out_j)
