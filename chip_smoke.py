@@ -24,6 +24,22 @@ Phases (any failure raises and the script exits non-zero):
      against an unguided render (bsdf_fraction=1.0) at equal spp through
      the eager pool, and the fused pool against the eager guided pool at
      equal spp on the same guide state.
+  6. the unguided path row with NEE. First the step and bounce kernels
+     against their twins at 237,568 lanes (29 tiles of 8192) after four
+     warm steps, so that lanes are mid-path, on the Cornell box, the
+     four-type box and a box past 96 triangles (2048-lane tiles), within
+     phase 4's limits and shade's state tolerance, film and splat within
+     rtol 1e-5, meta equal; step in its Philox mode (and its host-uniform mode
+     on the twin's Philox bits, which must give the same result bit for
+     bit); times by CUDA-graph replays on the Cornell box. Then the path
+     row itself, with the step and bounce launch counts read around it:
+     render_wavefront on the Cornell box at 640x360, depth 10, 64 spp
+     (sorted2, pilot 8: the step kernel) and 2 spp (striped: the bounce
+     kernel); each spends exactly its budget on every pixel, takes the pool
+     its spp names, the sorted2 image mean agrees with the eager render_pool
+     at 64 spp within 2%, and phase 5's guided image mean with the path
+     row's within 5%. Last, path vertices/s at bench.py's configuration
+     (640x360, 192 spp, depth 10).
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last the {"ok": true, "device": ...} line.
 """
@@ -75,6 +91,16 @@ TRACE_OPS_PER_LANE = 80
 # (VNDF sample, GGX eval, three Fresnel channels).
 SHADE_OPS_PER_LANE = GUIDED_OPS_PER_LANE + 200
 SHADE_OPS_BY_TYPE = {1: 60, 2: 45, 3: 170}
+# The unguided bounce core (csrc/bounce.cu bounce_core), the same way: 60
+# per lane and triangle in each sweep (the occlusion sweep only for NEE
+# candidates), ~500 per lane around the sweeps (NEE sample and BSDF value,
+# the BSDF sample, roulette, splat, next state), ~60 for the step kernel's
+# regeneration and camera ray; Philox4x32-10's ~320 integer operations per
+# lane (3 blocks of 10 rounds) are counted at the FP32 rate.
+PATH_OPS_PER_TRI = 60
+PATH_OPS_PER_LANE = 500
+STEP_OPS_PER_LANE = 60
+PHILOX_OPS_PER_LANE = 320
 # trace and shade against their twins: the share of lanes on which they may
 # disagree, over all lanes and within each group of lanes (each BSDF type the
 # twin's hit buffer names, and the lanes off any surface), so that a fault in
@@ -609,6 +635,256 @@ def phase_main_path(dev, width=640, height=360):
           flush=True)
     check(rel_f < 0.02, "main path: the fused pool disagrees with the eager "
           "guided pool")
+    return launches, float(img.mean())
+
+
+def _warm_wave(bo, scene, cfg, n, dev, warm_steps=4, budget=64):
+    """A lane wave after ``warm_steps`` step-kernel launches from fresh
+    lanes (lane i on pixel i, ``budget`` samples each), so that lanes are
+    mid-path; returns (state, meta, film, pxpy, tables, cam, n_em)."""
+    width, height = cfg.width, cfg.height
+    tri, em, env = bo.build_tables(scene)
+    n_em = int(scene.em_tri_idx.shape[0])
+    lane = torch.arange(n, device=dev)
+    n_pix = width * height
+    pix = torch.where(lane < n_pix, lane, 0)
+    pxpy = torch.stack([(pix % width).float(), (pix // width).float(),
+                        torch.where(lane < n_pix, budget, 0).float()])
+    state = torch.zeros((16, n), device=dev)
+    state[5] = 1.0
+    state[6:9] = 1.0
+    state[12:14] = 1.0
+    meta = torch.full((n,), bo._PDELTA, dtype=torch.int32, device=dev)
+    film = torch.zeros((8, n), device=dev)
+    cam = bo.build_cam_params(scene, width, height)
+    ones = torch.ones(n // bo.lane_tile(tri.shape[1]), dtype=torch.int32,
+                      device=dev)
+    for k in range(warm_steps):
+        bo.step(state, meta, film, ones, cam, (101, k), pxpy, tri, em, env,
+                n_em, 10, 10, cfg.bsdf_types, width, height)
+    return state, meta, film, pxpy.contiguous(), (tri, em, env), cam, n_em
+
+
+def phase_path_kernels(dev, width=640, height=360, N=29 * 8192):
+    """step and bounce against their twins at N lanes (the path row's at
+    640x360: 29 tiles of 8192) on the Cornell box, the four-type box and a
+    box past 96 triangles; returns the two kernels' entries, measured on
+    the Cornell box (the path row's scene)."""
+    from sdmm_tpu_torch.ops import bounce as bo
+    from sdmm_tpu_torch.scene import scene as tscene
+    from sdmm_tpu_torch.scene import shapes as tshapes
+    from torch_parity import make_tiled_box
+
+    md = rr = 10
+    entries = {}
+    scenes = (
+        ("cornell", lambda: cornell_box(width, height, dev)),
+        ("four-type", lambda: cornell_box(width, height, dev, True)),
+        ("past 96 triangles", lambda: make_tiled_box(
+            tscene, tshapes, width, height).build(device=dev)))
+    for scene_name, make in scenes:
+        scene, cfg = make()
+        types = cfg.bsdf_types
+        state, meta, film, pxpy, (tri, em, env), cam, n_em = _warm_wave(
+            bo, scene, cfg, N, dev)
+        tile = bo.lane_tile(tri.shape[1])
+        ones = torch.ones(N // tile, dtype=torch.int32, device=dev)
+        seed2 = (202, 4)
+        args = (cam, seed2, pxpy, tri, em, env, n_em, md, rr, types, width,
+                height)
+
+        # step, Philox mode: kernel against twin from equal inputs.
+        stats = {}
+        ref = bo.step_plain(state, meta, film, ones, *args, stats=stats)
+        k = [x.clone() for x in (state, meta, film)]
+        bo.step(*k, ones, *args)
+        # The host-uniform mode on the twin's Philox bits: the same lanes.
+        k2 = [x.clone() for x in (state, meta, film)]
+        bo.step(*k2, ones, *args,
+                rand=bo.philox_uniforms(seed2, N, device=dev))
+        torch.cuda.synchronize()
+        same = all(bool(((a == b) | (a.isnan() & b.isnan())).all())
+                   for a, b in zip(k, k2))
+        check(same, f"step [{scene_name}]: in-kernel Philox uniforms differ "
+              "from the twin's bits")
+        ltype = stats["lane_type"]
+        groups = {f"type {t}": ltype == t for t in types}
+        groups["off surface"] = ltype < 0
+        n_types = {t: int((ltype == t).sum()) for t in types}
+        alive_in = int(((meta & bo._ALIVE) != 0).sum())
+        print(f"step [{scene_name}, {tri.shape[1]} triangle columns, tile "
+              f"{tile}]: {alive_in}/{N} lanes alive after 4 warm steps; "
+              f"surface lanes by type {n_types}; NEE candidates "
+              f"{stats['nee_candidates']}; Philox modes equal bit for bit",
+              flush=True)
+        check(all(v > 0 for v in n_types.values()),
+              f"step [{scene_name}]: a BSDF type was never hit")
+        # State within shade's bounds (rtol 2e-4, atol 1e-5): the disk map
+        # and the VNDF sample take sincospif in the kernel and cos/sin of a
+        # rounded multiple of pi in the twin; z = sqrt(1 - x² - y²) near
+        # the disk's rim turns that ulp into ~5e-6 on a direction row.
+        ok_s = torch.isclose(k[0], ref[0], rtol=2e-4, atol=1e-5,
+                             equal_nan=True).all(0)
+        ok_m = k[1] == ref[1]
+        ok_f = torch.isclose(k[2], ref[2], rtol=1e-5, atol=1e-6).all(0)
+        fin = torch.isfinite(ref[0]) & torch.isfinite(k[0])
+        err_step = float((k[0] - ref[0]).abs()[fin & ok_m[None]].max())
+        for what, ok in (("state (rtol 2e-4, atol 1e-5)", ok_s),
+                         ("meta", ok_m), ("film (rtol 1e-5)", ok_f)):
+            agreement(f"step {what}", ok, groups)
+        check(bool(torch.isfinite(k[2]).all()), "step: film not finite")
+        check(int((ref[2][6] - film[6]).sum()) > 1000,
+              "step: comparison is vacuous")
+
+        # bounce on the warm wave with host uniforms.
+        rand8 = torch.rand((bo.RAND_ROWS, N), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(7))
+        bstats = {}
+        ref_b = bo.bounce_plain(state, meta, rand8, tri, em, env, n_em, md,
+                                rr, types, stats=bstats)
+        out_b = bo.bounce(state, meta, rand8, tri, em, env, n_em, md, rr,
+                          types)
+        torch.cuda.synchronize()
+        ok_bs = torch.isclose(out_b[0], ref_b[0], rtol=2e-4, atol=1e-5,
+                              equal_nan=True).all(0)
+        ok_bm = out_b[1] == ref_b[1]
+        ok_bp = torch.isclose(out_b[2], ref_b[2], rtol=1e-5, atol=1e-6).all(0)
+        fin = torch.isfinite(ref_b[0]) & torch.isfinite(out_b[0])
+        err_bounce = float((out_b[0] - ref_b[0]).abs()[fin & ok_bm[None]]
+                           .max())
+        bl = bstats["lane_type"]
+        bgroups = {f"type {t}": bl == t for t in types}
+        bgroups["off surface"] = bl < 0
+        for what, ok in (("state (rtol 2e-4, atol 1e-5)", ok_bs),
+                         ("meta", ok_bm), ("splat (rtol 1e-5)", ok_bp)):
+            agreement(f"bounce [{scene_name}] {what}", ok, bgroups)
+        check(bool(torch.isfinite(out_b[2]).all()), "bounce: splat not "
+              "finite")
+        print(f"step/bounce [{scene_name}]: max|state err| on lanes with "
+              f"equal meta {err_step:.3g} / {err_bounce:.3g}", flush=True)
+        if scene_name != "cornell":
+            continue
+
+        # Times at the path row's shapes, on the warm Cornell wave: the
+        # step in place (lanes keep regenerating: 64 samples each), the
+        # bounce out of place on equal inputs.
+        ts_ = [x.clone() for x in (state, meta, film)]
+        ms_step = time_ms(lambda: bo.step(*ts_, ones, *args), reps=20,
+                          graph=True)
+        plain_step = time_ms(lambda: bo.step_plain(
+            state, meta, film, ones, *args), reps=3)
+        ms_bounce = time_ms(lambda: bo.bounce(
+            state, meta, rand8, tri, em, env, n_em, md, rr, types), reps=20,
+            graph=True)
+        plain_bounce = time_ms(lambda: bo.bounce_plain(
+            state, meta, rand8, tri, em, env, n_em, md, rr, types), reps=3)
+        n_cols = tri.shape[1]
+        tables = 39 * n_cols * 4 + 18 * n_em * 4 + 3 * 4
+        # step: every lane of a live tile reads state rows 0-13, meta, 8
+        # film rows and 3 pxpy rows and writes 16 state rows, meta and 8
+        # film rows; the tables once. Philox mode: no uniform rows.
+        b_step = N * (14 * 4 + 4 + 8 * 4 + 3 * 4) + tables \
+            + N * (16 * 4 + 4 + 8 * 4)
+        o_step = (N * (n_cols * PATH_OPS_PER_TRI + PATH_OPS_PER_LANE
+                       + STEP_OPS_PER_LANE + PHILOX_OPS_PER_LANE)
+                  + stats["nee_candidates"] * n_cols * PATH_OPS_PER_TRI)
+        # bounce: state rows 0-13, meta and 7 uniform rows in; 16 state
+        # rows, meta and 8 splat rows out.
+        b_bounce = N * (14 * 4 + 4 + 7 * 4) + tables \
+            + N * (16 * 4 + 4 + 8 * 4)
+        o_bounce = (N * (n_cols * PATH_OPS_PER_TRI + PATH_OPS_PER_LANE)
+                    + bstats["nee_candidates"] * n_cols * PATH_OPS_PER_TRI)
+        for name, ms, plain, b, o, err, line in (
+                ("step", ms_step, plain_step, b_step, o_step, err_step,
+                 ":947"),
+                ("bounce", ms_bounce, plain_bounce, b_bounce, o_bounce,
+                 err_bounce, ":1039")):
+            t_bytes = b / PEAK_BYTES * 1e3
+            t_ops = o / PEAK_FP32 * 1e3
+            print(f"{name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, ops "
+                  f"{t_ops:.4f})", flush=True)
+            entries[name] = {
+                "name": name, "route": "cuda",
+                "source": "sdmm_tpu_torch/csrc/bounce.cu",
+                "replaces": "sdmm_tpu/ops/bounce_pallas.py" + line,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "library_ms": None}
+    return [entries["step"], entries["bounce"]]
+
+
+def phase_path_row(dev, guided_mean, smi, width=640, height=360):
+    """The unguided path row through render_wavefront, with the step and
+    bounce launch counts read around it; returns them."""
+    from sdmm_tpu_torch.ops import bounce as bo
+    from sdmm_tpu_torch.render.wavefront import render_pool, render_wavefront
+
+    scene, cfg = cornell_box(width, height, dev)
+    bo.step.launches = 0
+    bo.bounce.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    row = render_wavefront(scene, cfg, spp=64, seed=11, device=dev)
+    torch.cuda.synchronize()
+    t64 = time.time() - t0
+    row2 = render_wavefront(scene, cfg, spp=2, seed=12, device=dev)
+    torch.cuda.synchronize()
+    launches = {"step": bo.step.launches, "bounce": bo.bounce.launches}
+    print(f"path row: 64 spp took the {row['pool']} pool ({t64:.3f} s, "
+          f"{row['steps']} steps, {row['n_vertices']} vertices), 2 spp the "
+          f"{row2['pool']} pool ({row2['steps']} steps); launches "
+          f"{launches}", flush=True)
+    check(row["pool"] == "sorted2" and row2["pool"] == "striped",
+          "path row: render_wavefront took the wrong pool")
+    for spp, r in ((64, row), (2, row2)):
+        check(r["image"].shape == (height, width, 3)
+              and np.isfinite(r["image"]).all(),
+              "path row: image not finite or misshapen")
+        check(bool((r["weight"] == spp).all()),
+              f"path row: the {r['pool']} pool did not spend exactly {spp} "
+              "samples on every pixel")
+    check(all(v > 0 for v in launches.values()),
+          f"path row: a kernel was not launched: {launches}")
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eager = render_pool(scene, torch.Generator(device=dev).manual_seed(13),
+                        n_lanes=1 << 18, spp=64, width=width, height=height,
+                        max_depth=10, rr_depth=10, bsdf_types=cfg.bsdf_types,
+                        device=dev)
+    torch.cuda.synchronize()
+    t_eager = time.time() - t0
+    m_eager = float((eager["image"] / eager["weight"].clamp_min(1.0)[:, None])
+                    .mean())
+    m_row, m_row2 = float(row["image"].mean()), float(row2["image"].mean())
+    rel_e = abs(m_row - m_eager) / m_eager
+    rel_g = abs(guided_mean - m_row) / m_row
+    print(f"path row: image mean 64 spp {m_row:.5f}, 2 spp {m_row2:.5f}; "
+          f"eager render_pool 64 spp {m_eager:.5f} ({t_eager:.3f} s, "
+          f"{eager['steps']} steps; rel {rel_e:.4f}); phase 5's guided image "
+          f"{guided_mean:.5f} (rel {rel_g:.4f})", flush=True)
+    check(rel_e < 0.02, "path row: sorted2 disagrees with the eager pool")
+    check(rel_g < 0.05, "path row: the guided image disagrees with the path "
+          "row")
+
+    # bench.py's configuration: 640x360, 192 spp, depth 10 (at the phase's
+    # width and height).
+    rates = []
+    for seed in range(4):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        r = render_wavefront(scene, cfg, spp=192, seed=100 + seed,
+                             device=dev)
+        torch.cuda.synchronize()
+        if seed:  # the first run is the warm-up
+            rates.append(r["n_vertices"] / (time.time() - t0))
+    print(f"path row at {width}x{height}, 192 spp, depth 10 ({r['pool']}): "
+          f"path vertices/s "
+          f"{statistics.median(rates):.4g} (median of {len(rates)}: "
+          f"{', '.join(f'{x:.4g}' for x in rates)}) on {smi}", flush=True)
     return launches
 
 
@@ -626,15 +902,17 @@ def main():
     dev = torch.device("cuda", 0)
     t0 = time.time()
     reports = _build.build_all(["guided_sample", "em_suffstats",
-                                "guided_step"])
+                                "guided_step", "bounce"])
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    kernels = [phase_guided(dev), phase_em(dev), *phase_guided_step(dev)]
-    launches = phase_main_path(dev)
+    kernels = [phase_guided(dev), phase_em(dev), *phase_guided_step(dev),
+               *phase_path_kernels(dev)]
+    launches, guided_mean = phase_main_path(dev)
+    launches.update(phase_path_row(dev, guided_mean, smi))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -10,7 +10,9 @@ the steady state does), then profiles one training iteration (guided render
 with vertex collection + optimize), one frozen-model iteration (guided
 render at 4 spp, the fused trace + shade pool the trainer takes on the
 card) and the same frozen render on the eager pool (render_pool_guided, for
-comparison) under torch.profiler. For each phase it prints the wall
+comparison), then the unguided path row (render_wavefront at 64 spp, the
+sorted2 pool on the step kernel, and at 2 spp, the striped pool on the
+bounce kernel) under torch.profiler. For each phase it prints the wall
 time, the time the device was busy (the union of its kernel intervals),
 its share of the unprofiled wall time, the number of kernel launches,
 and the kernels that took the most device time; ``--json`` also writes the summary to a file.
@@ -103,8 +105,10 @@ def main():
     from sdmm_tpu_torch.guiding.trainer import SDMMTrainer, TrainerConfig
     from sdmm_tpu_torch.ops import _build
     from sdmm_tpu_torch.render.guided import render_pool_guided
+    from sdmm_tpu_torch.render.wavefront import render_wavefront
 
-    _build.build_all(["guided_sample", "em_suffstats", "guided_step"])
+    _build.build_all(["guided_sample", "em_suffstats", "guided_step",
+                      "bounce"])
     dev = torch.device("cuda", 0)
     print(chip_smoke.nvidia_smi_line(), flush=True)
     scene, cfg = chip_smoke.cornell_box(args.width, args.height, dev)
@@ -140,6 +144,12 @@ def main():
                       lambda: tr.render_iteration(collect=False)),
         profile_phase("frozen iteration on the eager pool (render, 4 spp)",
                       frozen_eager),
+        profile_phase("path row: render_wavefront, 64 spp (sorted2, step)",
+                      lambda: render_wavefront(scene, cfg, spp=64, seed=5,
+                                               device=dev)),
+        profile_phase("path row: render_wavefront, 2 spp (striped, bounce)",
+                      lambda: render_wavefront(scene, cfg, spp=2, seed=6,
+                                               device=dev)),
     ]
     if args.json:
         with open(args.json, "w") as f:

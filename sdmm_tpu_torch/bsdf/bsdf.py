@@ -57,6 +57,11 @@ def is_delta_only(params: dict) -> torch.Tensor:
     return (t == BSDF_CONDUCTOR) | (t == BSDF_DIELECTRIC)
 
 
+def has_smooth(params: dict) -> torch.Tensor:
+    """True where the BSDF has a non-delta lobe (the lanes NEE targets)."""
+    return ~is_delta_only(params)
+
+
 def eval_pdf_full(params: dict, wi: torch.Tensor, wo: torch.Tensor,
                   types: tuple | None = None):
     """Smooth-lobe (f·cosθo, pdf); delta lobes contribute zero."""

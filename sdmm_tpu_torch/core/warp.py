@@ -1,5 +1,6 @@
-"""Sampling warps used by the ported BSDFs and mixtures (port of
-sdmm_tpu/core/warp.py: concentric disk, cosine hemisphere, Box-Muller)."""
+"""Sampling warps used by the ported BSDFs, mixtures and emitters (port of
+sdmm_tpu/core/warp.py: concentric disk, cosine hemisphere, uniform
+triangle, Box-Muller)."""
 
 from __future__ import annotations
 
@@ -39,6 +40,12 @@ def square_to_cosine_hemisphere(u: torch.Tensor) -> torch.Tensor:
 
 def square_to_cosine_hemisphere_pdf(w: torch.Tensor) -> torch.Tensor:
     return w[..., 2].clamp_min(0.0) * INV_PI
+
+
+def square_to_uniform_triangle(u: torch.Tensor) -> torch.Tensor:
+    """Barycentric coordinates (b0, b1) uniform over a triangle."""
+    su0 = torch.sqrt(u[..., 0])
+    return torch.stack([1.0 - su0, u[..., 1] * su0], dim=-1)
 
 
 def square_to_std_normal(u: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# Per-source flags: bounce.cu rounds every multiply and add on its own, as
+# its plain twin's separate PyTorch operations do.
+EXTRA_FLAGS = {"bounce": ["-fmad=false"]}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -38,13 +41,17 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _flags(name: str) -> list[str]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def library_path(name: str) -> Path:
     """The library of ``csrc/<name>.cu``, keyed by the source, every shared
     header ``csrc/*.cuh`` it may include, and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -59,7 +66,7 @@ def _start(name: str):
     log = out.with_suffix(".log").open("w")
     try:
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+            [_nvcc(), *_flags(name), "-I", str(CSRC), "-o", str(tmp),
              str(CSRC / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT)
     finally:

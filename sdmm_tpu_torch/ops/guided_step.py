@@ -31,9 +31,10 @@ from ..core import frame, warp
 from . import _build
 from . import bounce as bo
 from .bounce import (
-    CHUNK, EPS, INF, INV_PI, RAY_EPS, T_CONDUCTOR, T_DIELECTRIC, T_DIFFUSE,
+    INF, INV_PI, RAY_EPS, T_CONDUCTOR, T_DIELECTRIC, T_DIFFUSE,
     T_ROUGHCONDUCTOR, _ALIVE, _DEPTH_MASK, _DEPTH_SHIFT, _EXH, _PIX_MASK,
-    _TAL, _TALP, _TEM, _TETA, _TK, _TNG, _TNS, _TSP, _TTY, _dot3,
+    _TAL, _TALP, _TEM, _TETA, _TK, _TNG, _TNS, _TSP, _TTY, _dot3, _type_flags,
+    _type_mask,
 )
 from .guided_sample import N_ROWS, guided_sample_plain
 
@@ -44,40 +45,14 @@ SPLAT_ROWS = 10  # rgb, rgb², done weight, n_vert, cond_try, cond_ok
 RAND_ROWS = 8  # u_sel, lobe_u, b2a, b2b, rr, g_sel, g_r, g_th
 
 
-def _type_flags(types) -> tuple[bool, bool, bool, bool]:
-    """(multi, has_cond, has_diel, has_rc) of a scene's BSDF type set."""
-    types = tuple(types)
-    return (any(t != T_DIFFUSE for t in types), T_CONDUCTOR in types,
-            T_DIELECTRIC in types, T_ROUGHCONDUCTOR in types)
-
-
 def trace_plain(state, meta, tri_rows, env_row, types):
     """Plain twin of the trace kernel. Returns (new_state, hit)."""
     multi, has_cond, has_diel, has_rc = _type_flags(types)
     rox, roy, roz, rdx, rdy, rdz = state[0:6]
     thr_r, thr_g, thr_b = state[6:9]
     alive = (meta & _ALIVE) != 0
-    best_t = torch.full_like(rox, INF)
-    bu = torch.zeros_like(rox)
-    bv = torch.zeros_like(rox)
-    bj = torch.full(rox.shape, -1, dtype=torch.long, device=rox.device)
-    # The kernel's sweep in index order with a strict t < best_t picks the
-    # lowest index among equal t. Here each chunk of triangles is one
-    # [C, N] block: argmin takes the first minimum within it, and a strict
-    # < against the earlier chunks' best keeps their index on a tie.
-    for j0 in range(0, tri_rows.shape[1], CHUNK):
-        cols = tri_rows[:, j0:j0 + CHUNK, None]  # [43, C, 1]
-        t, u, v, okg = bo._woop_tri(rox, roy, roz, rdx, rdy, rdz, cols,
-                                    slice(None))
-        t = torch.where(okg & (t > EPS), t, INF)
-        jmin = t.argmin(0, keepdim=True)
-        tmin = t.gather(0, jmin)[0]
-        better = tmin < best_t
-        best_t = torch.where(better, tmin, best_t)
-        bu = torch.where(better, u.gather(0, jmin)[0], bu)
-        bv = torch.where(better, v.gather(0, jmin)[0], bv)
-        bj = torch.where(better, j0 + jmin[0], bj)
-
+    best_t, bu, bv, bj = bo._closest_hit(rox, roy, roz, rdx, rdy, rdz,
+                                         tri_rows)
     hit_valid = best_t < INF
     # The winner's attribute columns; a miss keeps the defaults below.
     col = tri_rows[:, bj.clamp_min(0)]  # [43, N]
@@ -314,12 +289,6 @@ def _fn(symbol: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
                    + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
-
-
-def _type_mask(types) -> int:
-    multi, has_cond, has_diel, has_rc = _type_flags(types)
-    return int(multi) | int(has_cond) << 1 | int(has_diel) << 2 \
-        | int(has_rc) << 3
 
 
 def trace(state, meta, tri_rows, env_row, types):

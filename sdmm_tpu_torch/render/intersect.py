@@ -1,6 +1,6 @@
 """Ray–scene intersection: the dense Möller–Trumbore sweep (port of
-sdmm_tpu/render/intersect.py ``intersect``'s XLA branch and
-``surface_interaction``).
+sdmm_tpu/render/intersect.py ``intersect``'s and ``occluded``'s XLA
+branches and ``surface_interaction``).
 
 Scenes above ``BRUTE_FORCE_MAX`` triangles take the cluster sweep in the
 reference package; that path is not ported yet.
@@ -74,6 +74,23 @@ def intersect(scene, ro: torch.Tensor, rd: torch.Tensor, t_max=None,
         best_v = torch.where(better, cand_v, best_v)
     return {"t": best_t, "tri": best_i, "u": best_u, "v": best_v,
             "valid": best_i >= 0}
+
+
+def occluded(scene, ro: torch.Tensor, rd: torch.Tensor, t_max: torch.Tensor,
+             chunk: int = 512) -> torch.Tensor:
+    """Any hit within (EPS, t_max) [N]. Returns bool [N]."""
+    n_tris = scene.tri_v0.shape[0]
+    if n_tris > BRUTE_FORCE_MAX:
+        raise NotImplementedError(
+            f"{n_tris} triangles > {BRUTE_FORCE_MAX}: the cluster sweep for "
+            "large scenes is not ported")
+    occ = torch.zeros(ro.shape[0], dtype=torch.bool, device=ro.device)
+    for sl in range(0, n_tris, chunk):
+        _, _, _, hit = _mt_chunk(ro, rd, scene.tri_v0[sl:sl + chunk],
+                                 scene.tri_e1[sl:sl + chunk],
+                                 scene.tri_e2[sl:sl + chunk], t_max)
+        occ = occ | hit.any(-1)
+    return occ
 
 
 def surface_interaction(scene, ro, rd, hit):

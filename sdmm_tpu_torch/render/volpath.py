@@ -1,4 +1,5 @@
-"""Shading frame of the path tracers (port of sdmm_tpu/render/volpath.py
+"""Shading frame, spawn offset and MIS weight of the path tracers (port of
+sdmm_tpu/render/volpath.py ``RAY_EPS``, ``mi_weight`` and
 ``shading_frame``)."""
 
 from __future__ import annotations
@@ -7,6 +8,15 @@ import torch
 
 from ..core.frame import coordinate_system
 from ..scene.scene import BSDF_DIELECTRIC
+
+RAY_EPS = 1e-4  # spawn offset along the geometric normal
+
+
+def mi_weight(pdf_a, pdf_b):
+    """Power heuristic (beta = 2), as the reference's miWeight."""
+    a2 = pdf_a * pdf_a
+    return torch.where(pdf_a > 0.0, a2 / (a2 + pdf_b * pdf_b).clamp_min(1e-32),
+                       0.0)
 
 
 def shading_frame(params: dict, ns: torch.Tensor, wi_world: torch.Tensor):

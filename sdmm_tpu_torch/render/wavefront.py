@@ -1,0 +1,472 @@
+"""The unguided path tracer with next-event estimation: the regenerating
+lane pools and their router (port of sdmm_tpu/render/wavefront.py
+``render_pool``, ``fused_supported``, ``render_pool_fused_sorted2``,
+``render_pool_fused_striped`` and ``render_wavefront``).
+
+``render_pool`` is the eager pool: every lane restarts on the next camera
+sample of a global counter, and each step is one bounce in plain PyTorch
+(closest hit, emitter hit with MIS, NEE with an occlusion sweep, BSDF
+sample, Russian roulette, film scatter). It is the oracle of the fused
+pools. ``render_pool_fused_sorted2`` runs a pilot pass pixel-stationary,
+sorts the pixels by the path vertices the pilot measured, and runs the
+rest of the samples on equal-cost tiles; each step is one launch of
+``ops.bounce.step`` (regeneration, camera ray, Philox uniforms, bounce,
+film add in place). ``render_pool_fused_striped`` binds lane i to pixel i
+and runs ``ops.bounce.bounce`` with the regeneration in PyTorch.
+``render_wavefront`` routes as the reference does on its accelerator.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..bsdf import bsdf as bsdf_mod
+from ..core.device import resolve_device
+from ..core.frame import to_local, to_world
+from ..ops import bounce as bo
+from ..scene import emitters
+from ..scene.scene import scene_to
+from ..scene.sensor import generate_rays
+from .guided import INNER
+from .intersect import intersect, occluded, surface_interaction
+from .volpath import RAY_EPS, mi_weight, shading_frame
+
+# f32 state rows of the fused pools' [16, N] lane state.
+_RO = slice(0, 3)
+_RD = slice(3, 6)
+_THR = slice(6, 9)
+_LI = slice(9, 12)
+_ETA2 = 12
+_PPDF = 13
+_NCOLS = 14
+
+# i32 meta bit layout: pix or sample count (bits 0..19), depth (20..23),
+# alive (24), exhausted (25), prev_delta (26).
+_DEPTH_SHIFT = bo._DEPTH_SHIFT
+_ALIVE = bo._ALIVE
+_EXH = bo._EXH
+_PDELTA = bo._PDELTA
+_PIX_MASK = bo._PIX_MASK
+_DEPTH_MASK = bo._DEPTH_MASK
+
+
+def _check_size(n_pix: int, max_depth: int):
+    if n_pix > _PIX_MASK:
+        raise ValueError(f"{n_pix} pixels do not fit the lane meta word")
+    if max_depth > _DEPTH_MASK + 1:
+        raise ValueError(f"max_depth {max_depth} > {_DEPTH_MASK + 1}")
+
+
+def render_pool(
+    scene,
+    generator: torch.Generator,
+    n_lanes: int,
+    spp: int,
+    width: int,
+    height: int,
+    max_depth: int = 10,
+    rr_depth: int = 10,
+    nee: bool = True,
+    bsdf_types: tuple | None = None,
+    fov_axis: str = "x",
+    has_bump: bool = False,
+    has_sss: bool = False,
+    device: str | torch.device = "cuda",
+):
+    """Render width×height at ``spp`` with a regenerating lane pool and
+    NEE (``nee``); uniforms come from ``generator`` (on ``device``).
+
+    Returns dict(image, sqr [n_pix, 3], weight [n_pix], n_vertices, steps,
+    pool="eager"). ``n_vertices`` counts the alive lanes that hit a
+    surface, before the back-face cull."""
+    if has_bump:
+        raise NotImplementedError("bump maps are not ported")
+    if has_sss:
+        raise NotImplementedError("subsurface scattering is not ported")
+    if n_lanes <= 0:
+        raise ValueError("n_lanes must be positive")
+    dev = resolve_device(device)
+    scene = scene_to(scene, dev)
+    n_pix = width * height
+    _check_size(n_pix, max_depth)
+    total = n_pix * spp
+    N = n_lanes
+    pdf_over_area = emitters.tri_pdf_over_area(scene)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    film = zeros(n_pix, 7)
+    cursor = zeros(1, dtype=torch.int64)
+    ro = zeros(N, 3)
+    rd = zeros(N, 3)
+    rd[:, 2] = 1.0
+    thr = torch.ones((N, 3), device=dev)
+    li = zeros(N, 3)
+    eta2 = torch.ones(N, device=dev)
+    ppdf = torch.ones(N, device=dev)
+    pix = zeros(N, dtype=torch.int64)
+    depth0 = zeros(N, dtype=torch.int64)
+    alive = zeros(N, dtype=torch.bool)
+    exhausted = zeros(N, dtype=torch.bool)
+    prev_delta = torch.ones(N, dtype=torch.bool, device=dev)
+    n_vert = zeros(dtype=torch.float64)
+
+    steps = 0
+    while bool((alive | ~exhausted).any()):
+        rnd = torch.rand((N, 10), generator=generator, device=dev)
+        u_regen, u1n, u2n = rnd[:, 0:2], rnd[:, 2], rnd[:, 3:5]
+        u0, u1, u2, u_rr = rnd[:, 5], rnd[:, 6], rnd[:, 7:9], rnd[:, 9]
+
+        # --- Regenerate dead lanes from the global sample counter ---
+        need = ~alive & ~exhausted
+        rank = torch.cumsum(need.long(), 0) - 1
+        g = cursor + rank
+        start = need & (g < total)
+        pix_n = torch.where(start, g % n_pix, 0)
+        px = (pix_n % width).float() + u_regen[:, 0]
+        py = (pix_n // width).float() + u_regen[:, 1]
+        ro_n, rd_n = generate_rays(scene, torch.stack([px, py], -1), width,
+                                   height, fov_axis)
+        exhausted = exhausted | (need & ~start)
+        cursor = cursor + start.sum()
+        s1 = start[:, None]
+        pix = torch.where(start, pix_n, pix)
+        ro = torch.where(s1, ro_n, ro)
+        rd = torch.where(s1, rd_n, rd)
+        thr = torch.where(s1, 1.0, thr)
+        li = torch.where(s1, 0.0, li)
+        eta2 = torch.where(start, 1.0, eta2)
+        ppdf = torch.where(start, 1.0, ppdf)
+        prev_delta = prev_delta | start
+        depth0 = torch.where(start, 0, depth0)
+        alive = alive | start
+
+        # --- One bounce ---
+        hit = intersect(scene, ro, rd)
+        it = surface_interaction(scene, ro, rd, hit)
+        le = emitters.eval_emitter(scene, it, -rd)
+        w_hit = torch.ones(N, device=dev)
+        if nee:
+            pdf_nee = emitters.pdf_direct_hit(scene, pdf_over_area, hit["tri"],
+                                              rd, hit["t"])
+            w_hit = torch.where(prev_delta, 1.0, mi_weight(ppdf, pdf_nee))
+        li = li + torch.where(alive[:, None], thr * le * w_hit[:, None], 0.0)
+        # Escaped rays: the constant environment, MIS weight 1.
+        escaped = alive & ~hit["valid"]
+        li = li + torch.where(escaped[:, None],
+                              thr * emitters.env_eval(scene, rd), 0.0)
+        on_surface = alive & hit["valid"]
+        n_vert = n_vert + on_surface.sum()
+
+        params = bsdf_mod.gather_params(scene, it["bsdf"], it["uv"],
+                                        types=bsdf_types)
+        s_ax, t_ax, n_ax = shading_frame(params, it["ns"], -rd)
+        wi_local = to_local(s_ax, t_ax, n_ax, -rd)
+        wi_dot_geo = (it["ng"] * -rd).sum(-1)
+        on_surface = on_surface & ~(wi_dot_geo * wi_local[..., 2] < 0.0)
+
+        if nee:
+            ls = emitters.sample_direct(scene, it["p"], u1n, u2n)
+            wo_l = to_local(s_ax, t_ax, n_ax, ls["d"])
+            f, pdf_b = bsdf_mod.eval_pdf_full(params, wi_local, wo_l,
+                                              types=bsdf_types)
+            # The NEE light vertex sits at depth0 + 2: gate it by
+            # max_depth, as the reference's volpath breaks before NEE.
+            cand = (on_surface & ls["valid"] & bsdf_mod.has_smooth(params)
+                    & (ls["pdf"] > 0.0) & (depth0 + 2 <= max_depth))
+            shadow_o = it["p"] + it["ng"] * torch.where(
+                (it["ng"] * ls["d"]).sum(-1) > 0, RAY_EPS, -RAY_EPS)[:, None]
+            occ = occluded(scene, shadow_o, ls["d"], ls["dist"] * (1.0 - 1e-3))
+            w = torch.where(ls["delta"], 1.0, mi_weight(ls["pdf"], pdf_b))
+            contrib = thr * f * ls["radiance"] * (
+                w / ls["pdf"].clamp_min(1e-20))[:, None]
+            li = li + torch.where((cand & ~occ)[:, None], contrib, 0.0)
+
+        bs = bsdf_mod.sample_full(params, wi_local, u0, u1, u2,
+                                  types=bsdf_types)
+        wo_world = to_world(s_ax, t_ax, n_ax, bs["wo"])
+        wo_dot_geo = (it["ng"] * wo_world).sum(-1)
+        good = (bs["weight"] > 0.0).any(-1) & ~(wo_dot_geo * bs["wo"][..., 2]
+                                                <= 0.0)
+
+        depth = depth0 + 1
+        survive = on_surface & good & (depth < max_depth)
+        thr_next = thr * torch.where(survive[:, None], bs["weight"], 1.0)
+        eta_sq = eta2 * torch.where(survive, bs["eta"] * bs["eta"], 1.0)
+        # Russian roulette (reference: sdmm_proc.cpp:858).
+        q = (thr_next.max(-1).values * eta_sq).clamp_max(0.95)
+        do_rr = depth + 1 >= rr_depth
+        survive = survive & ~(do_rr & (u_rr >= q))
+        thr_next = torch.where((do_rr & survive)[:, None],
+                               thr_next / q.clamp_min(1e-6)[:, None], thr_next)
+
+        # --- Terminate finished paths: one film scatter ---
+        done = alive & ~survive
+        val = torch.where(done[:, None], torch.nan_to_num(
+            li, nan=0.0, posinf=0.0, neginf=0.0), 0.0)
+        film.index_add_(0, pix, torch.cat(
+            [val, val * val, done.float()[:, None]], dim=-1))
+
+        ro = it["p"] + it["ng"] * torch.where(
+            wo_dot_geo > 0, RAY_EPS, -RAY_EPS)[:, None]
+        rd = wo_world
+        thr = thr_next
+        eta2 = eta_sq
+        ppdf = bs["pdf"]
+        prev_delta = bs["delta"]
+        # Dead lanes would otherwise count depth up into the flag bits.
+        depth0 = torch.where(survive, depth, 0) & _DEPTH_MASK
+        alive = survive
+        steps += 1
+
+    return {"image": film[:, 0:3], "sqr": film[:, 3:6], "weight": film[:, 6],
+            "n_vertices": n_vert, "steps": steps, "pool": "eager"}
+
+
+def fused_supported(scene, cfg, nee: bool = True) -> bool:
+    """Whether the fused pools can render ``scene``: NEE on, in-kernel BSDF
+    types only, a triangle table within MAX_TRIS, 1 to MAX_EMITTERS
+    emissive triangles and a pixel index that fits the meta word. The
+    port's scenes hold no textures, media, bump maps, point lights or
+    environment maps, so the reference gate's other terms hold by
+    construction."""
+    return bool(
+        nee
+        and len(cfg.bsdf_types) > 0
+        and all(t in bo.SUPPORTED_TYPES for t in cfg.bsdf_types)
+        and scene.tri_v0.shape[0] <= bo.MAX_TRIS
+        and 1 <= scene.em_tri_idx.shape[0] <= bo.MAX_EMITTERS
+        and cfg.width * cfg.height <= _PIX_MASK
+    )
+
+
+def _fresh_state(n: int, dev) -> torch.Tensor:
+    """The pools' initial lane state: direction +z, throughput 1, eta² 1,
+    previous pdf 1."""
+    state = torch.zeros((16, n), device=dev)
+    state[5] = 1.0
+    state[_THR] = 1.0
+    state[_ETA2] = 1.0
+    state[_PPDF] = 1.0
+    return state
+
+
+def _tables(scene):
+    tri_rows, em_rows, env_row = bo.build_tables(scene)
+    n_em = scene.em_tri_idx.shape[0]
+    if n_em > bo.MAX_EMITTERS:
+        raise ValueError(f"{n_em} emissive triangles > {bo.MAX_EMITTERS}")
+    return tri_rows, em_rows, env_row, n_em
+
+
+def render_pool_fused_sorted2(
+    scene,
+    seed: int,
+    spp: int,
+    width: int,
+    height: int,
+    spp_pilot: int = 8,
+    max_depth: int = 10,
+    rr_depth: int = 10,
+    fov_axis: str = "x",
+    bsdf_types: tuple = (0,),
+    device: str | torch.device = "cuda",
+):
+    """Cost-sorted pool over the fused step kernel. A pilot pass renders
+    ``spp_pilot`` samples with lane i on pixel i and counts each pixel's
+    path vertices; the other ``spp - spp_pilot`` samples run with the
+    pixels sorted by that cost, so each tile holds equal-cost pixels and
+    cheap tiles drain and skip early. Every step is one ``ops.bounce.step``
+    launch with the Philox key (seed + phase, step); the host reads the
+    tiles' alive flags every INNER steps. Callers pass ``fused_supported``
+    scenes.
+
+    Returns dict(image, sqr, weight, n_vertices, steps, alive_tile_steps
+    (tiles that ran a bounce), total_tile_steps, pool="sorted2")."""
+    if not 0 < spp_pilot < spp:
+        raise ValueError(f"spp_pilot {spp_pilot} must lie in (0, {spp})")
+    dev = resolve_device(device)
+    scene = scene_to(scene, dev)
+    n_pix = width * height
+    _check_size(n_pix, max_depth)
+    if spp > _PIX_MASK:
+        raise ValueError(f"spp {spp} does not fit the lane meta word")
+    tri_rows, em_rows, env_row, n_em = _tables(scene)
+    types = tuple(bsdf_types)
+    tile = bo.lane_tile(tri_rows.shape[1])
+    n_tiles = -(-n_pix // tile)
+    N = n_tiles * tile
+    cam = bo.build_cam_params(scene, width, height, fov_axis)
+    lane = torch.arange(N, device=dev)
+
+    def run_phase(pix_of_lane, budget, phase_id):
+        pxpy = torch.stack([(pix_of_lane % width).float(),
+                            (pix_of_lane // width).float(),
+                            budget.float()]).contiguous()
+        state = _fresh_state(N, dev)
+        meta = torch.full((N,), _PDELTA, dtype=torch.int32, device=dev)
+        film = torch.zeros((8, N), device=dev)
+        tile_alive = torch.ones(n_tiles, dtype=torch.int32, device=dev)
+        ats = torch.zeros((), dtype=torch.int64, device=dev)
+        steps = 0
+        while True:
+            for _ in range(INNER):
+                ats = ats + tile_alive.sum()
+                bo.step(state, meta, film, tile_alive, cam,
+                        (seed + phase_id, steps), pxpy, tri_rows, em_rows,
+                        env_row, n_em, max_depth, rr_depth, types, width,
+                        height)
+                runnable = ((meta & _ALIVE) != 0) | ((meta & _EXH) == 0)
+                tile_alive = runnable.view(n_tiles, tile).any(1).to(
+                    torch.int32)
+                steps += 1
+            if not bool(tile_alive.any()):
+                return film, steps, ats
+
+    in_image = lane < n_pix
+    pix_a = torch.where(in_image, lane, 0)
+    film_a, steps_a, ats_a = run_phase(
+        pix_a, torch.where(in_image, spp_pilot, 0), 0)
+
+    # Measured cost per pixel → equal-cost tiles for the main pass. Lanes
+    # past the image carry cost -1: they sort to the front, budget 0.
+    cost = torch.where(in_image, film_a[7], -1.0)
+    order = torch.argsort(cost, stable=True)
+    valid_b = cost[order] >= 0.0
+    film_b, steps_b, ats_b = run_phase(
+        torch.where(valid_b, order, 0),
+        torch.where(valid_b, spp - spp_pilot, 0), 1)
+
+    film = torch.zeros((n_pix + 1, 8), device=dev)
+    film.index_add_(0, torch.where(in_image, pix_a, n_pix), film_a.T)
+    film.index_add_(0, torch.where(valid_b, order, n_pix), film_b.T)
+    film = film[:n_pix]
+    steps = steps_a + steps_b
+    return {"image": film[:, 0:3], "sqr": film[:, 3:6], "weight": film[:, 6],
+            "n_vertices": film[:, 7].sum(), "steps": steps,
+            "alive_tile_steps": int(ats_a + ats_b),
+            "total_tile_steps": steps * n_tiles, "pool": "sorted2"}
+
+
+def render_pool_fused_striped(
+    scene,
+    seed: int,
+    spp: int,
+    width: int,
+    height: int,
+    max_depth: int = 10,
+    rr_depth: int = 10,
+    fov_axis: str = "x",
+    bsdf_types: tuple = (0,),
+    device: str | torch.device = "cuda",
+):
+    """Pixel-stationary pool on the bounce kernel: lane i owns pixel i for
+    ``spp`` samples, so the film update is a dense per-lane add. The
+    regeneration and the uniforms (a ``torch.Generator`` seeded by
+    ``seed``) are PyTorch. Callers pass ``fused_supported`` scenes.
+
+    Returns dict(image, sqr, weight, n_vertices, steps, pool="striped")."""
+    dev = resolve_device(device)
+    scene = scene_to(scene, dev)
+    n_pix = width * height
+    _check_size(n_pix, max_depth)
+    if spp > _PIX_MASK:
+        raise ValueError(f"spp {spp} does not fit the lane meta word")
+    tri_rows, em_rows, env_row, n_em = _tables(scene)
+    types = tuple(bsdf_types)
+    tile = bo.RT * 128
+    N = -(-n_pix // tile) * tile
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lane = torch.arange(N, device=dev)
+    in_image = lane < n_pix
+    px_base = (lane % width).float()
+    py_base = (lane // width).float()
+    # Rows 6-15 of a fresh lane: throughput 1, radiance 0, eta² 1, pdf 1.
+    fresh_tail = _fresh_state(N, dev)[6:]
+    depth_bits = _DEPTH_MASK << _DEPTH_SHIFT
+
+    state = _fresh_state(N, dev)
+    meta = torch.full((N,), _PDELTA, dtype=torch.int32, device=dev)
+    film = torch.zeros((7, N), device=dev)
+    n_vert = torch.zeros((), dtype=torch.float64, device=dev)
+    steps = 0
+    while True:
+        for _ in range(INNER):
+            rnd = torch.rand((2 + bo.RAND_ROWS, N), generator=gen,
+                             device=dev)
+            alive = (meta & _ALIVE) != 0
+            exh = (meta & _EXH) != 0
+            count = meta & _PIX_MASK
+
+            # --- Regenerate dead lanes on their own pixel ---
+            need = ~alive & ~exh
+            start = need & (count < spp) & in_image
+            exh = exh | (need & ~start)
+            ro_n, rd_n = generate_rays(
+                scene, torch.stack([px_base + rnd[0], py_base + rnd[1]], -1),
+                width, height, fov_axis)
+            count = torch.where(start, count + 1, count)
+            state = torch.where(start, torch.cat([ro_n.T, rd_n.T, fresh_tail]),
+                                state)
+            meta = (count
+                    | torch.where(alive | start, _ALIVE, 0)
+                    | torch.where(exh, _EXH, 0)
+                    | torch.where(start, _PDELTA, meta & _PDELTA)
+                    | torch.where(start, 0, meta & depth_bits)
+                    ).to(torch.int32)
+
+            state, meta, splat = bo.bounce(
+                state, meta, rnd[2:].contiguous(), tri_rows, em_rows, env_row,
+                n_em, max_depth, rr_depth, types)
+            film += splat[0:7]
+            n_vert = n_vert + splat[7].sum(dtype=torch.float64)
+            steps += 1
+        if not bool((((meta & _ALIVE) != 0) | ((meta & _EXH) == 0)).any()):
+            break
+
+    film = film[:, :n_pix]
+    return {"image": film[0:3].T, "sqr": film[3:6].T, "weight": film[6],
+            "n_vertices": n_vert, "steps": steps, "pool": "striped"}
+
+
+def render_wavefront(scene, cfg, spp: int = 16, seed: int = 1234,
+                     n_lanes: int = 1 << 18, nee: bool = True,
+                     device: str | torch.device = "cuda"):
+    """Render ``scene`` at ``cfg``'s size and depth: on the card, a
+    ``fused_supported`` scene takes ``render_pool_fused_sorted2`` at
+    ``spp`` >= 4 and ``render_pool_fused_striped`` below; every other scene,
+    and every CPU render, the eager ``render_pool``.
+
+    Returns dict(image [H, W, 3] (the mean), sqr [H, W, 3], weight [H, W],
+    raw [H, W, 3] (the sum), as numpy; n_vertices, steps, and pool, the
+    name of the pool that ran)."""
+    dev = resolve_device(device)
+    w, h = cfg.width, cfg.height
+    if dev.type == "cuda" and fused_supported(scene, cfg, nee):
+        kw = dict(spp=spp, width=w, height=h, max_depth=cfg.max_depth,
+                  rr_depth=cfg.rr_depth, fov_axis=cfg.fov_axis,
+                  bsdf_types=tuple(cfg.bsdf_types), device=dev)
+        if spp >= 4:
+            out = render_pool_fused_sorted2(
+                scene, seed, spp_pilot=max(1, min(8, spp // 4)), **kw)
+        else:
+            out = render_pool_fused_striped(scene, seed, **kw)
+    else:
+        out = render_pool(
+            scene, torch.Generator(device=dev).manual_seed(seed),
+            n_lanes=min(n_lanes, w * h * spp), spp=spp, width=w, height=h,
+            max_depth=cfg.max_depth, rr_depth=cfg.rr_depth, nee=nee,
+            bsdf_types=cfg.bsdf_types or None, fov_axis=cfg.fov_axis,
+            device=dev)
+    image, weight = out["image"], out["weight"]
+    return {
+        "image": (image / weight.clamp_min(1.0)[:, None]).reshape(h, w, 3)
+        .cpu().numpy(),
+        "sqr": out["sqr"].reshape(h, w, 3).cpu().numpy(),
+        "weight": weight.reshape(h, w).cpu().numpy(),
+        "raw": image.reshape(h, w, 3).cpu().numpy(),
+        "n_vertices": int(out["n_vertices"]),
+        "steps": int(out["steps"]),
+        "pool": out["pool"],
+    }

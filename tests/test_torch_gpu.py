@@ -12,7 +12,10 @@ tests/test_em_pallas.py (rtol 2e-4 / 3e-4, atol 4e-4 of the magnitude:
 float32 sums in another order); the fused bounce as in
 tests/test_torch_guided_step.py (trace: winner attributes exact, the rest
 rtol 1e-5; shade: state rtol 2e-4 / atol 1e-5, meta and splat equal; each
-on >= 99.8% of the lanes).
+on >= 99.8% of the lanes); the unguided step and bounce: state, film and
+splat rtol 1e-5 / atol 1e-6 (the disk map's sine and cosine differ by an
+ulp between the kernel's sincospif and PyTorch's), meta equal, each on
+>= 99.9% of the lanes.
 """
 
 import os
@@ -23,7 +26,9 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from torch_parity import lane_wave, make_box  # noqa: E402
+from torch_parity import (  # noqa: E402
+    lane_wave, make_box, make_glossy_box, make_tiled_box, path_wave,
+)
 
 from sdmm_tpu_torch.guiding import init as init_mod  # noqa: E402
 from sdmm_tpu_torch.guiding import mixture as mix  # noqa: E402
@@ -194,3 +199,102 @@ def test_guided_step_wrappers_reject_bad_inputs(cuda):
         gst.shade(state, meta, torch.zeros((gst.HIT_ROWS, 256), device=cuda),
                   state[0:3].contiguous(), meta, table, rand, types, 10, 5,
                   0.5)
+
+
+def _path_setup(cuda, n, seed, tiled=False):
+    make = make_tiled_box if tiled else make_glossy_box
+    scene, cfg = make(tscene, tshapes, 16, 16).build(device=cuda)
+    tri, em, env = bo.build_tables(scene)
+    cam = bo.build_cam_params(scene, 16, 16)
+    wave = tuple(torch.as_tensor(a, device=cuda)
+                 for a in path_wave(n, seed, max_depth=10))
+    return (cfg.bsdf_types, tri, em, env, cam, int(scene.em_tri_idx.shape[0]),
+            wave)
+
+
+def _same(a, b):
+    """Bitwise equal, NaN included."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all()) \
+        if a.is_floating_point() else torch.equal(a, b)
+
+
+def _agree(pairs, share=0.999):
+    """Each (kernel, twin, exact) pair agrees on ``share`` of the lanes."""
+    for a, b, exact in pairs:
+        if exact:
+            ok = a == b
+        else:
+            ok = torch.isclose(a, b, rtol=1e-5, atol=1e-6, equal_nan=True)
+        ok = ok.all(0) if ok.dim() == 2 else ok
+        assert float(ok.float().mean()) >= share, float(ok.float().mean())
+
+
+@pytest.mark.parametrize("mode,tiled", [("rand", False), ("philox", False),
+                                        ("philox", True)])
+def test_step_kernel_matches_twin(cuda, mode, tiled):
+    types, tri, em, env, cam, n_em, wave = _path_setup(cuda, 16_384, 8,
+                                                       tiled)
+    state, meta, film, pxpy, rand = wave
+    tile = bo.lane_tile(tri.shape[1])
+    tile_alive = torch.ones(16_384 // tile, dtype=torch.int32, device=cuda)
+    tile_alive[1] = 0  # a drained tile is left as it is
+    rand = rand if mode == "rand" else None
+    args = (cam, (5, 9), pxpy, tri, em, env, n_em, 10, 5, types, 16, 16)
+    ref = bo.step_plain(state, meta, film, tile_alive, *args, rand=rand)
+    k = [x.clone() for x in (state, meta, film)]
+    before = bo.step.launches
+    out = bo.step(*k[:3], tile_alive, *args, rand=rand)
+    torch.cuda.synchronize()
+    assert bo.step.launches == before + 1 and out[0] is k[0]
+    _agree([(out[0], ref[0], False), (out[1], ref[1], True),
+            (out[2], ref[2], False)])
+    sl = slice(tile, 2 * tile)
+    for a, b in zip(out, (state, meta, film)):
+        assert _same(a[..., sl], b[..., sl])
+    assert int(((ref[2] - film)[6] > 0).sum()) > 100  # paths ended
+    if mode == "philox":
+        # The kernel's in-kernel uniforms are the twin's bits.
+        k2 = [x.clone() for x in (state, meta, film)]
+        bo.step(*k2, tile_alive, *args,
+                rand=bo.philox_uniforms((5, 9), 16_384, device=cuda))
+        for a, b in zip(out, k2):
+            assert _same(a, b)
+
+
+@pytest.mark.parametrize("n,skip", [(4_099, False), (16_384, True)])
+def test_bounce_kernel_matches_twin(cuda, n, skip):
+    types, tri, em, env, _, n_em, wave = _path_setup(cuda, n, 12)
+    state, meta, _, _, rand = wave
+    rand = rand[:bo.RAND_ROWS].contiguous()
+    tile_alive = None
+    if skip:
+        tile_alive = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    ref = bo.bounce_plain(state, meta, rand, tri, em, env, n_em, 10, 5,
+                          types, tile_alive)
+    before = bo.bounce.launches
+    out = bo.bounce(state, meta, rand, tri, em, env, n_em, 10, 5, types,
+                    tile_alive)
+    torch.cuda.synchronize()
+    assert bo.bounce.launches == before + 1
+    _agree([(out[0], ref[0], False), (out[1], ref[1], True),
+            (out[2], ref[2], False)])
+    assert int(ref[2][6].sum()) > 100 and int(ref[2][7].sum()) > n // 4
+
+
+def test_path_wrappers_reject_bad_inputs(cuda):
+    types, tri, em, env, cam, n_em, wave = _path_setup(cuda, 8_192, 3)
+    state, meta, film, pxpy, rand = wave
+    ones = torch.ones(1, dtype=torch.int32, device=cuda)
+    args = (cam, (0, 0), pxpy, tri, em, env, n_em, 10, 5, types, 16, 16)
+    with pytest.raises(ValueError):  # meta not int32
+        bo.step(state, meta.long(), film, ones, *args)
+    with pytest.raises(ValueError):  # no whole number of tiles
+        bo.step(state[:, :4096].contiguous(), meta[:4096].contiguous(),
+                film[:, :4096].contiguous(), ones, *args)
+    with pytest.raises(ValueError):  # host uniforms of the wrong height
+        bo.step(state, meta, film, ones, *args, rand=rand[:8].contiguous())
+    with pytest.raises(ValueError):  # 10 uniform rows where bounce takes 8
+        bo.bounce(state, meta, rand, tri, em, env, n_em, 10, 5, types)
+    with pytest.raises(ValueError):  # more emitters than the kernel stages
+        bo.bounce(state, meta, rand[:8].contiguous(), tri, em, env, 65, 10,
+                  5, types)

@@ -20,6 +20,7 @@ from sdmm_tpu_torch.guiding import trainer as ttrainer  # noqa: E402
 from sdmm_tpu_torch.ops import bounce as gbounce  # noqa: E402
 from sdmm_tpu_torch.ops import guided_step as gstep  # noqa: E402
 from sdmm_tpu_torch.render import guided as tguided  # noqa: E402
+from sdmm_tpu_torch.render import wavefront as twf  # noqa: E402
 from sdmm_tpu_torch.scene import scene as tscene  # noqa: E402
 from sdmm_tpu_torch.scene import shapes as tshapes  # noqa: E402
 
@@ -109,6 +110,46 @@ def test_entry_points_default_to_the_card(no_gpu):
                     torch.zeros((4, 353), dtype=torch.bfloat16,
                                 device="meta"),
                     state[0:8], (0,), 10, 10, 0.5)
+
+
+def test_path_entry_points_default_to_the_card(no_gpu):
+    scene, cfg = _scene()
+    for call in (
+            lambda: twf.render_wavefront(scene, cfg, spp=1),
+            lambda: twf.render_pool(scene, torch.Generator(), 64, 1, 8, 8),
+            lambda: twf.render_pool_fused_sorted2(scene, 0, 4, 8, 8, 1),
+            lambda: twf.render_pool_fused_striped(scene, 0, 1, 8, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # The path kernels' wrappers take CUDA tensors alone off the CPU.
+    n = 8192
+    state = torch.zeros((16, n), device="meta")
+    meta = torch.zeros(n, dtype=torch.int32, device="meta")
+    tri, em, env = (x.to("meta") for x in gbounce.build_tables(scene))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gbounce.step(state, meta, state[0:8], meta[0:1],
+                     torch.zeros(14, device="meta"), (0, 0), state[0:3], tri,
+                     em, env, 2, 10, 10, (0,), 8, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gbounce.bounce(state, meta, state[0:8], tri, em, env, 2, 10, 10)
+
+
+def test_unported_path_options_raise():
+    scene, cfg = _scene()
+    for opt in ({"has_bump": True}, {"has_sss": True}):
+        with pytest.raises(NotImplementedError):
+            twf.render_pool(scene, torch.Generator(), 64, 1, 8, 8,
+                            device="cpu", **opt)
+    from sdmm_tpu_torch.scene import emitters as temit
+
+    class WithPointLights(tuple):
+        def __getattr__(self, name):
+            return torch.zeros((1, 3)) if name == "pt_pos" else \
+                getattr(scene, name)
+
+    with pytest.raises(NotImplementedError):
+        temit.sample_direct(WithPointLights(), torch.zeros((4, 3)),
+                            torch.zeros(4), torch.zeros((4, 2)))
 
 
 @pytest.mark.parametrize("option", [

@@ -66,6 +66,71 @@ def make_box(scene_mod, shapes_mod, width=16, height=16, extra_bsdfs=False):
     return b
 
 
+def make_glossy_box(scene_mod, shapes_mod, width=24, height=24):
+    """The 18-triangle box of tests/test_bounce_pallas.py
+    (``_glossy_box_scene``): the box above plus a conductor, a dielectric
+    and a rough-conductor panel, built with either package."""
+    b = make_box(scene_mod, shapes_mod, width, height)
+    mirror = b.add_bsdf(scene_mod.BSDF_CONDUCTOR, eta=0.2, k=[3.9, 2.45, 2.14])
+    glass = b.add_bsdf(scene_mod.BSDF_DIELECTRIC, eta=1.5)
+    rough = b.add_bsdf(scene_mod.BSDF_ROUGHCONDUCTOR, alpha=0.25, eta=0.2,
+                       k=[3.9, 2.45, 2.14])
+
+    def panel(translate, ry, bsdf):
+        m = np.eye(4)
+        m[:3, :3] = np.diag([0.35, 0.35, 1.0])
+        rot = np.eye(4)
+        a = np.deg2rad(ry)
+        rot[0, 0] = rot[2, 2] = np.cos(a)
+        rot[0, 2] = np.sin(a)
+        rot[2, 0] = -np.sin(a)
+        out = rot @ m
+        out[:3, 3] = translate
+        b.add_shape(shapes_mod.make_rectangle(out, False), bsdf)
+
+    panel([-0.95, 1.0, 0.2], 90, mirror)
+    panel([0.95, 0.7, -0.2], -90, rough)
+    panel([0.0, 0.6, 0.3], 10, glass)
+    return b
+
+
+def make_tiled_box(scene_mod, shapes_mod, width=24, height=24, n_panels=52):
+    """The box of tests/test_bounce_pallas.py ``_tiled_box_scene``: the box
+    above plus a grid of small coloured panels on the back wall, past the
+    96-triangle limit of the unrolled sweep (116 triangles)."""
+    b = make_box(scene_mod, shapes_mod, width, height)
+    for i in range(n_panels):
+        r, c = divmod(i, 8)
+        bsdf = b.add_bsdf(scene_mod.BSDF_DIFFUSE, albedo=[
+            0.2 + 0.6 * (i % 3 == 0), 0.2 + 0.6 * (i % 3 == 1),
+            0.2 + 0.6 * (i % 3 == 2)])
+        m = np.eye(4)
+        m[:3, :3] = np.diag([0.09, 0.09, 1.0])
+        m[:3, 3] = [-0.9 + 0.25 * c, 0.15 + 0.25 * r, -0.98]
+        b.add_shape(shapes_mod.make_rectangle(m, False), bsdf)
+    return b
+
+
+def path_wave(n, seed=0, width=16, height=16, max_depth=5, budget=5):
+    """A wave of n lanes for the fused unguided step, as numpy: the
+    ``lane_wave`` state and meta (the meta's pixel field read as a sample
+    count below ``budget``) with a previous-bounce pdf in state row 13 and
+    delta flags in 30% of the metas; pxpy [3, n] (a pixel and a sample
+    budget in [0, budget)), a film [8, n] to add to, rand [10, n]."""
+    from sdmm_tpu_torch.ops import bounce as bo
+
+    state, meta, _ = lane_wave(n, seed=seed, n_pix=budget,
+                               max_depth=max_depth)
+    rs = np.random.RandomState(seed + 1)
+    state[13] = rs.uniform(0.05, 3.0, n)
+    meta |= np.where(rs.rand(n) < 0.3, bo._PDELTA, 0).astype(np.int32)
+    pxpy = np.stack([rs.randint(0, width, n), rs.randint(0, height, n),
+                     rs.randint(0, budget, n)]).astype(np.float32)
+    film = rs.uniform(0.0, 1.0, (8, n)).astype(np.float32)
+    rand = rs.rand(bo.STEP_RAND_ROWS, n).astype(np.float32)
+    return state, meta, film, pxpy, rand
+
+
 def to_np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
