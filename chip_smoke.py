@@ -40,6 +40,26 @@ Phases (any failure raises and the script exits non-zero):
      at 64 spp within 2%, and phase 5's guided image mean with the path
      row's within 5%. Last, path vertices/s at bench.py's configuration
      (640x360, 192 spp, depth 10).
+  7. scenes of any size. The dense sweep mt_sweep against its twin on
+     262,144 queries (camera rays at 640x360, secondary rays from their
+     hits in random directions, occlusion queries toward emitter samples
+     with a finite t_max) on the Cornell box, the four-type box, the
+     116-triangle box and the Cornell box plus one 16x32 sphere (996
+     triangles): hit ids, valid, t, u and v equal on every query. The
+     cluster cull clas_cull against its twin on the Cornell box plus one
+     default sphere (4,004 triangles, 131,072 queries) and on the large
+     scene (the Cornell box plus 32 default spheres: 127,012 triangles,
+     32,768 queries): hit ids and valid equal on >= 0.9999 of the queries,
+     the others printed, t, u and v within rtol 1e-6 where they agree.
+     Times by CUDA-graph replays. Then the large scene's path at 640x360,
+     depth 10: render_wavefront at 16 spp (the eager pool, exactly 16
+     samples on every pixel, clas_cull launched for intersect and occluded
+     on every step) and SDMMTrainer(...).run at 32 spp with
+     tail_chunk_spp=8 (2 training iterations, 3 frozen ones on the eager
+     guided pool): the guided image mean within 5% of the path row's, the
+     valid-conditional share of the frozen tail > 0.5.
+Phases 5 and 6 also read mt_sweep's launches: the training iterations and
+the eager render_pool intersect through it.
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last the {"ok": true, "device": ...} line.
 """
@@ -101,6 +121,16 @@ PATH_OPS_PER_TRI = 60
 PATH_OPS_PER_LANE = 500
 STEP_OPS_PER_LANE = 60
 PHILOX_OPS_PER_LANE = 320
+# The intersection kernels, the same way: csrc/mt_sweep.cu 61 per query and
+# triangle (cross products, determinant and reciprocal, u, v, t, six tests,
+# the update); csrc/clas_cull.cu ~30 per query and cluster for the slab
+# test and ~56 per Woop test (bounce_math.cuh woop_tri, three range tests,
+# the update).
+MT_OPS_PER_TRI = 61
+SLAB_OPS = 30
+WOOP_OPS = 56
+# Bytes per query of both: ro, rd and t_max in, t, tri, u and v out.
+QUERY_BYTES = 28 + 16
 # trace and shade against their twins: the share of lanes on which they may
 # disagree, over all lanes and within each group of lanes (each BSDF type the
 # twin's hit buffer names, and the lanes off any surface), so that a fault in
@@ -137,11 +167,12 @@ def agreement(name, ok, groups):
     return overall
 
 
-def time_ms(fn, reps=20, graph=False):
-    """Median milliseconds of ``fn`` on the current stream. ``graph``
-    captures ``reps`` calls in one CUDA graph and times whole replays, so
-    host launch overhead stays out of a microsecond kernel's time."""
-    for _ in range(3):
+def time_ms(fn, reps=20, graph=False, warm=3):
+    """Median milliseconds of ``fn`` on the current stream after ``warm``
+    calls. ``graph`` captures ``reps`` calls in one CUDA graph and times
+    whole replays, so host launch overhead stays out of a microsecond
+    kernel's time."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     if graph:
@@ -350,11 +381,12 @@ def phase_em(dev):
             "library_ms": None}
 
 
-def cornell_box(width, height, dev, extra_bsdfs=False):
+def cornell_box(width, height, dev, extra_bsdfs=False, spheres=()):
     """The closed box of tests/test_render.py with its ceiling light, plus
     the two classic Cornell blocks, all diffuse. ``extra_bsdfs`` adds a
     conductor, a dielectric and a rough-conductor cube (the four-type box
-    of tests/torch_parity.py)."""
+    of tests/torch_parity.py); ``spheres``, (centre, radius, n_theta,
+    n_phi) each, adds diffuse spheres of albedo 0.5."""
     from sdmm_tpu_torch.scene import shapes
     from sdmm_tpu_torch.scene.scene import (
         BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_ROUGHCONDUCTOR,
@@ -404,6 +436,11 @@ def cornell_box(width, height, dev, extra_bsdfs=False):
                        ((0.0, 1.3, -0.5), rough)):
             b.add_shape(shapes.make_cube(compose(list(tw), [0.15] * 3,
                                                  rx=30)), bs)
+    if spheres:
+        grey = b.add_bsdf(BSDF_DIFFUSE, albedo=[0.5, 0.5, 0.5])
+        for c, r, n_theta, n_phi in spheres:
+            b.add_shape(shapes.make_sphere(c, r, n_theta=n_theta,
+                                           n_phi=n_phi), grey)
     cam = np.eye(4)
     cam[:3, 3] = [0.0, 1.0, 4.0]
     cam[0, 0] = -1.0
@@ -543,6 +580,7 @@ def phase_main_path(dev, width=640, height=360):
     from sdmm_tpu_torch.ops import em_suffstats as ems
     from sdmm_tpu_torch.ops import guided_sample as gso
     from sdmm_tpu_torch.ops import guided_step as gst
+    from sdmm_tpu_torch.ops import intersect_sweep as isweep
     from sdmm_tpu_torch.render.guided import (
         render_pool_guided, render_pool_guided_fused,
     )
@@ -563,6 +601,7 @@ def phase_main_path(dev, width=640, height=360):
     ems.suffstats.launches = 0
     gst.trace.launches = 0
     gst.shade.launches = 0
+    isweep.mt_sweep.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     img, iters = tr.run(total_spp=64, on_iteration=on_iteration)
@@ -570,7 +609,8 @@ def phase_main_path(dev, width=640, height=360):
     wall = time.time() - t0
     launches = {"guided_sample": gso.guided_sample.launches,
                 "em_suffstats": ems.suffstats.launches,
-                "trace": gst.trace.launches, "shade": gst.shade.launches}
+                "trace": gst.trace.launches, "shade": gst.shade.launches,
+                "mt_sweep": isweep.mt_sweep.launches}
     print(f"main path: {len(iters)} iterations, {wall:.2f} s, launches "
           f"{launches}", flush=True)
 
@@ -820,6 +860,7 @@ def phase_path_row(dev, guided_mean, smi, width=640, height=360):
     """The unguided path row through render_wavefront, with the step and
     bounce launch counts read around it; returns them."""
     from sdmm_tpu_torch.ops import bounce as bo
+    from sdmm_tpu_torch.ops import intersect_sweep as isweep
     from sdmm_tpu_torch.render.wavefront import render_pool, render_wavefront
 
     scene, cfg = cornell_box(width, height, dev)
@@ -849,6 +890,7 @@ def phase_path_row(dev, guided_mean, smi, width=640, height=360):
     check(all(v > 0 for v in launches.values()),
           f"path row: a kernel was not launched: {launches}")
 
+    isweep.mt_sweep.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     eager = render_pool(scene, torch.Generator(device=dev).manual_seed(13),
@@ -857,6 +899,12 @@ def phase_path_row(dev, guided_mean, smi, width=640, height=360):
                         device=dev)
     torch.cuda.synchronize()
     t_eager = time.time() - t0
+    print(f"path row: the eager render_pool launched mt_sweep "
+          f"{isweep.mt_sweep.launches} times in {eager['steps']} steps",
+          flush=True)
+    check(isweep.mt_sweep.launches == 2 * eager["steps"],
+          "path row: the eager pool's intersect and occluded did not go "
+          "through mt_sweep")
     m_eager = float((eager["image"] / eager["weight"].clamp_min(1.0)[:, None])
                     .mean())
     m_row, m_row2 = float(row["image"].mean()), float(row2["image"].mean())
@@ -888,6 +936,308 @@ def phase_path_row(dev, guided_mean, smi, width=640, height=360):
     return launches
 
 
+def large_spheres():
+    """The large scene's 32 spheres: make_sphere's default 32 x 64
+    tessellation, centres and radii drawn as scripts/bench_clas.py draws
+    them."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(32):
+        c = rng.uniform([-0.9, 0.05, -0.9], [0.9, 1.9, 0.9])
+        out.append((c, rng.uniform(0.03, 0.12), 32, 64))
+    return out
+
+
+def twin_hits(scene, ro, rd, t_max):
+    """The hit record of the plain twin on the route render/intersect.py
+    takes for ``scene``."""
+    from sdmm_tpu_torch.ops import clas_cull as ccull
+    from sdmm_tpu_torch.ops import intersect_sweep as isweep
+    from sdmm_tpu_torch.render.intersect import BRUTE_FORCE_MAX
+
+    if scene.tri_v0.shape[0] <= BRUTE_FORCE_MAX:
+        return isweep.mt_sweep_plain(ro, rd, t_max, scene.tri_v0,
+                                     scene.tri_e1, scene.tri_e2)
+    t, tri, u, v = ccull.cull_plain(ro, rd, t_max, scene.clas_woop,
+                                    scene.clas_ids)
+    return {"t": t, "tri": tri, "u": u, "v": v, "valid": tri >= 0}
+
+
+def query_rays(scene, n, seed, dev, width=640, height=360):
+    """n queries of three interleaved kinds: camera rays through random
+    points of a width x height image; secondary rays from the camera rays'
+    hits in uniformly random directions; occlusion queries from those hits
+    toward emitter samples, t_max 0.999 of the distance (the eager pool's
+    shadow rays). A query whose camera ray missed stays a camera ray.
+    Returns contiguous (ro, rd, t_max) and each query's kind (0, 1, 2)."""
+    from sdmm_tpu_torch.render.intersect import surface_interaction
+    from sdmm_tpu_torch.render.volpath import RAY_EPS
+    from sdmm_tpu_torch.scene import emitters
+    from sdmm_tpu_torch.scene.sensor import generate_rays
+
+    u = torch.rand((n, 7), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+    ro, rd = generate_rays(
+        scene, u[:, 0:2] * torch.tensor([width, height], device=dev), width,
+        height)
+    inf = torch.full((n,), 3.4e38, device=dev)
+    it = surface_interaction(scene, ro, rd, twin_hits(scene, ro, rd, inf))
+    kind = torch.where(it["valid"], torch.arange(n, device=dev) % 3, 0)
+    z = 2.0 * u[:, 2] - 1.0
+    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    phi = 2.0 * np.pi * u[:, 3]
+    d_sec = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+    ls = emitters.sample_direct(scene, it["p"], u[:, 4], u[:, 5:7])
+
+    def spawn(d):
+        side = torch.where((it["ng"] * d).sum(-1) > 0, RAY_EPS, -RAY_EPS)
+        return it["p"] + it["ng"] * side[:, None]
+
+    k1, k2 = (kind == 1)[:, None], (kind == 2)[:, None]
+    ro = torch.where(k1, spawn(d_sec), torch.where(k2, spawn(ls["d"]), ro))
+    rd = torch.where(k1, d_sec, torch.where(k2, ls["d"], rd))
+    t_max = torch.where(kind == 2, ls["dist"] * (1.0 - 1e-3), inf)
+    return ro.contiguous(), rd.contiguous(), t_max.contiguous(), kind
+
+
+def phase_sweep(dev, N=262_144, width=640, height=360):
+    """mt_sweep against its twin on four scenes; returns its entry, timed
+    on the Cornell box (the main path's scene)."""
+    from sdmm_tpu_torch.ops import intersect_sweep as isweep
+    from sdmm_tpu_torch.scene import scene as tscene
+    from sdmm_tpu_torch.scene import shapes as tshapes
+    from torch_parity import make_tiled_box
+
+    sphere = [([0.0, 1.0, 0.3], 0.35, 16, 32)]
+    scenes = (
+        ("cornell", lambda: cornell_box(width, height, dev)),
+        ("four-type", lambda: cornell_box(width, height, dev, True)),
+        ("116 triangles", lambda: make_tiled_box(
+            tscene, tshapes, width, height).build(device=dev)),
+        ("996 triangles", lambda: cornell_box(width, height, dev,
+                                              spheres=sphere)))
+    entry, errs = None, []
+    for name, make in scenes:
+        scene, _ = make()
+        n_tris = scene.tri_v0.shape[0]
+        ro, rd, tm, kind = query_rays(scene, N, 31, dev)
+        tris = (scene.tri_v0, scene.tri_e1, scene.tri_e2)
+        got = isweep.mt_sweep(ro, rd, tm, *tris)
+        want = isweep.mt_sweep_plain(ro, rd, tm, *tris)
+        torch.cuda.synchronize()
+        same = (got["tri"] == want["tri"]) & (got["valid"] == want["valid"])
+        exact = same & (got["t"] == want["t"]) & (got["u"] == want["u"]) \
+            & (got["v"] == want["v"])
+        close = same
+        for k in ("t", "u", "v"):
+            close = close & torch.isclose(got[k], want[k], rtol=1e-6, atol=0)
+        ok = want["valid"]
+        errs.append(float((got["t"] - want["t"])[ok & same].abs().max()))
+        print(f"mt_sweep [{name}, {n_tris} triangles]: {N} queries (camera "
+              f"{int((kind == 0).sum())}, secondary {int((kind == 1).sum())}"
+              f", occlusion {int((kind == 2).sum())}), hits "
+              f"{int(ok.sum())}; ids and valid equal on "
+              f"{float(same.float().mean()):.6f}, t/u/v bit-equal on "
+              f"{float(exact.float().mean()):.6f}, within rtol 1e-6 on "
+              f"{float(close.float().mean()):.6f}", flush=True)
+        check(bool(same.all()), f"mt_sweep [{name}]: hit ids differ")
+        check(bool(close.all()), f"mt_sweep [{name}]: t, u or v differ")
+        check(0.1 < float(ok.float().mean()) < 1.0,
+              f"mt_sweep [{name}]: comparison is vacuous")
+        if name not in ("cornell", "996 triangles"):
+            continue
+        ms = time_ms(lambda: isweep.mt_sweep(ro, rd, tm, *tris), reps=20,
+                     graph=True)
+        t_bytes = (N * QUERY_BYTES + n_tris * 36) / PEAK_BYTES * 1e3
+        t_ops = N * n_tris * MT_OPS_PER_TRI / PEAK_FP32 * 1e3
+        print(f"mt_sweep [{name}]: kernel {ms:.4f} ms, bound "
+              f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, ops "
+              f"{t_ops:.4f})", flush=True)
+        if name == "cornell":
+            plain_ms = time_ms(lambda: isweep.mt_sweep_plain(
+                ro, rd, tm, *tris), reps=5)
+            print(f"mt_sweep [{name}]: plain {plain_ms:.4f} ms", flush=True)
+            entry = {"name": "mt_sweep", "route": "cuda",
+                     "source": "sdmm_tpu_torch/csrc/mt_sweep.cu",
+                     "replaces": "sdmm_tpu/ops/intersect_pallas.py:147",
+                     "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                     "library_ms": None}
+    entry["max_abs_err"] = max(errs)
+    return entry
+
+
+def admitted_tris(ro, rd, t_max, t_final, aabb, ids, chunk=8192):
+    """The Woop tests the least culling design needs: for each query, the
+    real triangles of every cluster whose box it enters before
+    min(its final hit distance, t_max), with the kernel's slab test."""
+    c = ids.shape[0]
+    real = (ids >= 0).sum(1).double()
+    lo, hi = aabb[0:3, :c], aabb[3:6, :c]
+    limit = torch.minimum(t_final, t_max)
+    good = rd.abs() > 1e-12
+    inv = 1.0 / torch.where(good, rd, torch.where(rd >= 0, 1e-12, -1e-12))
+    total = 0.0
+    for s in range(0, ro.shape[0], chunk):
+        o, iv = ro[s:s + chunk, :, None], inv[s:s + chunk, :, None]
+        a0, a1 = (lo[None] - o) * iv, (hi[None] - o) * iv  # [n, 3, C]
+        tmin = torch.minimum(a0, a1).amax(1)
+        tmx = torch.maximum(a0, a1).amin(1)
+        enter = (tmx >= tmin.clamp_min(0.0)) & (tmin < limit[s:s + chunk,
+                                                               None])
+        total += float((enter.double() * real).sum())
+    return total
+
+
+def phase_cull(dev, large, width=640, height=360):
+    """clas_cull against its twin on the 4,004-triangle scene and on the
+    large scene; returns its entry, timed on the large scene."""
+    from sdmm_tpu_torch.ops import clas_cull as ccull
+
+    one, _ = cornell_box(width, height, dev,
+                         spheres=[([0.0, 1.0, 0.3], 0.35, 32, 64)])
+    errs = []
+    for name, scene, n in (("4,004 triangles", one, 131_072),
+                           ("large", large, 32_768)):
+        ro, rd, tm, kind = query_rays(scene, n, 41, dev)
+        clusters = (scene.clas_aabb, scene.clas_woop, scene.clas_ids)
+        got = ccull.cull(ro, rd, tm, *clusters)
+        want = ccull.cull_plain(ro, rd, tm, scene.clas_woop, scene.clas_ids)
+        torch.cuda.synchronize()
+        same = got[1] == want[1]
+        close = same
+        for a, b in zip(got, want):
+            if a.is_floating_point():
+                close = close & torch.isclose(a, b, rtol=1e-6, atol=0)
+        exact = same & (got[0] == want[0]) & (got[2] == want[2]) \
+            & (got[3] == want[3])
+        hits = want[1] >= 0
+        errs.append(float((got[0] - want[0])[same & hits].abs().max()))
+        print(f"clas_cull [{name}, {scene.tri_v0.shape[0]} triangles, "
+              f"{scene.clas_ids.shape[0]} clusters of "
+              f"{scene.clas_ids.shape[1]}]: {n} queries (camera "
+              f"{int((kind == 0).sum())}, secondary {int((kind == 1).sum())}"
+              f", occlusion {int((kind == 2).sum())}), hits "
+              f"{int(hits.sum())}; ids equal on "
+              f"{float(same.float().mean()):.6f}, t/u/v bit-equal on "
+              f"{float(exact.float().mean()):.6f}, within rtol 1e-6 where "
+              f"the ids agree on {float(close[same].float().mean()):.6f}",
+              flush=True)
+        for i in (~same).nonzero()[:20, 0].tolist():
+            print(f"  off query {i} (kind {int(kind[i])}): kernel tri "
+                  f"{int(got[1][i])} t {float(got[0][i]):.9g}, twin tri "
+                  f"{int(want[1][i])} t {float(want[0][i]):.9g}", flush=True)
+        check(float(same.float().mean()) >= 0.9999,
+              f"clas_cull [{name}]: hit ids differ")
+        check(bool(close[same].all()), f"clas_cull [{name}]: t, u or v "
+              "differ")
+        check(0.1 < float(hits.float().mean()) < 1.0,
+              f"clas_cull [{name}]: comparison is vacuous")
+
+    c = large.clas_ids.shape[0]
+    clusters = (large.clas_aabb, large.clas_woop, large.clas_ids)
+    timed = {}
+    for n, seed in ((131_072, 43), (262_144, 44)):
+        ro, rd, tm, _ = query_rays(large, n, seed, dev)
+        timed[n] = time_ms(lambda: ccull.cull(ro, rd, tm, *clusters),
+                           reps=10, graph=True)
+        if n == 131_072:
+            box = {}
+            plain_ms = time_ms(lambda: box.update(w=ccull.cull_plain(
+                ro, rd, tm, large.clas_woop, large.clas_ids)), reps=2,
+                warm=1)
+            admitted = admitted_tris(ro, rd, tm, box["w"][0], large.clas_aabb,
+                                     large.clas_ids)
+            t_bytes = (n * QUERY_BYTES + large.clas_woop.numel() * 4
+                       + large.clas_ids.numel() * 4 + 6 * c * 4) \
+                / PEAK_BYTES * 1e3
+            t_ops = (n * c * SLAB_OPS + admitted * WOOP_OPS) \
+                / PEAK_FP32 * 1e3
+    print(f"clas_cull [large]: kernel {timed[131_072]:.4f} ms at 131,072 "
+          f"queries, {timed[262_144]:.4f} ms at 262,144; plain "
+          f"{plain_ms:.4f} ms at 131,072; admitted Woop tests "
+          f"{admitted:.4g} ({admitted / 131_072:.1f} a query of "
+          f"{large.tri_v0.shape[0]}); bound {max(t_bytes, t_ops):.4f} ms "
+          f"(bytes {t_bytes:.4f}, ops {t_ops:.4f})", flush=True)
+    return {"name": "clas_cull", "route": "cuda",
+            "source": "sdmm_tpu_torch/csrc/clas_cull.cu",
+            "replaces": "sdmm_tpu/ops/clas_pallas.py:191",
+            "max_abs_err": max(errs), "ms": timed[131_072],
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": None}
+
+
+def phase_large_path(dev, scene, cfg, smi, width=640, height=360):
+    """The large scene's path row and training render, with clas_cull's
+    launches read around them; returns them."""
+    from sdmm_tpu_torch.guiding.trainer import SDMMTrainer, TrainerConfig
+    from sdmm_tpu_torch.ops import clas_cull as ccull
+    from sdmm_tpu_torch.render.wavefront import render_wavefront
+
+    ccull.cull.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    row = render_wavefront(scene, cfg, spp=16, seed=21, device=dev)
+    torch.cuda.synchronize()
+    t_row = time.time() - t0
+    n_row = ccull.cull.launches
+    m_row = float(row["image"].mean())
+    print(f"large path row: {row['pool']} pool, 16 spp at {width}x{height}, "
+          f"{t_row:.3f} s, {row['steps']} steps, {row['n_vertices']} "
+          f"vertices, clas_cull launches {n_row}, image mean {m_row:.5f}",
+          flush=True)
+    check(row["pool"] == "eager", "large path row: not the eager pool")
+    check(row["image"].shape == (height, width, 3)
+          and np.isfinite(row["image"]).all(),
+          "large path row: image not finite or misshapen")
+    check(bool((row["weight"] == 16).all()),
+          "large path row: not exactly 16 samples on every pixel")
+    check(n_row == 2 * row["steps"], "large path row: intersect and "
+          "occluded did not both go through clas_cull on every step")
+
+    tr = SDMMTrainer(scene, cfg, TrainerConfig(tail_chunk_spp=8), device=dev)
+    snap = {}
+
+    def on_iteration(t, _):
+        st = t.stats[-1]
+        print("large iteration", json.dumps(st), flush=True)
+        c = t.counters["avg_found_conditional"]
+        snap[st["iteration"]] = (c.value, c.base)
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img, iters = tr.run(total_spp=32, on_iteration=on_iteration)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    train = [s for s in tr.stats if s["optimized_nodes_count"] > 0]
+    frozen = [s for s in tr.stats if s["optimized_nodes_count"] == 0]
+    check(len(iters) == 5 and len(train) == 2,
+          f"large training render: {len(iters)} iterations, {len(train)} "
+          "training")
+    check(img.shape == (height, width, 3) and np.isfinite(img).all(),
+          "large training render: image not finite or misshapen")
+    v0, b0 = snap[len(train) - 1]
+    v1, b1 = snap[max(snap)]
+    tail_share = (v1 - v0) / max(b1 - b0, 1.0)
+    rel = abs(float(img.mean()) - m_row) / m_row
+    per_train = statistics.mean(s["elapsed_seconds"] for s in train)
+    per_spp = sum(s["elapsed_seconds"] for s in frozen) \
+        / sum(s["spp"] for s in frozen)
+    print(f"large training render: {wall:.2f} s, {per_train:.3f} s per "
+          f"training iteration, {per_spp:.4f} s per frozen spp, "
+          f"valid-conditional share in the tail {tail_share:.4f}, image "
+          f"mean {img.mean():.5f} vs the path row's {m_row:.5f} (rel "
+          f"{rel:.4f}); clas_cull launches {ccull.cull.launches} on {smi}",
+          flush=True)
+    check(tail_share > 0.5, "large training render: tail conditionals "
+          "mostly invalid")
+    check(rel < 0.05, "large training render: the guided image disagrees "
+          "with the path row")
+    return ccull.cull.launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -902,17 +1252,27 @@ def main():
     dev = torch.device("cuda", 0)
     t0 = time.time()
     reports = _build.build_all(["guided_sample", "em_suffstats",
-                                "guided_step", "bounce"])
+                                "guided_step", "bounce", "mt_sweep",
+                                "clas_cull"])
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    t0 = time.time()
+    large, large_cfg = cornell_box(640, 360, dev, spheres=large_spheres())
+    print(f"large scene: {large.tri_v0.shape[0]} triangles, "
+          f"{large.clas_ids.shape[0]} clusters of {large.clas_ids.shape[1]}, "
+          f"{large.clas_woop.numel() * 4} bytes of Woop rows, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    check(large.tri_v0.shape[0] == 127_012, "large scene: triangle count")
     kernels = [phase_guided(dev), phase_em(dev), *phase_guided_step(dev),
-               *phase_path_kernels(dev)]
+               *phase_path_kernels(dev), phase_sweep(dev),
+               phase_cull(dev, large)]
     launches, guided_mean = phase_main_path(dev)
     launches.update(phase_path_row(dev, guided_mean, smi))
+    launches["clas_cull"] = phase_large_path(dev, large, large_cfg, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

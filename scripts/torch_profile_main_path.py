@@ -12,7 +12,10 @@ render at 4 spp, the fused trace + shade pool the trainer takes on the
 card) and the same frozen render on the eager pool (render_pool_guided, for
 comparison), then the unguided path row (render_wavefront at 64 spp, the
 sorted2 pool on the step kernel, and at 2 spp, the striped pool on the
-bounce kernel) under torch.profiler. For each phase it prints the wall
+bounce kernel), then the same three kinds of phase on the large scene of
+chip_smoke.py (127,012 triangles: every ray goes through the clas_cull
+kernel, and every pool is eager) under torch.profiler. For each phase it
+prints the wall
 time, the time the device was busy (the union of its kernel intervals),
 its share of the unprofiled wall time, the number of kernel launches,
 and the kernels that took the most device time; ``--json`` also writes the summary to a file.
@@ -108,17 +111,17 @@ def main():
     from sdmm_tpu_torch.render.wavefront import render_wavefront
 
     _build.build_all(["guided_sample", "em_suffstats", "guided_step",
-                      "bounce"])
+                      "bounce", "mt_sweep", "clas_cull"])
     dev = torch.device("cuda", 0)
     print(chip_smoke.nvidia_smi_line(), flush=True)
     scene, cfg = chip_smoke.cornell_box(args.width, args.height, dev)
     tr = SDMMTrainer(scene, cfg, TrainerConfig(), device=dev)
 
-    def train_iteration():
-        _, _, _, batches = tr.render_iteration(collect=True)
-        tr.optimize(batches)
-        tr.iteration += 1
-        tr.total_spp += tr.cfg.samples_per_iteration
+    def train_iteration(t=tr):
+        _, _, _, batches = t.render_iteration(collect=True)
+        t.optimize(batches)
+        t.iteration += 1
+        t.total_spp += t.cfg.samples_per_iteration
 
     def frozen_eager():
         c, rc = tr.cfg, tr.render_cfg
@@ -150,6 +153,21 @@ def main():
         profile_phase("path row: render_wavefront, 2 spp (striped, bounce)",
                       lambda: render_wavefront(scene, cfg, spp=2, seed=6,
                                                device=dev)),
+    ]
+    large, large_cfg = chip_smoke.cornell_box(
+        args.width, args.height, dev, spheres=chip_smoke.large_spheres())
+    tl = SDMMTrainer(large, large_cfg, TrainerConfig(), device=dev)
+    for _ in range(2):
+        train_iteration(tl)
+    phases += [
+        profile_phase("large scene: training iteration (render + optimize)",
+                      lambda: train_iteration(tl)),
+        profile_phase("large scene: frozen iteration (eager render, 4 spp)",
+                      lambda: tl.render_iteration(collect=False)),
+        profile_phase("large scene: path row, render_wavefront, 16 spp "
+                      "(eager, clas_cull)",
+                      lambda: render_wavefront(large, large_cfg, spp=16,
+                                               seed=7, device=dev)),
     ]
     if args.json:
         with open(args.json, "w") as f:

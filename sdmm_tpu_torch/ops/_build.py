@@ -23,9 +23,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# Per-source flags: bounce.cu rounds every multiply and add on its own, as
-# its plain twin's separate PyTorch operations do.
-EXTRA_FLAGS = {"bounce": ["-fmad=false"]}
+# Per-source flags: these sources round every multiply and add on their own,
+# as their plain twins' separate PyTorch operations do.
+EXTRA_FLAGS = {name: ["-fmad=false"]
+               for name in ("bounce", "mt_sweep", "clas_cull")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

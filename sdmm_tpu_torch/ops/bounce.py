@@ -42,7 +42,7 @@ from ..scene import emitters as em_mod
 from . import _build
 
 INF = 3.4e38  # miss sentinel of the closest-hit sweep
-EPS = 1e-6  # smallest hit distance (intersect.EPS)
+EPS = 1e-6  # smallest hit distance (every intersector's)
 RAY_EPS = 1e-4  # spawn offset along the geometric normal
 INV_PI = 1.0 / math.pi
 PI = math.pi

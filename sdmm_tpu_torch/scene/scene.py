@@ -4,8 +4,9 @@ sdmm_tpu/scene/scene.py, cut to what the guided training render reads).
 ``SceneData`` keeps the triangle arrays, the BSDF table of the four types
 the guided path supports in-kernel (diffuse, conductor, dielectric,
 roughconductor), the emitter radiance table with the power-weighted
-emissive-triangle distribution, a constant environment, the camera and the
-scene AABB (the guiding normalization domain).
+emissive-triangle distribution, a constant environment, the camera, the
+scene AABB (the guiding normalization domain) and the triangle clusters of
+the cluster-cull intersector (``render/clas.py``, ``ops/clas_cull.py``).
 """
 
 from __future__ import annotations
@@ -55,9 +56,14 @@ class SceneData(NamedTuple):
     cam_tan_half_fov: torch.Tensor  # []
     aabb_lo: torch.Tensor  # [3]
     aabb_hi: torch.Tensor  # [3]
+    # Morton-ordered triangle clusters (render/clas.build_clusters).
+    clas_ids: torch.Tensor  # [C, Tc] int32 original tri ids (-1 pad)
+    clas_woop: torch.Tensor  # [C, 12, Tc] Woop rows (ops/clas_cull)
+    clas_aabb: torch.Tensor  # [8, Cp] padded AABB table (ops/clas_cull)
 
 
-_INT_FIELDS = ("tri_bsdf", "tri_emitter", "bsdf_type", "em_tri_idx")
+_INT_FIELDS = ("tri_bsdf", "tri_emitter", "bsdf_type", "em_tri_idx",
+               "clas_ids")
 
 
 def luminance(rgb):
@@ -149,6 +155,9 @@ class SceneBuilder:
         self.fov_axis = fov_axis
 
     def build(self, device="cuda") -> tuple[SceneData, RenderConfig]:
+        # Imported here: render.clas reaches this module through ops.
+        from ..render.clas import build_clusters
+
         all_v, all_n, all_uv, all_b, all_e = [], [], [], [], []
         for soup, bsdf_i, emitter_i in self.soups:
             v, n, uv = soup.concat()
@@ -189,6 +198,8 @@ class SceneBuilder:
         if not self.bsdfs:
             self.add_bsdf(BSDF_DIFFUSE)
         fov = np.deg2rad(self.fov_deg)
+        clas = build_clusters(v0.astype(np.float32), e1.astype(np.float32),
+                              e2.astype(np.float32))
         arrays = dict(
             tri_v0=v0, tri_e1=e1, tri_e2=e2, tri_ng=ng, tri_ns=normals,
             tri_uv=uvs, tri_bsdf=tri_bsdf, tri_emitter=tri_emitter,
@@ -207,6 +218,8 @@ class SceneBuilder:
             cam_to_world=self.cam_to_world,
             cam_tan_half_fov=np.tan(0.5 * fov),
             aabb_lo=aabb_lo, aabb_hi=aabb_hi,
+            clas_ids=clas["ids"], clas_woop=clas["woop"],
+            clas_aabb=clas["aabb"],
         )
         cfg = RenderConfig(
             width=self.width, height=self.height, max_depth=self.max_depth,

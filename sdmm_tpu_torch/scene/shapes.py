@@ -1,5 +1,6 @@
 """Host-side shape → triangle-soup generation (port of
-sdmm_tpu/scene/shapes.py: ``TriSoup``, ``make_rectangle``, ``make_cube``).
+sdmm_tpu/scene/shapes.py: ``TriSoup``, ``make_rectangle``, ``make_cube``,
+``make_sphere``).
 
 Unit-shape conventions match Mitsuba 0.6 (rectangle: [-1,1]^2 in the
 xy-plane, +z normal; cube: [-1,1]^3). Pure numpy.
@@ -94,4 +95,42 @@ def make_cube(to_world: np.ndarray, flip_normals: bool = False) -> TriSoup:
         if flip_normals:
             world = world[:, ::-1, :]
         soup.add(world)
+    return soup
+
+
+def make_sphere(center: np.ndarray, radius: float,
+                to_world: np.ndarray | None = None, n_theta: int = 32,
+                n_phi: int = 64, flip_normals: bool = False) -> TriSoup:
+    """Tessellated UV sphere with smooth shading normals; the degenerate
+    triangles at the poles are dropped."""
+    theta = np.linspace(0.0, np.pi, n_theta + 1)
+    phi = np.linspace(0.0, 2 * np.pi, n_phi + 1)
+    t, p = np.meshgrid(theta, phi, indexing="ij")
+    pts = np.stack(
+        [np.sin(t) * np.cos(p), np.sin(t) * np.sin(p), np.cos(t)], axis=-1)
+    verts, normals = [], []
+    for i in range(n_theta):
+        for j in range(n_phi):
+            quad = [pts[i, j], pts[i + 1, j], pts[i + 1, j + 1],
+                    pts[i, j + 1]]
+            for tri in ([quad[0], quad[1], quad[2]],
+                        [quad[0], quad[2], quad[3]]):
+                tri = np.asarray(tri)
+                if np.linalg.norm(np.cross(tri[1] - tri[0],
+                                           tri[2] - tri[0])) < 1e-12:
+                    continue
+                verts.append(tri)
+                normals.append(tri.copy())
+    verts = np.asarray(verts) * radius + np.asarray(center)
+    normals = np.asarray(normals)
+    if to_world is not None:
+        verts = _transform_points(
+            to_world, verts.reshape(-1, 3)).reshape(-1, 3, 3)
+        normals = _transform_normals(
+            to_world, normals.reshape(-1, 3)).reshape(-1, 3, 3)
+    if flip_normals:
+        normals = -normals
+        verts = verts[:, ::-1, :]
+    soup = TriSoup()
+    soup.add(verts, normals)
     return soup

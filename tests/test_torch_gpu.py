@@ -15,7 +15,11 @@ rtol 1e-5; shade: state rtol 2e-4 / atol 1e-5, meta and splat equal; each
 on >= 99.8% of the lanes); the unguided step and bounce: state, film and
 splat rtol 1e-5 / atol 1e-6 (the disk map's sine and cosine differ by an
 ulp between the kernel's sincospif and PyTorch's), meta equal, each on
->= 99.9% of the lanes.
+>= 99.9% of the lanes; the intersection kernels: the dense sweep's hit
+ids, t, u and v equal to its twin's on every ray (both round every
+operation alone), the cluster cull's on >= 99.9% of the rays (culling
+skips work only, except on a ray whose hit lies within rounding of its
+cluster box's face).
 """
 
 import os
@@ -27,15 +31,19 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_parity import (  # noqa: E402
-    lane_wave, make_box, make_glossy_box, make_tiled_box, path_wave,
+    lane_wave, make_box, make_glossy_box, make_sphere_box, make_tiled_box,
+    path_wave, random_rays,
 )
 
 from sdmm_tpu_torch.guiding import init as init_mod  # noqa: E402
 from sdmm_tpu_torch.guiding import mixture as mix  # noqa: E402
 from sdmm_tpu_torch.ops import bounce as bo  # noqa: E402
+from sdmm_tpu_torch.ops import clas_cull  # noqa: E402
 from sdmm_tpu_torch.ops import em_suffstats as ems  # noqa: E402
 from sdmm_tpu_torch.ops import guided_sample as gso  # noqa: E402
 from sdmm_tpu_torch.ops import guided_step as gst  # noqa: E402
+from sdmm_tpu_torch.ops import intersect_sweep  # noqa: E402
+from sdmm_tpu_torch.render import clas as tclas  # noqa: E402
 from sdmm_tpu_torch.scene import scene as tscene  # noqa: E402
 from sdmm_tpu_torch.scene import shapes as tshapes  # noqa: E402
 
@@ -298,3 +306,61 @@ def test_path_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):  # more emitters than the kernel stages
         bo.bounce(state, meta, rand[:8].contiguous(), tri, em, env, 65, 10,
                   5, types)
+
+
+def _rays(cuda, scene, n, seed):
+    return tuple(torch.as_tensor(a, device=cuda) for a in random_rays(
+        scene.tri_v0.cpu().numpy(), n, seed))
+
+
+@pytest.mark.parametrize("n,extra", [(4_099, False), (50_003, True)])
+def test_mt_sweep_kernel_matches_twin(cuda, n, extra):
+    scene, _ = make_box(tscene, tshapes, 16, 16, extra).build(device=cuda)
+    ro, rd, tm = _rays(cuda, scene, n, 21)
+    tris = (scene.tri_v0, scene.tri_e1, scene.tri_e2)
+    before = intersect_sweep.mt_sweep.launches
+    got = intersect_sweep.mt_sweep(ro, rd, tm, *tris)
+    torch.cuda.synchronize()
+    assert intersect_sweep.mt_sweep.launches == before + 1
+    want = intersect_sweep.mt_sweep_plain(ro, rd, tm, *tris)
+    for k in ("tri", "valid", "t", "u", "v"):
+        assert torch.equal(got[k], want[k]), k
+    assert 0.3 < float(want["valid"].float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("n,t_c", [(4_099, None), (50_003, 128)])
+def test_clas_cull_kernel_matches_twin(cuda, n, t_c):
+    scene, _ = make_sphere_box(tscene, tshapes).build(device=cuda)
+    c = tclas.build_clusters(*(a.cpu().numpy() for a in (
+        scene.tri_v0, scene.tri_e1, scene.tri_e2)), t_c=t_c)
+    aabb, woop, ids = (torch.as_tensor(c[k], device=cuda)
+                       for k in ("aabb", "woop", "ids"))
+    ro, rd, tm = _rays(cuda, scene, n, 22)
+    before = clas_cull.cull.launches
+    got = clas_cull.cull(ro, rd, tm, aabb, woop, ids)
+    torch.cuda.synchronize()
+    assert clas_cull.cull.launches == before + 1
+    want = clas_cull.cull_plain(ro, rd, tm, woop, ids)
+    same = (got[1] == want[1]) & (got[0] == want[0]) & (got[2] == want[2]) \
+        & (got[3] == want[3])
+    assert float(same.float().mean()) >= 0.999
+    assert 0.3 < float((want[1] >= 0).float().mean()) < 0.95
+
+
+def test_intersect_wrappers_reject_bad_inputs(cuda):
+    scene, _ = make_sphere_box(tscene, tshapes).build(device=cuda)
+    ro, rd, tm = _rays(cuda, scene, 256, 23)
+    tris = (scene.tri_v0, scene.tri_e1, scene.tri_e2)
+    clusters = (scene.clas_aabb, scene.clas_woop, scene.clas_ids)
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
+        intersect_sweep.mt_sweep(ro, rd, tm.cpu(), *tris)
+    with pytest.raises(ValueError):  # t_max not float32
+        intersect_sweep.mt_sweep(ro, rd, tm.double(), *tris)
+    with pytest.raises(ValueError):  # rays not [N, 3] contiguous
+        clas_cull.cull(ro.T.contiguous().T, rd, tm, *clusters)
+    with pytest.raises(ValueError):  # ids not int32
+        clas_cull.cull(ro, rd, tm, scene.clas_aabb, scene.clas_woop,
+                       scene.clas_ids.long())
+    with pytest.raises(ValueError):  # a CPU triangle table
+        clas_cull.cull(ro, rd, tm, scene.clas_aabb.cpu(), scene.clas_woop,
+                       scene.clas_ids)

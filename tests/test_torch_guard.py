@@ -18,6 +18,8 @@ from torch_parity import make_box  # noqa: E402
 from sdmm_tpu_torch.guiding import em as tem  # noqa: E402
 from sdmm_tpu_torch.guiding import trainer as ttrainer  # noqa: E402
 from sdmm_tpu_torch.ops import bounce as gbounce  # noqa: E402
+from sdmm_tpu_torch.ops import clas_cull as ccull  # noqa: E402
+from sdmm_tpu_torch.ops import intersect_sweep as isweep  # noqa: E402
 from sdmm_tpu_torch.ops import guided_step as gstep  # noqa: E402
 from sdmm_tpu_torch.render import guided as tguided  # noqa: E402
 from sdmm_tpu_torch.render import wavefront as twf  # noqa: E402
@@ -134,6 +136,35 @@ def test_path_entry_points_default_to_the_card(no_gpu):
         gbounce.bounce(state, meta, state[0:8], tri, em, env, 2, 10, 10)
 
 
+def test_intersect_kernels_take_cuda_tensors_alone(no_gpu, monkeypatch):
+    """Off the CPU the intersection wrappers launch their kernel or raise:
+    they never reach a plain twin. With no card, a scene above
+    BRUTE_FORCE_MAX triangles still refuses device='cuda'."""
+    def no_twin(*a, **k):
+        raise AssertionError("a plain twin ran on a non-CPU tensor")
+
+    monkeypatch.setattr(isweep, "mt_sweep_plain", no_twin)
+    monkeypatch.setattr(ccull, "cull_plain", no_twin)
+    scene, cfg = _scene()
+    x = torch.zeros((8, 3), device="meta")
+    tm = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        isweep.mt_sweep(x, x, tm, *(a.to("meta") for a in (
+            scene.tri_v0, scene.tri_e1, scene.tri_e2)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ccull.cull(x, x, tm, *(a.to("meta") for a in (
+            scene.clas_aabb, scene.clas_woop, scene.clas_ids)))
+    big = make_box(tscene, tshapes, 8, 8)
+    big.add_shape(tshapes.make_sphere([0.0, 1.0, 0.0], 0.3, n_theta=24,
+                                      n_phi=48), 0)
+    big_scene, big_cfg = big.build(device="cpu")
+    assert big_scene.tri_v0.shape[0] > 1024
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        twf.render_wavefront(big_scene, big_cfg, spp=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        big.build()
+
+
 def test_unported_path_options_raise():
     scene, cfg = _scene()
     for opt in ({"has_bump": True}, {"has_sss": True}):
@@ -176,13 +207,19 @@ def test_unported_scene_features_raise():
         tguided.render_pool_guided(scene, tr.guide_state(), torch.Generator(),
                                    n_lanes=64, spp=1, width=8, height=8,
                                    has_medium=True, device="cpu")
+    # A scene past BRUTE_FORCE_MAX triangles is ported: it takes the
+    # cluster cull over its clas_* tensors (here the box's own clusters)
+    # where the dense sweep over its 2000 empty triangles would find none.
     big = tscene.SceneData(*[getattr(scene, f) for f in scene._fields])
     big = big._replace(tri_v0=torch.zeros((2000, 3)),
                        tri_e1=torch.zeros((2000, 3)),
                        tri_e2=torch.zeros((2000, 3)))
     from sdmm_tpu_torch.render import intersect as tisect
-    with pytest.raises(NotImplementedError):
-        tisect.intersect(big, torch.zeros((4, 3)), torch.ones((4, 3)))
+    ro = torch.tensor([[0.0, 1.0, 0.5]]).repeat(4, 1)
+    rd = torch.tensor([[1.0, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0]])
+    hit = tisect.intersect(big, ro, rd)
+    assert hit["valid"].all()
+    assert torch.equal(hit["tri"], tisect.intersect(scene, ro, rd)["tri"])
 
 
 def test_chip_smoke_refuses_without_gpu(no_gpu, tmp_path):

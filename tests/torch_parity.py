@@ -111,6 +111,38 @@ def make_tiled_box(scene_mod, shapes_mod, width=24, height=24, n_panels=52):
     return b
 
 
+def make_sphere_box(scene_mod, shapes_mod, width=16, height=16,
+                    n_spheres=6, res=10):
+    """The scene of tests/test_clas_pallas.py ``_scene``: the box above plus
+    ``n_spheres`` diffuse spheres of ``res`` x 2 ``res`` quads at seeded
+    centres and radii (2,172 triangles at the defaults), built with either
+    package."""
+    b = make_box(scene_mod, shapes_mod, width, height)
+    rng = np.random.default_rng(3)
+    white = b.add_bsdf(scene_mod.BSDF_DIFFUSE, albedo=[0.5] * 3)
+    for _ in range(n_spheres):
+        c = rng.uniform([-0.8, 0.1, -0.8], [0.8, 1.8, 0.8])
+        b.add_shape(shapes_mod.make_sphere(c, rng.uniform(0.1, 0.3),
+                                           np.eye(4), n_theta=res,
+                                           n_phi=2 * res), white)
+    return b
+
+
+def random_rays(v0, n, seed=0):
+    """n rays as numpy: origins uniform in the triangles' v0 bounds grown by
+    0.1, unit directions, and t_max INF on half of them and in [0.2, 2) on
+    the other half."""
+    rs = np.random.RandomState(seed)
+    lo = v0.min(0) - 0.1
+    hi = v0.max(0) + 0.1
+    ro = (rs.rand(n, 3) * (hi - lo) + lo).astype(np.float32)
+    rd = rs.randn(n, 3)
+    rd = (rd / np.linalg.norm(rd, axis=-1, keepdims=True)).astype(np.float32)
+    t_max = np.where(rs.rand(n) < 0.5, 3.4e38,
+                     rs.uniform(0.2, 2.0, n)).astype(np.float32)
+    return ro, rd, t_max
+
+
 def path_wave(n, seed=0, width=16, height=16, max_depth=5, budget=5):
     """A wave of n lanes for the fused unguided step, as numpy: the
     ``lane_wave`` state and meta (the meta's pixel field read as a sample
