@@ -50,8 +50,14 @@ Phases (any failure raises and the script exits non-zero):
      default sphere (4,004 triangles, 131,072 queries) and on the large
      scene (the Cornell box plus 32 default spheres: 127,012 triangles,
      32,768 queries): hit ids and valid equal on >= 0.9999 of the queries,
-     the others printed, t, u and v within rtol 1e-6 where they agree.
-     Times by CUDA-graph replays. Then the large scene's path at 640x360,
+     the others printed, t, u and v within rtol 1e-6 where they agree; its
+     any-hit form (occluded) equal to the twin's on >= 0.9999 of the
+     occlusion queries. Times of the kernel alone by CUDA-graph replays,
+     on the queries in the order cull gives it (the ordering timed on its
+     own): the closest hit at 131,072 and 262,144 queries on the large
+     scene, beside the kernel's own count of Woop tests a query and the
+     count the bound admits; the any-hit form on the occlusion queries of
+     the 131,072. Then the large scene's path at 640x360,
      depth 10: render_wavefront at 16 spp (the eager pool, exactly 16
      samples on every pixel, clas_cull launched for intersect and occluded
      on every step) and SDMMTrainer(...).run at 32 spp with
@@ -1068,32 +1074,13 @@ def phase_sweep(dev, N=262_144, width=640, height=360):
     return entry
 
 
-def admitted_tris(ro, rd, t_max, t_final, aabb, ids, chunk=8192):
-    """The Woop tests the least culling design needs: for each query, the
-    real triangles of every cluster whose box it enters before
-    min(its final hit distance, t_max), with the kernel's slab test."""
-    c = ids.shape[0]
-    real = (ids >= 0).sum(1).double()
-    lo, hi = aabb[0:3, :c], aabb[3:6, :c]
-    limit = torch.minimum(t_final, t_max)
-    good = rd.abs() > 1e-12
-    inv = 1.0 / torch.where(good, rd, torch.where(rd >= 0, 1e-12, -1e-12))
-    total = 0.0
-    for s in range(0, ro.shape[0], chunk):
-        o, iv = ro[s:s + chunk, :, None], inv[s:s + chunk, :, None]
-        a0, a1 = (lo[None] - o) * iv, (hi[None] - o) * iv  # [n, 3, C]
-        tmin = torch.minimum(a0, a1).amax(1)
-        tmx = torch.maximum(a0, a1).amin(1)
-        enter = (tmx >= tmin.clamp_min(0.0)) & (tmin < limit[s:s + chunk,
-                                                               None])
-        total += float((enter.double() * real).sum())
-    return total
-
-
 def phase_cull(dev, large, width=640, height=360):
     """clas_cull against its twin on the 4,004-triangle scene and on the
-    large scene; returns its entry, timed on the large scene."""
+    large scene, in both forms (closest hit, and the any-hit form on the
+    occlusion queries); returns its entry, the closest hit timed on the
+    large scene."""
     from sdmm_tpu_torch.ops import clas_cull as ccull
+    from torch_parity import admitted_tests
 
     one, _ = cornell_box(width, height, dev,
                          spheres=[([0.0, 1.0, 0.3], 0.35, 32, 64)])
@@ -1101,8 +1088,9 @@ def phase_cull(dev, large, width=640, height=360):
     for name, scene, n in (("4,004 triangles", one, 131_072),
                            ("large", large, 32_768)):
         ro, rd, tm, kind = query_rays(scene, n, 41, dev)
-        clusters = (scene.clas_aabb, scene.clas_woop, scene.clas_ids)
+        clusters = (scene.clas_tree, scene.clas_woop_slot, scene.clas_ids)
         got = ccull.cull(ro, rd, tm, *clusters)
+        occ = ccull.any_hit(ro, rd, tm, *clusters)
         want = ccull.cull_plain(ro, rd, tm, scene.clas_woop, scene.clas_ids)
         torch.cuda.synchronize()
         same = got[1] == want[1]
@@ -1114,15 +1102,21 @@ def phase_cull(dev, large, width=640, height=360):
             & (got[3] == want[3])
         hits = want[1] >= 0
         errs.append(float((got[0] - want[0])[same & hits].abs().max()))
+        shadow = kind == 2
+        occ_want = hits & (want[0] < tm)
+        occ_same = float((occ == occ_want)[shadow].float().mean())
         print(f"clas_cull [{name}, {scene.tri_v0.shape[0]} triangles, "
               f"{scene.clas_ids.shape[0]} clusters of "
-              f"{scene.clas_ids.shape[1]}]: {n} queries (camera "
+              f"{scene.clas_ids.shape[1]}, a tree of "
+              f"{scene.clas_tree.shape[0] // 2} leaves]: {n} queries (camera "
               f"{int((kind == 0).sum())}, secondary {int((kind == 1).sum())}"
-              f", occlusion {int((kind == 2).sum())}), hits "
+              f", occlusion {int(shadow.sum())}), hits "
               f"{int(hits.sum())}; ids equal on "
               f"{float(same.float().mean()):.6f}, t/u/v bit-equal on "
               f"{float(exact.float().mean()):.6f}, within rtol 1e-6 where "
-              f"the ids agree on {float(close[same].float().mean()):.6f}",
+              f"the ids agree on {float(close[same].float().mean()):.6f}; "
+              f"any-hit occluded equal on {occ_same:.6f} of the occlusion "
+              f"queries ({int(occ_want[shadow].sum())} occluded)",
               flush=True)
         for i in (~same).nonzero()[:20, 0].tolist():
             print(f"  off query {i} (kind {int(kind[i])}): kernel tri "
@@ -1134,32 +1128,72 @@ def phase_cull(dev, large, width=640, height=360):
               "differ")
         check(0.1 < float(hits.float().mean()) < 1.0,
               f"clas_cull [{name}]: comparison is vacuous")
+        check(occ_same >= 0.9999, f"clas_cull [{name}]: the any-hit form "
+              "disagrees with the twin's occluded")
+        check(0.0 < float(occ_want[shadow].float().mean()) < 1.0,
+              f"clas_cull [{name}]: the any-hit comparison is vacuous")
 
     c = large.clas_ids.shape[0]
-    clusters = (large.clas_aabb, large.clas_woop, large.clas_ids)
-    timed = {}
+    clusters = (large.clas_tree, large.clas_woop_slot, large.clas_ids)
+    rows_bytes = (large.clas_woop.numel() + large.clas_ids.numel()
+                  + 6 * c) * 4
+    timed, glue = {}, {}
     for n, seed in ((131_072, 43), (262_144, 44)):
-        ro, rd, tm, _ = query_rays(large, n, seed, dev)
-        timed[n] = time_ms(lambda: ccull.cull(ro, rd, tm, *clusters),
-                           reps=10, graph=True)
-        if n == 131_072:
-            box = {}
-            plain_ms = time_ms(lambda: box.update(w=ccull.cull_plain(
-                ro, rd, tm, large.clas_woop, large.clas_ids)), reps=2,
-                warm=1)
-            admitted = admitted_tris(ro, rd, tm, box["w"][0], large.clas_aabb,
-                                     large.clas_ids)
-            t_bytes = (n * QUERY_BYTES + large.clas_woop.numel() * 4
-                       + large.clas_ids.numel() * 4 + 6 * c * 4) \
-                / PEAK_BYTES * 1e3
-            t_ops = (n * c * SLAB_OPS + admitted * WOOP_OPS) \
-                / PEAK_FP32 * 1e3
+        ro, rd, tm, kind = query_rays(large, n, seed, dev)
+        # The kernel alone on the queries in the order cull gives it, and
+        # that ordering (a sort key and an argsort) alone.
+        order = ccull.query_order(ro, rd, large.clas_tree)
+        timed[n] = time_ms(lambda: ccull.launch(False, ro, rd, tm, *clusters,
+                                                order), reps=10, graph=True)
+        glue[n] = time_ms(lambda: ccull.query_order(ro, rd, large.clas_tree),
+                          reps=10)
+        if n != 131_072:
+            continue
+        box = {}
+        plain_ms = time_ms(lambda: box.update(w=ccull.cull_plain(
+            ro, rd, tm, large.clas_woop, large.clas_ids)), reps=2, warm=1)
+        want = box["w"]
+        per_query = admitted_tests(ro, rd, tm, want[0], large.clas_aabb,
+                                   large.clas_ids)
+        admitted = float(per_query.sum())
+        t_bytes = (n * QUERY_BYTES + rows_bytes) / PEAK_BYTES * 1e3
+        t_ops = (n * c * SLAB_OPS + admitted * WOOP_OPS) / PEAK_FP32 * 1e3
+        # The kernel's own count of Woop tests, outside the timed replays.
+        tests = torch.zeros(1, dtype=torch.int64, device=dev)
+        ccull.cull(ro, rd, tm, *clusters, tests=tests)
+
+        # The any-hit form on the occlusion queries: an occluded query needs
+        # one Woop test, an unoccluded one its admitted tests.
+        sel = kind == 2
+        ro_s, rd_s, tm_s = (x[sel].contiguous() for x in (ro, rd, tm))
+        n_s = int(sel.sum())
+        occ_want = ((want[1] >= 0) & (want[0] < tm))[sel]
+        order_s = ccull.query_order(ro_s, rd_s, large.clas_tree)
+        ms_any, ms_closest = (time_ms(lambda: ccull.launch(
+            form, ro_s, rd_s, tm_s, *clusters, order_s), reps=10, graph=True)
+            for form in (True, False))
+        tests_any = torch.zeros(1, dtype=torch.int64, device=dev)
+        occ = ccull.any_hit(ro_s, rd_s, tm_s, *clusters, tests=tests_any)
+        check(bool((occ == occ_want).float().mean() >= 0.9999),
+              "clas_cull: the any-hit form disagrees on the timed queries")
+        need = float(torch.where(occ_want, 1.0, per_query[sel]).sum())
+        b_any = (n_s * (28 + 1) + rows_bytes) / PEAK_BYTES * 1e3
+        o_any = (n_s * c * SLAB_OPS + need * WOOP_OPS) / PEAK_FP32 * 1e3
+    n_t = large.tri_v0.shape[0]
     print(f"clas_cull [large]: kernel {timed[131_072]:.4f} ms at 131,072 "
-          f"queries, {timed[262_144]:.4f} ms at 262,144; plain "
+          f"queries, {timed[262_144]:.4f} ms at 262,144 (ordering the "
+          f"queries {glue[131_072]:.4f} / {glue[262_144]:.4f} ms); plain "
           f"{plain_ms:.4f} ms at 131,072; admitted Woop tests "
-          f"{admitted:.4g} ({admitted / 131_072:.1f} a query of "
-          f"{large.tri_v0.shape[0]}); bound {max(t_bytes, t_ops):.4f} ms "
+          f"{admitted:.4g} ({admitted / 131_072:.1f} a query of {n_t}), "
+          f"the kernel's {int(tests)} ({int(tests) / 131_072:.1f} a query, "
+          f"the warp's lockstep count); bound {max(t_bytes, t_ops):.4f} ms "
           f"(bytes {t_bytes:.4f}, ops {t_ops:.4f})", flush=True)
+    print(f"clas_cull any-hit [large, the {n_s} occlusion queries of the "
+          f"131,072, {int(occ_want.sum())} occluded]: kernel {ms_any:.4f} ms"
+          f" (the closest-hit form on them {ms_closest:.4f} ms); Woop tests "
+          f"needed {need / n_s:.1f} a query, the kernel's "
+          f"{int(tests_any) / n_s:.1f}; bound {max(b_any, o_any):.4f} ms "
+          f"(bytes {b_any:.4f}, ops {o_any:.4f})", flush=True)
     return {"name": "clas_cull", "route": "cuda",
             "source": "sdmm_tpu_torch/csrc/clas_cull.cu",
             "replaces": "sdmm_tpu/ops/clas_pallas.py:191",

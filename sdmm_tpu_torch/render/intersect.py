@@ -6,9 +6,10 @@ The route depends on the triangle count alone:
 - at most ``BRUTE_FORCE_MAX`` triangles: the dense Möller–Trumbore sweep
   ``ops/intersect_sweep.mt_sweep`` (the kernel ``csrc/mt_sweep.cu`` on the
   card, its plain twin on the CPU);
-- above it: the cluster cull ``ops/clas_cull`` over the scene's ``clas_*``
-  tensors (the kernel ``csrc/clas_cull.cu`` on the card, its plain twin on
-  the CPU).
+- above it: the cluster cull ``ops/clas_cull`` over the scene's cluster
+  tree and Woop rows (``clas_tree``, ``clas_woop_slot``, ``clas_ids``): on
+  the card the kernel ``csrc/clas_cull.cu``, whose any-hit form answers
+  ``occluded``; on the CPU its plain twin.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ the guided path supports in-kernel (diffuse, conductor, dielectric,
 roughconductor), the emitter radiance table with the power-weighted
 emissive-triangle distribution, a constant environment, the camera, the
 scene AABB (the guiding normalization domain) and the triangle clusters of
-the cluster-cull intersector (``render/clas.py``, ``ops/clas_cull.py``).
+the cluster-cull intersector (``render/clas.py``, ``ops/clas_cull.py``):
+the reference's arrays, plus two that only the port's kernel reads
+(``PORT_FIELDS``), derived from them.
 """
 
 from __future__ import annotations
@@ -60,6 +62,13 @@ class SceneData(NamedTuple):
     clas_ids: torch.Tensor  # [C, Tc] int32 original tri ids (-1 pad)
     clas_woop: torch.Tensor  # [C, 12, Tc] Woop rows (ops/clas_cull)
     clas_aabb: torch.Tensor  # [8, Cp] padded AABB table (ops/clas_cull)
+    # The port's own: derived from the clusters above by scene_from_numpy.
+    clas_tree: torch.Tensor  # [2P, 8] tree over the boxes (build_tree)
+    clas_woop_slot: torch.Tensor  # [C, Tc, 12] Woop rows by slot (slot_rows)
+
+
+# Fields the reference's SceneData does not have.
+PORT_FIELDS = ("clas_tree", "clas_woop_slot")
 
 
 _INT_FIELDS = ("tri_bsdf", "tri_emitter", "bsdf_type", "em_tri_idx",
@@ -74,9 +83,18 @@ def luminance(rgb):
 
 def scene_from_numpy(arrays: dict, device="cuda") -> SceneData:
     """SceneData on ``device`` from a dict of arrays keyed by field name
-    (float32/int32); extra keys are ignored, so the arrays of the reference
-    package's SceneData build the same scene."""
+    (float32/int32). The ``PORT_FIELDS`` are derived from the clusters and
+    extra keys are ignored, so the arrays of the reference package's
+    SceneData build the same scene."""
+    # Imported here: ops reaches this module through render.volpath.
+    from ..ops.clas_cull import build_tree, slot_rows
+
     device = resolve_device(device)
+    arrays = dict(arrays)
+    woop = np.asarray(arrays["clas_woop"], np.float32)
+    arrays["clas_tree"] = build_tree(np.asarray(arrays["clas_aabb"],
+                                                np.float32), woop.shape[0])
+    arrays["clas_woop_slot"] = slot_rows(woop)
     out = {}
     for name in SceneData._fields:
         a = np.asarray(arrays[name])

@@ -18,6 +18,13 @@ hit and occlusion: hit ids and valid equal on every ray, t within rtol
 2e-4 / atol 2e-5 (tests/test_clas_pallas.py:62-69; XLA's CPU backend may
 contract the Woop products into FMAs, and the round loop runs
 Möller–Trumbore).
+
+The kernel's walk over its cluster tree (``ops/clas_cull.build_tree``) is
+held here through a plain model of it (``torch_parity.tree_walk``): on the
+same scene at both cluster sizes, and on six spheres with every triangle
+duplicated (exact ties across cluster boundaries), it returns the dense
+twin's tri, t, u and v bit for bit on every ray, and no ray sweeps fewer
+triangles than the bound admits.
 """
 
 import os
@@ -31,7 +38,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_parity import (  # noqa: E402
-    jax_scene_arrays, make_box, make_sphere_box, random_rays, to_np,
+    admitted_tests, doubled_spheres, jax_scene_arrays, make_box,
+    make_sphere_box, random_rays, rays_at, to_np, tree_walk,
 )
 
 from sdmm_tpu.ops import clas_pallas  # noqa: E402
@@ -129,8 +137,111 @@ def test_scene_from_numpy_gives_the_same_clusters():
     ts = _ts()
     tj = tscene.scene_from_numpy(jax_scene_arrays(_js()), device="cpu")
     assert tj.clas_ids.dtype == torch.int32
-    for f in ("clas_ids", "clas_woop", "clas_aabb"):
+    for f in ("clas_ids", "clas_woop", "clas_aabb") + tscene.PORT_FIELDS:
         assert torch.equal(getattr(ts, f), getattr(tj, f)), f
+
+
+@pytest.mark.parametrize("t_c", [None, 128, 3])
+def test_cluster_tree_holds_its_clusters(t_c):
+    c = tclas.build_clusters(*_tris(_ts()), t_c=t_c)
+    n_c = c["ids"].shape[0]
+    tree = clas_cull.build_tree(c["aabb"], n_c)
+    leaves = tree.shape[0] // 2
+    assert tree.dtype == np.float32 and tree.shape == (2 * leaves, 8)
+    assert leaves >= n_c > leaves // 2 and leaves & (leaves - 1) == 0
+    lo, hi = tree[:, 0:3], tree[:, 4:7]
+    # The leaves are the clusters' boxes, then empty padding.
+    np.testing.assert_array_equal(lo[leaves:leaves + n_c], c["lo"])
+    np.testing.assert_array_equal(hi[leaves:leaves + n_c], c["hi"])
+    assert (lo[leaves + n_c:] > hi[leaves + n_c:]).all()
+    assert (lo[0] > hi[0]).all()
+    # Every inner node's box is the union of its children's.
+    k = np.arange(1, leaves)
+    np.testing.assert_array_equal(lo[k], np.minimum(lo[2 * k], lo[2 * k + 1]))
+    np.testing.assert_array_equal(hi[k], np.maximum(hi[2 * k], hi[2 * k + 1]))
+    assert (tree[:, 3] == 0).all() and (tree[:, 7] == 0).all()
+    # The kernel's Woop rows are the reference's, slot by slot.
+    slot = clas_cull.slot_rows(c["woop"])
+    assert slot.flags["C_CONTIGUOUS"] and slot.shape == (n_c, c["t_c"], 12)
+    np.testing.assert_array_equal(slot, c["woop"].transpose(0, 2, 1))
+
+
+def test_query_order_sorts_by_octant_then_origin():
+    ts = _ts()
+    ro, rd, _ = (torch.as_tensor(a) for a in _rays())
+    order = clas_cull.query_order(ro, rd, ts.clas_tree)
+    assert order.dtype == torch.int32
+    assert torch.equal(order.sort().values, torch.arange(N, dtype=torch.int32))
+    o = order.long()
+    octant = ((rd[o] < 0).long() * torch.tensor([4, 2, 1])).sum(1)
+    assert bool((octant.diff() >= 0).all())
+    # The Morton table is render/clas.py's interleave, and within an octant
+    # the origins' codes never fall.
+    k = np.arange(1024)
+    np.testing.assert_array_equal(clas_cull._SPREAD, tclas._morton3(
+        np.stack([k / 1024.0, 0 * k, 0 * k], 1)).astype(np.int64))
+    lo, hi = ts.clas_tree[1, 0:3], ts.clas_tree[1, 4:7]
+    q = ((ro[o] - lo) * (1024.0 / (hi - lo))).clamp(0, 1023).long().numpy()
+    code = sum(clas_cull._SPREAD[q[:, a]] << a for a in range(3))
+    same = octant[1:] == octant[:-1]
+    assert (np.diff(code)[same.numpy()] >= 0).all()
+
+
+def _walk_case(t_c, n=384):
+    """The sphere box's clusters at ``t_c``, the twin's and the walk
+    model's hits for n random rays, and the admitted Woop tests."""
+    ts = _ts()
+    c = tclas.build_clusters(*_tris(ts), t_c=t_c)
+    tree = torch.as_tensor(clas_cull.build_tree(c["aabb"], c["ids"].shape[0]))
+    woop, ids = torch.as_tensor(c["woop"]), torch.as_tensor(c["ids"])
+    ro, rd, tm = (torch.as_tensor(a[:n]) for a in _rays())
+    want = clas_cull.cull_plain(ro, rd, tm, woop, ids)
+    got = tree_walk(ro, rd, tm, tree, woop, ids)
+    admitted = admitted_tests(ro, rd, tm, want[0], torch.as_tensor(c["aabb"]),
+                              ids)
+    return want, got, admitted
+
+
+def _assert_bit_equal(got, want):
+    for name, a, b in zip(("t", "tri", "u", "v"), got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("t_c", [None, 128])
+def test_tree_walk_matches_dense_twin(t_c):
+    want, got, _ = _walk_case(t_c)
+    _assert_bit_equal(got[:4], want)
+    assert 0.3 < float((want[1] >= 0).float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("t_c", [None, 128])
+def test_tree_walk_sweeps_what_the_bound_admits(t_c):
+    """No cluster that could hold a ray's hit is skipped, and the walk
+    prunes: its mean is within 2x of the bound's."""
+    _, got, admitted = _walk_case(t_c)
+    swept = got[4].double()
+    assert (swept >= admitted).all()
+    assert float(swept.mean()) <= 2.0 * float(admitted.mean())
+    assert float(admitted.mean()) > 0
+
+
+def test_tree_walk_keeps_the_lower_code_on_exact_ties():
+    """Six spheres with every triangle twice: a triangle and its copy sit
+    side by side in Morton order, and clusters of three cut a third of the
+    pairs apart, so the walk often meets the copy (the higher code) first.
+    The tie rule must return the twin's winner, the original's id."""
+    tris, n_t = doubled_spheres()
+    c = tclas.build_clusters(*tris, t_c=3)
+    tree = torch.as_tensor(clas_cull.build_tree(c["aabb"], c["ids"].shape[0]))
+    woop, ids = torch.as_tensor(c["woop"]), torch.as_tensor(c["ids"])
+    ro, rd = (torch.as_tensor(a) for a in rays_at(tris, 256, 6))
+    tm = torch.full((256,), clas_cull.INF)
+    want = clas_cull.cull_plain(ro, rd, tm, woop, ids)
+    got = tree_walk(ro, rd, tm, tree, woop, ids)
+    _assert_bit_equal(got[:4], want)
+    hits = want[1] >= 0
+    assert int(hits.sum()) > 200 and bool((want[1][hits] < n_t).all())
+    assert int((got[5] > 0).sum()) > 5  # the tie clause replaced a best
 
 
 def test_twin_matches_reference_kernel(_reference_runs):

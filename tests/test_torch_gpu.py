@@ -17,9 +17,9 @@ splat rtol 1e-5 / atol 1e-6 (the disk map's sine and cosine differ by an
 ulp between the kernel's sincospif and PyTorch's), meta equal, each on
 >= 99.9% of the lanes; the intersection kernels: the dense sweep's hit
 ids, t, u and v equal to its twin's on every ray (both round every
-operation alone), the cluster cull's on >= 99.9% of the rays (culling
-skips work only, except on a ray whose hit lies within rounding of its
-cluster box's face).
+operation alone), the cluster cull's on >= 99.9% of the rays, and its
+any-hit form's answer on as many (culling skips work only, except on a ray
+whose hit lies within rounding of its cluster box's face).
 """
 
 import os
@@ -31,8 +31,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_parity import (  # noqa: E402
-    lane_wave, make_box, make_glossy_box, make_sphere_box, make_tiled_box,
-    path_wave, random_rays,
+    doubled_spheres, lane_wave, make_box, make_glossy_box, make_sphere_box,
+    make_tiled_box, path_wave, random_rays, rays_at,
 )
 
 from sdmm_tpu_torch.guiding import init as init_mod  # noqa: E402
@@ -328,39 +328,82 @@ def test_mt_sweep_kernel_matches_twin(cuda, n, extra):
     assert 0.3 < float(want["valid"].float().mean()) < 0.95
 
 
-@pytest.mark.parametrize("n,t_c", [(4_099, None), (50_003, 128)])
-def test_clas_cull_kernel_matches_twin(cuda, n, t_c):
-    scene, _ = make_sphere_box(tscene, tshapes).build(device=cuda)
-    c = tclas.build_clusters(*(a.cpu().numpy() for a in (
-        scene.tri_v0, scene.tri_e1, scene.tri_e2)), t_c=t_c)
-    aabb, woop, ids = (torch.as_tensor(c[k], device=cuda)
-                       for k in ("aabb", "woop", "ids"))
-    ro, rd, tm = _rays(cuda, scene, n, 22)
+def _clusters(cuda, tris, t_c):
+    """The kernel's cluster tensors on the card for float32 triangle
+    arrays (v0, e1, e2) as numpy, and the twin's Woop rows."""
+    c = tclas.build_clusters(*tris, t_c=t_c)
+    tree = clas_cull.build_tree(c["aabb"], c["ids"].shape[0])
+    return tuple(torch.as_tensor(a, device=cuda) for a in (
+        tree, clas_cull.slot_rows(c["woop"]), c["ids"], c["woop"]))
+
+
+def _cull_against_twin(cuda, tris, ro, rd, tm, t_c):
+    """cull and any_hit against the twin; returns the twin's closest hit."""
+    tree, slot, ids, woop = _clusters(cuda, tris, t_c)
     before = clas_cull.cull.launches
-    got = clas_cull.cull(ro, rd, tm, aabb, woop, ids)
+    got = clas_cull.cull(ro, rd, tm, tree, slot, ids)
+    occ = clas_cull.any_hit(ro, rd, tm, tree, slot, ids)
     torch.cuda.synchronize()
-    assert clas_cull.cull.launches == before + 1
+    assert clas_cull.cull.launches == before + 2
     want = clas_cull.cull_plain(ro, rd, tm, woop, ids)
     same = (got[1] == want[1]) & (got[0] == want[0]) & (got[2] == want[2]) \
         & (got[3] == want[3])
     assert float(same.float().mean()) >= 0.999
+    occ_want = (want[1] >= 0) & (want[0] < tm)
+    assert float((occ == occ_want).float().mean()) >= 0.999
+    return want
+
+
+@pytest.mark.parametrize("n,t_c", [(4_099, None), (50_003, 128)])
+def test_clas_cull_kernel_matches_twin(cuda, n, t_c):
+    scene, _ = make_sphere_box(tscene, tshapes).build(device=cuda)
+    tris = tuple(a.cpu().numpy() for a in (scene.tri_v0, scene.tri_e1,
+                                            scene.tri_e2))
+    ro, rd, tm = _rays(cuda, scene, n, 22)
+    want = _cull_against_twin(cuda, tris, ro, rd, tm, t_c)
     assert 0.3 < float((want[1] >= 0).float().mean()) < 0.95
+    finite = tm < 1e30
+    occ_want = (want[1] >= 0) & (want[0] < tm)
+    assert occ_want[finite].any() and (~occ_want[finite]).any()
+
+
+def test_clas_cull_keeps_the_lower_code_on_exact_ties(cuda):
+    """Six spheres with every triangle twice in clusters of three (the
+    case of tests/test_torch_clas.py): the kernel returns the twin's
+    winner, the original's id."""
+    tris, n_t = doubled_spheres()
+    ro, rd = (torch.as_tensor(a, device=cuda) for a in rays_at(tris, 20_000,
+                                                                 6))
+    tm = torch.full((20_000,), clas_cull.INF, device=cuda)
+    want = _cull_against_twin(cuda, tris, ro, rd, tm, 3)
+    hits = want[1] >= 0
+    assert float(hits.float().mean()) > 0.9
+    assert bool((want[1][hits] < n_t).all())
 
 
 def test_intersect_wrappers_reject_bad_inputs(cuda):
     scene, _ = make_sphere_box(tscene, tshapes).build(device=cuda)
     ro, rd, tm = _rays(cuda, scene, 256, 23)
     tris = (scene.tri_v0, scene.tri_e1, scene.tri_e2)
-    clusters = (scene.clas_aabb, scene.clas_woop, scene.clas_ids)
+    tree, slot, ids = scene.clas_tree, scene.clas_woop_slot, scene.clas_ids
     with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
         intersect_sweep.mt_sweep(ro, rd, tm.cpu(), *tris)
     with pytest.raises(ValueError):  # t_max not float32
         intersect_sweep.mt_sweep(ro, rd, tm.double(), *tris)
-    with pytest.raises(ValueError):  # rays not [N, 3] contiguous
-        clas_cull.cull(ro.T.contiguous().T, rd, tm, *clusters)
-    with pytest.raises(ValueError):  # ids not int32
-        clas_cull.cull(ro, rd, tm, scene.clas_aabb, scene.clas_woop,
-                       scene.clas_ids.long())
-    with pytest.raises(ValueError):  # a CPU triangle table
-        clas_cull.cull(ro, rd, tm, scene.clas_aabb.cpu(), scene.clas_woop,
-                       scene.clas_ids)
+    for fn in (clas_cull.cull, clas_cull.any_hit):
+        with pytest.raises(ValueError):  # rays not [N, 3] contiguous
+            fn(ro.T.contiguous().T, rd, tm, tree, slot, ids)
+        with pytest.raises(ValueError):  # ids not int32
+            fn(ro, rd, tm, tree, slot, ids.long())
+        with pytest.raises(ValueError):  # a CPU tree
+            fn(ro, rd, tm, tree.cpu(), slot, ids)
+        with pytest.raises(ValueError):  # the reference's [C, 12, t_c] rows
+            fn(ro, rd, tm, tree, scene.clas_woop, ids)
+        with pytest.raises(ValueError):  # a tree of too few leaves
+            fn(ro, rd, tm, tree[:4].contiguous(), slot, ids)
+        with pytest.raises(ValueError):  # Woop rows off 16-byte alignment
+            fn(ro, rd, tm, tree, torch.empty(slot.numel() + 1, device=cuda)
+               [1:].view(slot.shape), ids)
+        with pytest.raises(ValueError):  # a counter that is not int64 [1]
+            fn(ro, rd, tm, tree, slot, ids,
+               tests=torch.zeros(1, dtype=torch.int32, device=cuda))

@@ -151,9 +151,12 @@ def test_intersect_kernels_take_cuda_tensors_alone(no_gpu, monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensors"):
         isweep.mt_sweep(x, x, tm, *(a.to("meta") for a in (
             scene.tri_v0, scene.tri_e1, scene.tri_e2)))
+    clusters = [a.to("meta") for a in (
+        scene.clas_tree, scene.clas_woop_slot, scene.clas_ids)]
     with pytest.raises(ValueError, match="CUDA tensors"):
-        ccull.cull(x, x, tm, *(a.to("meta") for a in (
-            scene.clas_aabb, scene.clas_woop, scene.clas_ids)))
+        ccull.cull(x, x, tm, *clusters)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ccull.any_hit(x, x, tm, *clusters)
     big = make_box(tscene, tshapes, 8, 8)
     big.add_shape(tshapes.make_sphere([0.0, 1.0, 0.0], 0.3, n_theta=24,
                                       n_phi=48), 0)

@@ -143,6 +143,143 @@ def random_rays(v0, n, seed=0):
     return ro, rd, t_max
 
 
+def doubled_spheres(seed=5):
+    """Six spheres of 10 x 20 quads with every triangle twice, as float32
+    numpy (v0, e1, e2), and the number of distinct triangles (the copies
+    come after them). A triangle and its copy share a Morton code, so they
+    sit side by side in the cluster build's order."""
+    from sdmm_tpu_torch.scene import shapes
+
+    rng = np.random.default_rng(seed)
+    v = np.concatenate([shapes.make_sphere(
+        rng.uniform(-0.8, 0.8, 3), rng.uniform(0.15, 0.35), n_theta=10,
+        n_phi=20).concat()[0] for _ in range(6)])
+    n_t = v.shape[0]
+    v = np.concatenate([v, v])
+    return (v[:, 0].astype(np.float32), (v[:, 1] - v[:, 0]).astype(np.float32),
+            (v[:, 2] - v[:, 0]).astype(np.float32)), n_t
+
+
+def rays_at(tris, n, seed):
+    """n rays as numpy (ro, rd) from uniform points of [-1.2, 1.2]^3 toward
+    the centroids of random triangles of ``tris``."""
+    rs = np.random.RandomState(seed)
+    o = rs.uniform(-1.2, 1.2, (n, 3))
+    k = rs.randint(0, tris[0].shape[0], n)
+    d = tris[0][k] + (tris[1][k] + tris[2][k]) / 3.0 - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def _slabs(lo, hi, o, inv):
+    """The kernel's slab test of boxes lo, hi [..., 3, M] for rays o, inv
+    [..., 3, 1] in float32: (entry, exit) [..., M]."""
+    a0, a1 = (lo - o) * inv, (hi - o) * inv
+    return torch.minimum(a0, a1).amax(-2), torch.maximum(a0, a1).amin(-2)
+
+
+def _safe_inv(rd):
+    good = rd.abs() > 1e-12
+    return 1.0 / torch.where(good, rd, torch.where(rd >= 0, 1e-12, -1e-12))
+
+
+def admitted_tests(ro, rd, t_max, t_final, aabb, ids, chunk=8192):
+    """The Woop tests the least culling design needs, per query (float64
+    [N]): the real triangles of every cluster whose box the query enters
+    before min(its final hit distance, t_max), with the kernel's slab
+    test."""
+    c = ids.shape[0]
+    real = (ids >= 0).sum(1).double()
+    lo, hi = aabb[0:3, :c], aabb[3:6, :c]
+    limit = torch.minimum(t_final, t_max)
+    inv = _safe_inv(rd)
+    out = []
+    for s in range(0, ro.shape[0], chunk):
+        tmin, tmx = _slabs(lo[None], hi[None], ro[s:s + chunk, :, None],
+                           inv[s:s + chunk, :, None])  # [n, C]
+        enter = (tmx >= tmin.clamp_min(0.0)) \
+            & (tmin < limit[s:s + chunk, None])
+        out.append(enter.double() @ real)
+    return torch.cat(out)
+
+
+def tree_walk(ro, rd, t_max, tree, woop, ids):
+    """Plain PyTorch model of the walk of csrc/clas_cull.cu, one ray at a
+    time on CPU tensors: the tree of ops/clas_cull.build_tree [2P, 8],
+    nearer child first (the lower index on equal entries), a node entered
+    when lo <= hi, exit >= max(entry, 0), entry <= best t and entry <
+    t_max, a stacked node popped only while its entry is still <= the best
+    t, and a cluster's slots swept in order with the tie rule
+    t < best_t or (t == best_t and code < best code). Woop rows [C, 12,
+    t_c]. Returns (t, tri, u, v) as ops/clas_cull.cull does, the real slots
+    each ray swept (int64 [N]) and how often the tie rule's second clause
+    replaced a ray's best (int64 [N])."""
+    from sdmm_tpu_torch.ops import bounce as bo
+
+    inf = float(np.float32(bo.INF))  # the kernel's best t before a hit
+    n = ro.shape[0]
+    c, _, t_c = woop.shape
+    leaves = tree.shape[0] // 2
+    real = (ids >= 0).sum(1)
+    # Every slot's hit distance for every ray, as the twin computes it:
+    # INF where there is no hit within (EPS, t_max).
+    cols = woop.permute(1, 0, 2).reshape(12, -1)
+    t_all, u_all, v_all, ok = bo._woop_tri(
+        *ro.unbind(1), *rd.unbind(1), cols[:, :, None], slice(None))
+    t_all = torch.where(ok & (t_all > bo.EPS) & (t_all < t_max), t_all,
+                        bo.INF)  # [C * t_c, N]
+    entry, exit_ = _slabs(tree[None, :, 0:3].transpose(1, 2),
+                          tree[None, :, 4:7].transpose(1, 2), ro[:, :, None],
+                          _safe_inv(rd)[:, :, None])  # [N, 2P]
+    empty = (tree[:, 0] > tree[:, 4]).tolist()
+    out_t = torch.full((n,), bo.INF)
+    out_tri = torch.full((n,), -1, dtype=torch.int32)
+    out_u, out_v = torch.zeros(n), torch.zeros(n)
+    swept = torch.zeros(n, dtype=torch.int64)
+    ties = torch.zeros(n, dtype=torch.int64)
+    for r in range(n):
+        e, x, tm = entry[r].tolist(), exit_[r].tolist(), float(t_max[r])
+        best_t, code, stack, node = inf, -1, [], 1
+
+        def enters(k):
+            return (not empty[k] and x[k] >= max(e[k], 0.0)
+                    and e[k] <= best_t and e[k] < tm)
+
+        def pop():
+            while stack:
+                k = stack.pop()
+                if e[k] <= best_t:
+                    return k
+            return 0
+
+        while node:
+            if node < leaves:
+                c0, c1 = 2 * node, 2 * node + 1
+                h0, h1 = enters(c0), enters(c1)
+                if h0 and h1:
+                    near, far = (c1, c0) if e[c1] < e[c0] else (c0, c1)
+                    stack.append(far)
+                    node = near
+                elif h0 or h1:
+                    node = c0 if h0 else c1
+                else:
+                    node = pop()
+                continue
+            cl = node - leaves
+            swept[r] += int(real[cl])
+            ts = t_all[cl * t_c:(cl + 1) * t_c, r]
+            j = int(ts.argmin())  # the first minimum of the cluster
+            t, k = float(ts[j]), cl * t_c + j
+            if t < best_t or (t == best_t and k < code):
+                ties[r] += int(t == best_t)
+                best_t, code = t, k
+                out_u[r], out_v[r] = u_all[k, r], v_all[k, r]
+            node = pop()
+        if code >= 0:
+            out_t[r], out_tri[r] = best_t, ids.reshape(-1)[code]
+    return out_t, out_tri, out_u, out_v, swept, ties
+
+
 def path_wave(n, seed=0, width=16, height=16, max_depth=5, budget=5):
     """A wave of n lanes for the fused unguided step, as numpy: the
     ``lane_wave`` state and meta (the meta's pixel field read as a sample
