@@ -52,12 +52,13 @@ Phases (any failure raises and the script exits non-zero):
      32,768 queries): hit ids and valid equal on >= 0.9999 of the queries,
      the others printed, t, u and v within rtol 1e-6 where they agree; its
      any-hit form (occluded) equal to the twin's on >= 0.9999 of the
-     occlusion queries. Times of the kernel alone by CUDA-graph replays,
-     on the queries in the order cull gives it (the ordering timed on its
-     own): the closest hit at 131,072 and 262,144 queries on the large
-     scene, beside the kernel's own count of Woop tests a query and the
-     count the bound admits; the any-hit form on the occlusion queries of
-     the 131,072. Then the large scene's path at 640x360,
+     occlusion queries. Times of the whole wrappers by CUDA-graph replays
+     (the query order, also timed on its own, and the kernel): cull at
+     131,072 and 262,144 queries on the large scene, beside the kernel's
+     own count of Woop tests a query and the least work the bound admits
+     (Woop tests, and slab tests of the tree nodes entered before the
+     hit); any_hit on the occlusion queries of the 131,072. Then the large
+     scene's path at 640x360,
      depth 10: render_wavefront at 16 spp (the eager pool, exactly 16
      samples on every pixel, clas_cull launched for intersect and occluded
      on every step) and SDMMTrainer(...).run at 32 spp with
@@ -129,9 +130,9 @@ STEP_OPS_PER_LANE = 60
 PHILOX_OPS_PER_LANE = 320
 # The intersection kernels, the same way: csrc/mt_sweep.cu 61 per query and
 # triangle (cross products, determinant and reciprocal, u, v, t, six tests,
-# the update); csrc/clas_cull.cu ~30 per query and cluster for the slab
-# test and ~56 per Woop test (bounce_math.cuh woop_tri, three range tests,
-# the update).
+# the update); csrc/clas_cull.cu ~30 per slab test of a tree node's box and
+# ~56 per Woop test (bounce_math.cuh woop_tri, three range tests, the
+# update).
 MT_OPS_PER_TRI = 61
 SLAB_OPS = 30
 WOOP_OPS = 56
@@ -1080,7 +1081,7 @@ def phase_cull(dev, large, width=640, height=360):
     occlusion queries); returns its entry, the closest hit timed on the
     large scene."""
     from sdmm_tpu_torch.ops import clas_cull as ccull
-    from torch_parity import admitted_tests
+    from torch_parity import admitted_tests, least_slab_tests
 
     one, _ = cornell_box(width, height, dev,
                          spheres=[([0.0, 1.0, 0.3], 0.35, 32, 64)])
@@ -1140,59 +1141,64 @@ def phase_cull(dev, large, width=640, height=360):
     timed, glue = {}, {}
     for n, seed in ((131_072, 43), (262_144, 44)):
         ro, rd, tm, kind = query_rays(large, n, seed, dev)
-        # The kernel alone on the queries in the order cull gives it, and
-        # that ordering (a sort key and an argsort) alone.
-        order = ccull.query_order(ro, rd, large.clas_tree)
-        timed[n] = time_ms(lambda: ccull.launch(False, ro, rd, tm, *clusters,
-                                                order), reps=10, graph=True)
+        # The whole wrapper (the query order and the kernel), and the
+        # order's sort key and argsort alone.
+        timed[n] = time_ms(lambda: ccull.cull(ro, rd, tm, *clusters),
+                           reps=10, graph=True)
         glue[n] = time_ms(lambda: ccull.query_order(ro, rd, large.clas_tree),
-                          reps=10)
+                          reps=10, graph=True)
         if n != 131_072:
             continue
         box = {}
         plain_ms = time_ms(lambda: box.update(w=ccull.cull_plain(
             ro, rd, tm, large.clas_woop, large.clas_ids)), reps=2, warm=1)
         want = box["w"]
+        # The least work: the admitted Woop tests, and the slab tests of the
+        # tree nodes a query enters before its hit.
         per_query = admitted_tests(ro, rd, tm, want[0], large.clas_aabb,
                                    large.clas_ids)
-        admitted = float(per_query.sum())
+        slabs = least_slab_tests(ro, rd, tm, want[0], large.clas_tree)
+        admitted, n_slab = float(per_query.sum()), float(slabs.sum())
         t_bytes = (n * QUERY_BYTES + rows_bytes) / PEAK_BYTES * 1e3
-        t_ops = (n * c * SLAB_OPS + admitted * WOOP_OPS) / PEAK_FP32 * 1e3
+        t_ops = (n_slab * SLAB_OPS + admitted * WOOP_OPS) / PEAK_FP32 * 1e3
         # The kernel's own count of Woop tests, outside the timed replays.
         tests = torch.zeros(1, dtype=torch.int64, device=dev)
         ccull.cull(ro, rd, tm, *clusters, tests=tests)
 
         # The any-hit form on the occlusion queries: an occluded query needs
-        # one Woop test, an unoccluded one its admitted tests.
+        # one Woop test, an unoccluded one its admitted tests and slab tests.
         sel = kind == 2
         ro_s, rd_s, tm_s = (x[sel].contiguous() for x in (ro, rd, tm))
         n_s = int(sel.sum())
         occ_want = ((want[1] >= 0) & (want[0] < tm))[sel]
-        order_s = ccull.query_order(ro_s, rd_s, large.clas_tree)
-        ms_any, ms_closest = (time_ms(lambda: ccull.launch(
-            form, ro_s, rd_s, tm_s, *clusters, order_s), reps=10, graph=True)
-            for form in (True, False))
+        ms_any, ms_closest = (time_ms(lambda: form(
+            ro_s, rd_s, tm_s, *clusters), reps=10, graph=True)
+            for form in (ccull.any_hit, ccull.cull))
         tests_any = torch.zeros(1, dtype=torch.int64, device=dev)
         occ = ccull.any_hit(ro_s, rd_s, tm_s, *clusters, tests=tests_any)
         check(bool((occ == occ_want).float().mean() >= 0.9999),
               "clas_cull: the any-hit form disagrees on the timed queries")
         need = float(torch.where(occ_want, 1.0, per_query[sel]).sum())
+        need_slab = float(torch.where(occ_want, 0.0, slabs[sel]).sum())
         b_any = (n_s * (28 + 1) + rows_bytes) / PEAK_BYTES * 1e3
-        o_any = (n_s * c * SLAB_OPS + need * WOOP_OPS) / PEAK_FP32 * 1e3
+        o_any = (need_slab * SLAB_OPS + need * WOOP_OPS) / PEAK_FP32 * 1e3
     n_t = large.tri_v0.shape[0]
-    print(f"clas_cull [large]: kernel {timed[131_072]:.4f} ms at 131,072 "
-          f"queries, {timed[262_144]:.4f} ms at 262,144 (ordering the "
-          f"queries {glue[131_072]:.4f} / {glue[262_144]:.4f} ms); plain "
+    print(f"clas_cull [large]: cull {timed[131_072]:.4f} ms at 131,072 "
+          f"queries, {timed[262_144]:.4f} ms at 262,144 (of which the query "
+          f"order alone {glue[131_072]:.4f} / {glue[262_144]:.4f} ms); plain "
           f"{plain_ms:.4f} ms at 131,072; admitted Woop tests "
           f"{admitted:.4g} ({admitted / 131_072:.1f} a query of {n_t}), "
           f"the kernel's {int(tests)} ({int(tests) / 131_072:.1f} a query, "
-          f"the warp's lockstep count); bound {max(t_bytes, t_ops):.4f} ms "
-          f"(bytes {t_bytes:.4f}, ops {t_ops:.4f})", flush=True)
+          f"the warp's lockstep count); least slab tests "
+          f"{n_slab / 131_072:.1f} a query (a flat test of every cluster: "
+          f"{c}); bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, ops "
+          f"{t_ops:.4f})", flush=True)
     print(f"clas_cull any-hit [large, the {n_s} occlusion queries of the "
-          f"131,072, {int(occ_want.sum())} occluded]: kernel {ms_any:.4f} ms"
-          f" (the closest-hit form on them {ms_closest:.4f} ms); Woop tests "
-          f"needed {need / n_s:.1f} a query, the kernel's "
-          f"{int(tests_any) / n_s:.1f}; bound {max(b_any, o_any):.4f} ms "
+          f"131,072, {int(occ_want.sum())} occluded]: any_hit {ms_any:.4f} "
+          f"ms (cull on them {ms_closest:.4f} ms); Woop tests needed "
+          f"{need / n_s:.1f} a query, the kernel's "
+          f"{int(tests_any) / n_s:.1f}; least slab tests "
+          f"{need_slab / n_s:.1f} a query; bound {max(b_any, o_any):.4f} ms "
           f"(bytes {b_any:.4f}, ops {o_any:.4f})", flush=True)
     return {"name": "clas_cull", "route": "cuda",
             "source": "sdmm_tpu_torch/csrc/clas_cull.cu",

@@ -59,12 +59,14 @@
 // slot steps in which any of its lanes ran a Woop test: per query, the
 // warp's lockstep cost. Null on every path of the program.
 //
-// Bound: the least work any culling design could do is each ray's slab
-// test against every cluster (~30 operations), plus the Woop test (~56
+// Bound: the least work of a walk over this tree is the Woop test (~56
 // operations) of the real triangles of each cluster whose box the ray
-// enters before its final hit distance; bytes are the Woop rows and ids
-// read once, plus 28 bytes in and 16 out per ray. chip_smoke.py counts the
-// admitted triangles from the twin's result and computes both bounds.
+// enters before its final hit distance, plus the slab tests (~30
+// operations) of the two children of each inner node whose box it enters
+// before that distance; bytes are the Woop rows and ids read once, plus 28
+// bytes in and 16 out per ray. chip_smoke.py counts both from the twin's
+// result (tests/torch_parity.py admitted_tests, least_slab_tests) and
+// computes both bounds.
 
 #include <cuda_runtime.h>
 

@@ -165,12 +165,10 @@ def query_order(ro, rd, tree):
     return torch.argsort(key).to(torch.int32)
 
 
-def launch(any_hit, ro, rd, t_max, tree, woop, ids, order=None,
-           tests=None):
-    """Check the inputs and launch the kernel in its closest-hit or any-hit
-    form on the queries in ``order`` (int32 [N], a permutation;
-    ``query_order`` when None); returns its output tensors in the queries'
-    own order."""
+def _launch(any_hit, ro, rd, t_max, tree, woop, ids, tests=None):
+    """Check the inputs, order the queries (``query_order``) and launch the
+    kernel in its closest-hit or any-hit form; returns its output tensors
+    in the queries' own order."""
     n = ro.shape[0]
     c, t_c, _ = woop.shape
     leaves = tree.shape[0] // 2
@@ -182,15 +180,12 @@ def launch(any_hit, ro, rd, t_max, tree, woop, ids, order=None,
              ("t_max", t_max, (n,), f32), ("tree", tree, (2 * leaves, 8), f32),
              ("woop", woop, (c, t_c, 12), f32),
              ("ids", ids, (c, t_c), torch.int32)]
-    if order is not None:
-        specs.append(("order", order, (n,), torch.int32))
     if tests is not None:
         specs.append(("tests", tests, (1,), torch.int64))
     _build.check_inputs("clas_cull", specs)
     if tree.data_ptr() % 16 or woop.data_ptr() % 16:
         raise ValueError("clas_cull: tree and woop must be 16-byte aligned")
-    if order is None:
-        order = query_order(ro, rd, tree)
+    order = query_order(ro, rd, tree)
     dev = ro.device
     if any_hit:
         outs = (torch.empty(n, dtype=torch.bool, device=dev),)
@@ -224,7 +219,7 @@ def cull(ro, rd, t_max, tree, woop, ids, tests=None):
     (32 for every slot step of a warp in which a lane tested)."""
     if ro.device.type == "cpu":
         return cull_plain(ro, rd, t_max, woop.transpose(1, 2), ids)
-    return launch(False, ro, rd, t_max, tree, woop, ids, tests=tests)
+    return _launch(False, ro, rd, t_max, tree, woop, ids, tests)
 
 
 def any_hit(ro, rd, t_max, tree, woop, ids, tests=None):
@@ -234,7 +229,7 @@ def any_hit(ro, rd, t_max, tree, woop, ids, tests=None):
     if ro.device.type == "cpu":
         t, tri, _, _ = cull_plain(ro, rd, t_max, woop.transpose(1, 2), ids)
         return (tri >= 0) & (t < t_max)
-    return launch(True, ro, rd, t_max, tree, woop, ids, tests=tests)[0]
+    return _launch(True, ro, rd, t_max, tree, woop, ids, tests)[0]
 
 
 cull.launches = 0  # launches of the kernel, by cull and any_hit

@@ -24,7 +24,7 @@ held here through a plain model of it (``torch_parity.tree_walk``): on the
 same scene at both cluster sizes, and on six spheres with every triangle
 duplicated (exact ties across cluster boundaries), it returns the dense
 twin's tri, t, u and v bit for bit on every ray, and no ray sweeps fewer
-triangles than the bound admits.
+triangles or opens fewer tree nodes than the bound admits.
 """
 
 import os
@@ -38,8 +38,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_parity import (  # noqa: E402
-    admitted_tests, doubled_spheres, jax_scene_arrays, make_box,
-    make_sphere_box, random_rays, rays_at, to_np, tree_walk,
+    admitted_tests, doubled_spheres, jax_scene_arrays, least_slab_tests,
+    make_box, make_sphere_box, random_rays, rays_at, to_np, tree_walk,
 )
 
 from sdmm_tpu.ops import clas_pallas  # noqa: E402
@@ -189,7 +189,8 @@ def test_query_order_sorts_by_octant_then_origin():
 
 def _walk_case(t_c, n=384):
     """The sphere box's clusters at ``t_c``, the twin's and the walk
-    model's hits for n random rays, and the admitted Woop tests."""
+    model's hits for n random rays, the admitted Woop tests, the least
+    walk's slab tests and the tree's count of non-empty inner nodes."""
     ts = _ts()
     c = tclas.build_clusters(*_tris(ts), t_c=t_c)
     tree = torch.as_tensor(clas_cull.build_tree(c["aabb"], c["ids"].shape[0]))
@@ -199,7 +200,9 @@ def _walk_case(t_c, n=384):
     got = tree_walk(ro, rd, tm, tree, woop, ids)
     admitted = admitted_tests(ro, rd, tm, want[0], torch.as_tensor(c["aabb"]),
                               ids)
-    return want, got, admitted
+    slabs = least_slab_tests(ro, rd, tm, want[0], tree)
+    inner = tree[1:tree.shape[0] // 2]
+    return want, got, admitted, slabs, int((inner[:, 0] <= inner[:, 4]).sum())
 
 
 def _assert_bit_equal(got, want):
@@ -209,7 +212,7 @@ def _assert_bit_equal(got, want):
 
 @pytest.mark.parametrize("t_c", [None, 128])
 def test_tree_walk_matches_dense_twin(t_c):
-    want, got, _ = _walk_case(t_c)
+    want, got = _walk_case(t_c)[:2]
     _assert_bit_equal(got[:4], want)
     assert 0.3 < float((want[1] >= 0).float().mean()) < 0.95
 
@@ -218,11 +221,23 @@ def test_tree_walk_matches_dense_twin(t_c):
 def test_tree_walk_sweeps_what_the_bound_admits(t_c):
     """No cluster that could hold a ray's hit is skipped, and the walk
     prunes: its mean is within 2x of the bound's."""
-    _, got, admitted = _walk_case(t_c)
+    _, got, admitted = _walk_case(t_c)[:3]
     swept = got[4].double()
     assert (swept >= admitted).all()
     assert float(swept.mean()) <= 2.0 * float(admitted.mean())
     assert float(admitted.mean()) > 0
+
+
+@pytest.mark.parametrize("t_c", [None, 128])
+def test_tree_walk_opens_what_the_bound_admits(t_c):
+    """The bound's slab tests (two for each inner node a ray enters before
+    its hit) are a floor of the walk's on every ray, and fewer than a test
+    of every node: the walk and the bound both prune."""
+    _, got, _, slabs, inner = _walk_case(t_c)
+    walk = 2.0 * got[6].double()
+    assert (walk >= slabs).all()
+    assert float(walk.mean()) <= 2.0 * float(slabs.mean())
+    assert 0 < float(slabs.mean()) < 2 * inner
 
 
 def test_tree_walk_keeps_the_lower_code_on_exact_ties():

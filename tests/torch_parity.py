@@ -203,6 +203,27 @@ def admitted_tests(ro, rd, t_max, t_final, aabb, ids, chunk=8192):
     return torch.cat(out)
 
 
+def least_slab_tests(ro, rd, t_max, t_final, tree, chunk=8192):
+    """The slab tests the least walk of the cluster tree (ops/clas_cull
+    ``build_tree`` [2P, 8]) needs, per query (float64 [N]): the two child
+    tests of every inner node whose box the query enters before min(its
+    final hit distance, t_max), with the kernel's slab test. Any walk that
+    finds the hit opens these nodes."""
+    inner = tree[1:tree.shape[0] // 2]
+    lo, hi = inner[:, 0:3].T, inner[:, 4:7].T
+    full = (inner[:, 0] <= inner[:, 4]).double()
+    limit = torch.minimum(t_final, t_max)
+    inv = _safe_inv(rd)
+    out = []
+    for s in range(0, ro.shape[0], chunk):
+        tmin, tmx = _slabs(lo[None], hi[None], ro[s:s + chunk, :, None],
+                           inv[s:s + chunk, :, None])  # [n, P - 1]
+        enter = (tmx >= tmin.clamp_min(0.0)) \
+            & (tmin < limit[s:s + chunk, None])
+        out.append(2.0 * (enter.double() @ full))
+    return torch.cat(out)
+
+
 def tree_walk(ro, rd, t_max, tree, woop, ids):
     """Plain PyTorch model of the walk of csrc/clas_cull.cu, one ray at a
     time on CPU tensors: the tree of ops/clas_cull.build_tree [2P, 8],
@@ -212,8 +233,9 @@ def tree_walk(ro, rd, t_max, tree, woop, ids):
     t, and a cluster's slots swept in order with the tie rule
     t < best_t or (t == best_t and code < best code). Woop rows [C, 12,
     t_c]. Returns (t, tri, u, v) as ops/clas_cull.cull does, the real slots
-    each ray swept (int64 [N]) and how often the tie rule's second clause
-    replaced a ray's best (int64 [N])."""
+    each ray swept (int64 [N]), how often the tie rule's second clause
+    replaced a ray's best (int64 [N]) and the inner nodes each ray opened,
+    two slab tests each (int64 [N])."""
     from sdmm_tpu_torch.ops import bounce as bo
 
     inf = float(np.float32(bo.INF))  # the kernel's best t before a hit
@@ -237,6 +259,7 @@ def tree_walk(ro, rd, t_max, tree, woop, ids):
     out_u, out_v = torch.zeros(n), torch.zeros(n)
     swept = torch.zeros(n, dtype=torch.int64)
     ties = torch.zeros(n, dtype=torch.int64)
+    opened = torch.zeros(n, dtype=torch.int64)
     for r in range(n):
         e, x, tm = entry[r].tolist(), exit_[r].tolist(), float(t_max[r])
         best_t, code, stack, node = inf, -1, [], 1
@@ -254,6 +277,7 @@ def tree_walk(ro, rd, t_max, tree, woop, ids):
 
         while node:
             if node < leaves:
+                opened[r] += 1
                 c0, c1 = 2 * node, 2 * node + 1
                 h0, h1 = enters(c0), enters(c1)
                 if h0 and h1:
@@ -277,7 +301,7 @@ def tree_walk(ro, rd, t_max, tree, woop, ids):
             node = pop()
         if code >= 0:
             out_t[r], out_tri[r] = best_t, ids.reshape(-1)[code]
-    return out_t, out_tri, out_u, out_v, swept, ties
+    return out_t, out_tri, out_u, out_v, swept, ties, opened
 
 
 def path_wave(n, seed=0, width=16, height=16, max_depth=5, budget=5):
