@@ -12,10 +12,13 @@ Phases (any failure raises and the script exits non-zero):
      2.8 M samples; times by CUDA events.
   4. the fused guided bounce: trace and shade kernels vs their plain twins
      at 131,072 lanes on the Cornell box and on the four-type box (every
-     in-kernel BSDF type), shade on a bf16 2048-leaf table; the twin's hit
-     buffer feeds both shade calls. Kernel and twin may disagree on 1e-4 of
-     all lanes and on 1e-3 of each BSDF type's lanes. Times by CUDA events
-     on the Cornell box.
+     in-kernel BSDF type), shade on the packed bf16 table of 2048 leaves
+     (pack_shade_table, checked to hold the twin's bf16 rows bit for bit);
+     the twin's hit buffer feeds both shade calls. Kernel and twin may
+     disagree on 1e-4 of all lanes and on 1e-3 of each BSDF type's lanes.
+     Times by CUDA events on the Cornell box, shade on uniformly random
+     leaves and with every lane on one leaf; the registers, spills and
+     resident blocks an SM of both kernels.
   5. the main path: SDMMTrainer(...).run on a programmatic Cornell box at
      640x360, max depth 10, TrainerConfig() defaults with tail_chunk_spp=16,
      64 spp (4 training iterations with EM on the eager pool, then the
@@ -27,14 +30,17 @@ Phases (any failure raises and the script exits non-zero):
   6. the unguided path row with NEE. First the step and bounce kernels
      against their twins at 237,568 lanes (29 tiles of 8192) after four
      warm steps, so that lanes are mid-path, on the Cornell box, the
-     four-type box and a box past 96 triangles (2048-lane tiles), within
-     phase 4's limits and shade's state tolerance, film and splat within
-     rtol 1e-5, meta equal; step in its Philox mode (and its host-uniform mode
-     on the twin's Philox bits, which must give the same result bit for
-     bit); times by CUDA-graph replays on the Cornell box. Then the path
-     row itself, with the step and bounce launch counts read around it:
-     render_wavefront on the Cornell box at 640x360, depth 10, 64 spp
-     (sorted2, pilot 8: the step kernel) and 2 spp (striped: the bounce
+     four-type box, a box past 96 triangles (2048-lane tiles) and the
+     Cornell box plus one sphere (1,024 triangle columns, past the kernels'
+     shared-memory staging budget), within phase 4's limits and shade's
+     state tolerance, film and splat within rtol 1e-5, meta equal; step in
+     its Philox mode (and its host-uniform mode on the twin's Philox bits,
+     which must give the same result bit for bit); the NEE candidate share,
+     and the registers, spills and resident blocks an SM of both kernels
+     on each table; times by CUDA-graph replays on the Cornell box. Then
+     the path row itself, with the step and bounce launch counts read
+     around it: render_wavefront on the Cornell box at 640x360, depth 10,
+     64 spp (sorted2, pilot 8: the step kernel) and 2 spp (striped: the bounce
      kernel); each spends exactly its budget on every pixel, takes the pool
      its spp names, the sorted2 image mean agrees with the eager render_pool
      at 64 spp within 2%, and phase 5's guided image mean with the path
@@ -172,6 +178,15 @@ def agreement(name, ok, groups):
         check(v >= 1.0 - MAX_OFF_SHARE_GROUP,
               f"{name}: kernel and twin disagree on {g}")
     return overall
+
+
+def print_kernel_info(info, where=""):
+    """Print the registers, spills and occupancy of ``kernel_info()``."""
+    for name, inf in info.items():
+        print(f"{name}{where}: {inf['registers']} registers, "
+              f"{inf['spill_bytes']} bytes of local memory, "
+              f"{inf['shared_bytes']} bytes of static shared memory, "
+              f"{inf['blocks_per_sm']} blocks an SM", flush=True)
 
 
 def time_ms(fn, reps=20, graph=False, warm=3):
@@ -470,8 +485,12 @@ def phase_guided_step(dev, width=640, height=360):
     N, L = 131_072, 2048
     max_depth, rr_depth, frac = 10, 10, 0.5
     sdmm, prep, init = mixture_state(L, 3, dev)
-    table16 = gso.pack_guided_rows(prep, sdmm.weight, init).T.to(
-        torch.bfloat16).contiguous()
+    table = gso.pack_guided_rows(prep, sdmm.weight, init).T.contiguous()
+    table16 = table.to(torch.bfloat16)
+    # shade's packed table holds the same bf16 values as the twin's rows.
+    shade_table = gst.pack_shade_table(table)
+    check(torch.equal(gst.unpack_shade_table(shade_table), table16),
+          "shade: the packed table does not round-trip the bf16 rows")
     entries = {}
     for scene_name, extra in (("cornell", False), ("four-type", True)):
         scene, cfg = cornell_box(width, height, dev, extra_bsdfs=extra)
@@ -511,7 +530,7 @@ def phase_guided_step(dev, width=640, height=360):
                                device=dev)
         span = (scene.aabb_hi - scene.aabb_lo).max()
         cpos = ((hit_p[0:3].T - scene.aabb_lo) / span).T.contiguous()
-        out_k = gst.shade(st_p, meta, hit_p, cpos, leaf, table16, rand,
+        out_k = gst.shade(st_p, meta, hit_p, cpos, leaf, shade_table, rand,
                           types, max_depth, rr_depth, frac)
         rows_t = table16[leaf.long()].T.float()
         out_p = gst.shade_plain(st_p, meta, hit_p, cpos, rows_t, rand, types,
@@ -540,8 +559,16 @@ def phase_guided_step(dev, width=640, height=360):
         plain_t = time_ms(lambda: gst.trace_plain(state, meta, tri, env,
                                                   types), reps=5)
         ms_s = time_ms(lambda: gst.shade(st_p, meta, hit_p, cpos, leaf,
-                                         table16, rand, types, max_depth,
+                                         shade_table, rand, types, max_depth,
                                          rr_depth, frac), reps=20, graph=True)
+        # Every lane on one leaf: the table gather at its most coherent.
+        leaf1 = torch.full_like(leaf, int(init.nonzero()[0]))
+        ms_s1 = time_ms(lambda: gst.shade(st_p, meta, hit_p, cpos, leaf1,
+                                          shade_table, rand, types, max_depth,
+                                          rr_depth, frac), reps=20, graph=True)
+        print(f"shade: {ms_s:.4f} ms on uniformly random leaves of {L}, "
+              f"{ms_s1:.4f} ms with every lane on one leaf", flush=True)
+        print_kernel_info(gst.kernel_info())
         plain_s = time_ms(lambda: gst.shade_plain(
             st_p, meta, hit_p, cpos, table16[leaf.long()].T.float(), rand,
             types, max_depth, rr_depth, frac), reps=5)
@@ -724,11 +751,14 @@ def phase_path_kernels(dev, width=640, height=360, N=29 * 8192):
 
     md = rr = 10
     entries = {}
+    sphere = [([0.0, 1.0, 0.3], 0.35, 16, 32)]
     scenes = (
         ("cornell", lambda: cornell_box(width, height, dev)),
         ("four-type", lambda: cornell_box(width, height, dev, True)),
         ("past 96 triangles", lambda: make_tiled_box(
-            tscene, tshapes, width, height).build(device=dev)))
+            tscene, tshapes, width, height).build(device=dev)),
+        ("past the staging budget", lambda: cornell_box(
+            width, height, dev, spheres=sphere)))
     for scene_name, make in scenes:
         scene, cfg = make()
         types = cfg.bsdf_types
@@ -759,11 +789,16 @@ def phase_path_kernels(dev, width=640, height=360, N=29 * 8192):
         groups["off surface"] = ltype < 0
         n_types = {t: int((ltype == t).sum()) for t in types}
         alive_in = int(((meta & bo._ALIVE) != 0).sum())
+        cand = stats["nee_mask"]
+        nee_share = stats["nee_candidates"] / N
         print(f"step [{scene_name}, {tri.shape[1]} triangle columns, tile "
               f"{tile}]: {alive_in}/{N} lanes alive after 4 warm steps; "
               f"surface lanes by type {n_types}; NEE candidates "
-              f"{stats['nee_candidates']}; Philox modes equal bit for bit",
-              flush=True)
+              f"{stats['nee_candidates']} (share {nee_share:.4f}; warps "
+              f"with one {float(cand.view(-1, 32).any(1).float().mean()):.4f}"
+              f"); Philox modes equal bit for bit", flush=True)
+        print_kernel_info(bo.kernel_info(tri.shape[1]),
+                          f" [{tri.shape[1]} triangle columns]")
         check(all(v > 0 for v in n_types.values()),
               f"step [{scene_name}]: a BSDF type was never hit")
         # State within shade's bounds (rtol 2e-4, atol 1e-5): the disk map
@@ -849,9 +884,11 @@ def phase_path_kernels(dev, width=640, height=360, N=29 * 8192):
                  err_bounce, ":1039")):
             t_bytes = b / PEAK_BYTES * 1e3
             t_ops = o / PEAK_FP32 * 1e3
+            share = (f"; NEE candidate share {nee_share:.4f}"
+                     if name == "step" else "")
             print(f"{name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
                   f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, ops "
-                  f"{t_ops:.4f})", flush=True)
+                  f"{t_ops:.4f}){share}", flush=True)
             entries[name] = {
                 "name": name, "route": "cuda",
                 "source": "sdmm_tpu_torch/csrc/bounce.cu",

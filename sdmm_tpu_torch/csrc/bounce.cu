@@ -18,18 +18,35 @@
 // dist * 0.999 from the offset origin); the BSDF sample of the lane's type;
 // Russian roulette and the splat. It branches on each lane's BSDF type at
 // run time where the reference specialises on the scene's type set; a
-// lane's result is the same. Both sweeps stage the Woop rows (0-11) of 128
-// triangles at a time in shared memory (6 KB) and round every operation in
-// the plain twin's order (bounce_math.cuh woop_tri), so kernel and twin
-// pick the same triangle and the same occlusion. The reference re-sweeps
-// every triangle to select the winner's attributes because a TPU tile
-// cannot gather; here the thread reads the winner's column once by its
-// index. The emitter table (at most 64 x 18 floats) sits in shared memory.
-// The occlusion sweep runs only for NEE candidates, and a block none of
-// whose lanes is a candidate skips it. The file is compiled with
-// -fmad=false, so the arithmetic rounds as the twin's separate PyTorch
-// operations do.
+// lane's result is the same. The sweeps round every operation in the plain
+// twin's order (bounce_math.cuh woop_tri), so kernel and twin pick the same
+// triangle and the same occlusion. The reference re-sweeps every triangle
+// to select the winner's attributes because a TPU tile cannot gather; here
+// the thread reads the winner's column once by its index. The emitter
+// table (at most 64 x 18 floats) sits in shared memory. The file is
+// compiled with -fmad=false, so the arithmetic around the sweeps rounds as
+// the twin's separate PyTorch operations do (an H100 run with contraction
+// allowed was no faster).
 //
+// Design. A triangle test is about 60 issued instructions (woop_tri, the
+// IEEE reciprocal, the update), so the sweeps are bound by instruction
+// issue and its latency, not by bytes:
+// - The Woop rows (0-11 of the table) are staged as [T][12] float rows in
+//   dynamic shared memory, three 16-byte loads a triangle, once per block
+//   for both sweeps while the table fits STAGE_MAX triangles (42 KB, which
+//   keeps four blocks an SM); past it, in TILE-triangle chunks of the same
+//   layout, staged per sweep. Rows past the count, up to a multiple of
+//   UNROLL, are zero: never hit, so the loops have no tail.
+// - The sweeps test UNROLL triangles at a time, independent tests whose
+//   loads and reciprocals may overlap (one H100 run timed 1, 2 and 4
+//   alike); the closest hit then updates in index order with a strict
+//   t < best_t, which keeps the first minimum, the twin's winner.
+// - NEE shadow rays are compacted per block: the candidates (about two
+//   thirds of the lanes mid-path, spread over nearly every warp) write
+//   their ray into a shared queue at a ballot and block prefix, the first
+//   threads of the block sweep it, and the occlusion flag returns through
+//   shared memory, so the warps past the queue's end do no occlusion work.
+
 // step_kernel: per lane, regeneration on its pixel (the sample count lives
 // in the meta word's pixel field), the camera ray, 10 uniforms from
 // Philox4x32-10 (philox.cuh; key = the two seed words, counter = (lane,
@@ -49,7 +66,8 @@
 // or ~48 MB per step: ~14.5 us at 3.35 TB/s. About 60 operations per
 // triangle in each of the two sweeps and ~500 more per lane, ~4,600 per
 // lane or ~1.1e9 per step: ~16 us at 67 TFLOP/s FP32. The two bounds are
-// close; chip_smoke.py computes both from its run.
+// close; chip_smoke.py computes both from its run. One H100 at 700 W took
+// ~0.072 ms a step (PERF.md section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,7 +80,14 @@ namespace {
 using namespace bounce;
 
 constexpr int THREADS = 128;
-constexpr int TILE = 128;  // triangles staged in shared memory per chunk
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 128;  // triangles a chunk past STAGE_MAX
+constexpr int STAGE_MAX = 896;  // triangles staged once a block (42 KB)
+constexpr int UNROLL = 4;  // triangle tests in flight
+// Resident blocks an SM the path kernels ask for: 80 registers, where they
+// would take ~90 and fit five (one H100 run: 2-3% faster for a few spilled
+// bytes).
+constexpr int PATH_BLOCKS = 6;
 constexpr int MAX_EM = 64;
 constexpr int PDELTA = 1 << 26;
 
@@ -79,47 +104,114 @@ constexpr int EPA = 16;
 // their defaults, as in the reference.
 constexpr int M_MULTI = 1, M_COND = 2, M_DIEL = 4, M_RC = 8;
 
+// Static shared memory: the emitter table and the block's shadow-ray
+// queue (origin, direction, t_lim; the occlusion flag back). The Woop rows
+// are the dynamic shared array.
 struct Shared {
-  float woop[12][TILE];
   float em[EM_ROWS][MAX_EM];
+  float q[7][THREADS];
+  int q_occ[THREADS];
+  int warp_cand[WARPS];
 };
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Dynamic shared bytes of a table of T triangle columns.
+__host__ __device__ constexpr int woop_bytes(int T) {
+  return round_up(T <= STAGE_MAX ? T : TILE, UNROLL) * 12 * 4;
+}
 
 __device__ __forceinline__ float mi_weight(float pdf_a, float pdf_b) {
   const float a2 = pdf_a * pdf_a;
   return pdf_a > 0.0f ? a2 / fmaxf(a2 + pdf_b * pdf_b, 1e-32f) : 0.0f;
 }
 
+// The caller synchronises before the table is read.
 __device__ __forceinline__ void stage_em(Shared& sh, const float* em,
                                          int n_em, int e_cols) {
   for (int idx = threadIdx.x; idx < EM_ROWS * MAX_EM; idx += blockDim.x) {
     const int r = idx / MAX_EM, c = idx % MAX_EM;
     if (c < n_em) sh.em[r][c] = __ldg(em + r * e_cols + c);
   }
-  __syncthreads();
 }
 
-// Every thread of the block calls this for every chunk.
-__device__ __forceinline__ void stage_woop(Shared& sh, const float* tri,
+// Woop rows 0-11 of triangles [base, base + cnt) into [c][12] float rows
+// of wr, zero rows up to the next multiple of UNROLL. Reads are coalesced
+// along the table's rows. The caller synchronises around it.
+__device__ __forceinline__ void stage_woop(float4* wr, const float* tri,
                                            int T, int base, int cnt) {
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < 12 * TILE; idx += blockDim.x) {
-    const int r = idx / TILE, c = idx % TILE;
-    if (c < cnt) sh.woop[r][c] = __ldg(tri + (size_t)r * T + base + c);
+  float* w = reinterpret_cast<float*>(wr);
+  const int cnt4 = round_up(cnt, UNROLL);
+  for (int idx = threadIdx.x; idx < 12 * cnt4; idx += blockDim.x) {
+    const int r = idx / cnt4, c = idx % cnt4;
+    w[c * 12 + r] = c < cnt ? __ldg(tri + (size_t)r * T + base + c) : 0.0f;
   }
-  __syncthreads();
 }
 
-__device__ __forceinline__ void woop_col(const Shared& sh, int c,
+__device__ __forceinline__ void woop_row(const float4* __restrict__ wr, int c,
                                          float w[12]) {
+  const float4 a = wr[3 * c], b = wr[3 * c + 1], d = wr[3 * c + 2];
+  w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+  w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
+  w[8] = d.x, w[9] = d.y, w[10] = d.z, w[11] = d.w;
+}
+
+// Closest hit over cnt4 staged rows (triangles base + c), UNROLL at a time;
+// the updates run in index order with a strict <, so the first minimum
+// wins.
+__device__ __forceinline__ void closest_sweep(
+    const float4* __restrict__ wr, int cnt4, int base, float ox, float oy,
+    float oz, float dx, float dy, float dz, float& best_t, float& bu,
+    float& bv, int& bj) {
+  for (int c = 0; c < cnt4; c += UNROLL) {
+    float t[UNROLL], u[UNROLL], v[UNROLL];
+    bool ok[UNROLL];
 #pragma unroll
-  for (int r = 0; r < 12; ++r) w[r] = sh.woop[r][c];
+    for (int k = 0; k < UNROLL; ++k) {
+      float w[12];
+      woop_row(wr, c + k, w);
+      ok[k] = woop_tri(ox, oy, oz, dx, dy, dz, w, &t[k], &u[k], &v[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) {
+      if (ok[k] && t[k] > EPS && t[k] < best_t) {
+        best_t = t[k];
+        bu = u[k];
+        bv = v[k];
+        bj = base + c + k;
+      }
+    }
+  }
+}
+
+// Whether any of cnt4 staged rows is hit within (EPS, t_lim).
+__device__ __forceinline__ bool any_sweep(const float4* __restrict__ wr,
+                                          int cnt4, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, float t_lim) {
+  for (int c = 0; c < cnt4; c += UNROLL) {
+    bool hit = false;
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) {
+      float w[12], t, u, v;
+      woop_row(wr, c + k, w);
+      hit |= woop_tri(ox, oy, oz, dx, dy, dz, w, &t, &u, &v) && t > EPS &&
+             t < t_lim;
+    }
+    if (hit) return true;
+  }
+  return false;
 }
 
 // One bounce of one lane: sv = 14 state values, m = meta, rnd = 7
 // uniforms; writes 16 next-state values, the next meta word and 8 splat
-// values. Every thread of the block calls it (the sweeps stage triangles
-// together); a thread past the last lane passes a copy of a real lane.
-__device__ void bounce_core(Shared& sh, const float sv[14], int m,
+// values. Every thread of the block calls it (the shadow queue and the
+// chunked sweeps are block-wide); a thread past the last lane passes a copy
+// of a real lane. wr holds the whole table's Woop rows when T <= STAGE_MAX
+// (staged by the caller), else room for one chunk.
+__device__ void bounce_core(Shared& sh, float4* wr, const float sv[14], int m,
                             const float rnd[7], const float* __restrict__ tri,
                             int T, int n_em, const float* __restrict__ env,
                             int max_depth, int rr_depth, int type_mask,
@@ -138,20 +230,17 @@ __device__ void bounce_core(Shared& sh, const float sv[14], int m,
   // ---- closest hit ----
   float best_t = INF, bu = 0.0f, bv = 0.0f;
   int bj = -1;
-  for (int base = 0; base < T; base += TILE) {
-    const int cnt = min(TILE, T - base);
-    stage_woop(sh, tri, T, base, cnt);
-    for (int c = 0; c < cnt; ++c) {
-      float w[12];
-      woop_col(sh, c, w);
-      float t, u, v;
-      const bool okg = woop_tri(rox, roy, roz, rdx, rdy, rdz, w, &t, &u, &v);
-      if (okg && t > EPS && t < best_t) {
-        best_t = t;
-        bu = u;
-        bv = v;
-        bj = base + c;
-      }
+  if (T <= STAGE_MAX) {
+    closest_sweep(wr, round_up(T, UNROLL), 0, rox, roy, roz, rdx, rdy, rdz,
+                  best_t, bu, bv, bj);
+  } else {
+    for (int base = 0; base < T; base += TILE) {
+      const int cnt = min(TILE, T - base);
+      __syncthreads();
+      stage_woop(wr, tri, T, base, cnt);
+      __syncthreads();
+      closest_sweep(wr, round_up(cnt, UNROLL), base, rox, roy, roz, rdx, rdy,
+                    rdz, best_t, bu, bv, bj);
     }
   }
 
@@ -311,24 +400,54 @@ __device__ void bounce_core(Shared& sh, const float sv[14], int m,
   const float shx = px_ + ngx * off, shy = py_ + ngy * off,
               shz = pz_ + ngz * off;
   const float t_lim = dist * 0.999f;
-  bool occ = false;
-  if (__syncthreads_or(cand)) {
+
+  // ---- the block's shadow rays: queue, sweep by the first threads ----
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, cand);
+  if (lane == 0) sh.warp_cand[warp] = __popc(ballot);
+  __syncthreads();
+  int n_q = 0, slot = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    slot += w < warp ? sh.warp_cand[w] : 0;
+    n_q += sh.warp_cand[w];
+  }
+  slot += __popc(ballot & ((1u << lane) - 1u));
+  if (cand) {
+    sh.q[0][slot] = shx;
+    sh.q[1][slot] = shy;
+    sh.q[2][slot] = shz;
+    sh.q[3][slot] = ldx;
+    sh.q[4][slot] = ldy;
+    sh.q[5][slot] = ldz;
+    sh.q[6][slot] = t_lim;
+  }
+  __syncthreads();
+  const int j = threadIdx.x;
+  bool occ_j = false;
+  float qr[7];
+  if (j < n_q) {
+#pragma unroll
+    for (int r = 0; r < 7; ++r) qr[r] = sh.q[r][j];
+  }
+  if (T <= STAGE_MAX) {
+    if (j < n_q)
+      occ_j = any_sweep(wr, round_up(T, UNROLL), qr[0], qr[1], qr[2], qr[3],
+                        qr[4], qr[5], qr[6]);
+  } else if (n_q > 0) {
     for (int base = 0; base < T; base += TILE) {
       const int cnt = min(TILE, T - base);
-      stage_woop(sh, tri, T, base, cnt);
-      if (!cand || occ) continue;
-      for (int c = 0; c < cnt; ++c) {
-        float w[12];
-        woop_col(sh, c, w);
-        float tt, uu, vv;
-        if (woop_tri(shx, shy, shz, ldx, ldy, ldz, w, &tt, &uu, &vv) &&
-            tt > EPS && tt < t_lim) {
-          occ = true;
-          break;
-        }
-      }
+      __syncthreads();
+      stage_woop(wr, tri, T, base, cnt);
+      __syncthreads();
+      if (j < n_q && !occ_j)
+        occ_j = any_sweep(wr, round_up(cnt, UNROLL), qr[0], qr[1], qr[2],
+                          qr[3], qr[4], qr[5], qr[6]);
     }
   }
+  if (j < n_q) sh.q_occ[j] = occ_j;
+  __syncthreads();
+  const bool occ = cand && sh.q_occ[slot] != 0;
   const float w_nee = mi_weight(pdf_sa, pdf_b_nee);
   const float scale =
       (cand && !occ) ? w_nee / fmaxf(pdf_sa, 1e-20f) : 0.0f;
@@ -453,7 +572,7 @@ __device__ void bounce_core(Shared& sh, const float sv[14], int m,
 }
 
 // N is a multiple of the tile, and the tile of THREADS: no tail.
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, PATH_BLOCKS)
 step_kernel(float* __restrict__ state, int* __restrict__ meta,
             float* __restrict__ film, const int* __restrict__ tile_alive,
             const float* __restrict__ cam, const float* __restrict__ pxpy,
@@ -463,9 +582,12 @@ step_kernel(float* __restrict__ state, int* __restrict__ meta,
             int rr_depth, int type_mask, uint32_t seed0, uint32_t seed1,
             float inv_w, float inv_h) {
   __shared__ Shared sh;
+  extern __shared__ float4 wr[];
   const int b0 = blockIdx.x * THREADS;
   if (tile_alive[b0 / tile] == 0) return;  // the whole block is one tile
   stage_em(sh, em, n_em, e_cols);
+  if (T <= STAGE_MAX) stage_woop(wr, tri, T, 0, T);
+  __syncthreads();
   const int i = b0 + threadIdx.x;
   const size_t N = (size_t)n;
 
@@ -526,7 +648,7 @@ step_kernel(float* __restrict__ state, int* __restrict__ meta,
 
   float nsv[16], sp[8];
   int nm;
-  bounce_core(sh, sv, m2, rnd, tri, T, n_em, env, max_depth, rr_depth,
+  bounce_core(sh, wr, sv, m2, rnd, tri, T, n_em, env, max_depth, rr_depth,
               type_mask, nsv, &nm, sp);
 #pragma unroll
   for (int r = 0; r < 16; ++r) state[r * N + i] = nsv[r];
@@ -535,7 +657,7 @@ step_kernel(float* __restrict__ state, int* __restrict__ meta,
   for (int r = 0; r < 8; ++r) film[r * N + i] += sp[r];
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, PATH_BLOCKS)
 bounce_kernel(const float* __restrict__ state, const int* __restrict__ meta,
               const float* __restrict__ rand, const float* __restrict__ tri,
               const float* __restrict__ em, const float* __restrict__ env,
@@ -544,6 +666,7 @@ bounce_kernel(const float* __restrict__ state, const int* __restrict__ meta,
               int tile, int T, int n_em, int e_cols, int max_depth,
               int rr_depth, int type_mask) {
   __shared__ Shared sh;
+  extern __shared__ float4 wr[];
   const int b0 = blockIdx.x * THREADS;
   const int i = b0 + threadIdx.x;
   const bool active = i < n;
@@ -561,6 +684,8 @@ bounce_kernel(const float* __restrict__ state, const int* __restrict__ meta,
     return;
   }
   stage_em(sh, em, n_em, e_cols);
+  if (T <= STAGE_MAX) stage_woop(wr, tri, T, 0, T);
+  __syncthreads();
   float sv[14], rnd[7];
 #pragma unroll
   for (int r = 0; r < 14; ++r) sv[r] = state[r * N + li];
@@ -568,8 +693,8 @@ bounce_kernel(const float* __restrict__ state, const int* __restrict__ meta,
   for (int r = 0; r < 7; ++r) rnd[r] = rand[r * N + li];
   float nsv[16], sp[8];
   int nm;
-  bounce_core(sh, sv, meta[li], rnd, tri, T, n_em, env, max_depth, rr_depth,
-              type_mask, nsv, &nm, sp);
+  bounce_core(sh, wr, sv, meta[li], rnd, tri, T, n_em, env, max_depth,
+              rr_depth, type_mask, nsv, &nm, sp);
   if (!active) return;
 #pragma unroll
   for (int r = 0; r < 16; ++r) nstate[r * N + i] = nsv[r];
@@ -577,6 +702,21 @@ bounce_kernel(const float* __restrict__ state, const int* __restrict__ meta,
 #pragma unroll
   for (int r = 0; r < 8; ++r) splat[r * N + i] = sp[r];
 }
+
+// Let the kernel take the dynamic shared memory of the largest staged
+// table on the current device (above 48 KB only after this opt-in).
+template <class Kernel>
+cudaError_t allow_woop_smem(Kernel kernel, unsigned& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (done >> dev) & 1u) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           woop_bytes(STAGE_MAX));
+  if (e == cudaSuccess) done |= 1u << dev;
+  return e;
+}
+
+unsigned step_smem_done = 0, bounce_smem_done = 0;
 
 }  // namespace
 
@@ -588,8 +728,10 @@ extern "C" int step_launch(float* state, int* meta, float* film,
                            int n_em, int e_cols, int max_depth, int rr_depth,
                            int type_mask, unsigned seed0, unsigned seed1,
                            float inv_w, float inv_h, void* stream) {
+  const cudaError_t e = allow_woop_smem(step_kernel, step_smem_done);
+  if (e != cudaSuccess) return (int)e;
   const int blocks = n / THREADS;
-  step_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  step_kernel<<<blocks, THREADS, woop_bytes(n_cols), (cudaStream_t)stream>>>(
       state, meta, film, tile_alive, cam, pxpy, rand, tri, em, env, n, tile,
       n_cols, n_em, e_cols, max_depth, rr_depth, type_mask, seed0, seed1,
       inv_w, inv_h);
@@ -603,9 +745,34 @@ extern "C" int bounce_launch(const float* state, const int* meta,
                              float* splat, int n, int tile, int n_cols,
                              int n_em, int e_cols, int max_depth,
                              int rr_depth, int type_mask, void* stream) {
+  const cudaError_t e = allow_woop_smem(bounce_kernel, bounce_smem_done);
+  if (e != cudaSuccess) return (int)e;
   const int blocks = (n + THREADS - 1) / THREADS;
-  bounce_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  bounce_kernel<<<blocks, THREADS, woop_bytes(n_cols),
+                  (cudaStream_t)stream>>>(
       state, meta, rand, tri, em, env, tile_alive, nstate, nmeta, splat, n,
       tile, n_cols, n_em, e_cols, max_depth, rr_depth, type_mask);
   return (int)cudaGetLastError();
+}
+
+// Registers, local (spill) bytes, static shared bytes and resident blocks an
+// SM (at the dynamic shared memory of an n_cols-column table) of step_kernel
+// (which 0) or bounce_kernel (which 1), into info[4].
+extern "C" int bounce_info(int which, int n_cols, int* info) {
+  const void* f = which == 0 ? (const void*)step_kernel
+                             : (const void*)bounce_kernel;
+  cudaError_t e = which == 0 ? allow_woop_smem(step_kernel, step_smem_done)
+                             : allow_woop_smem(bounce_kernel,
+                                               bounce_smem_done);
+  cudaFuncAttributes a{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, f);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, THREADS,
+                                                      woop_bytes(n_cols));
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = (int)a.sharedSizeBytes;
+  info[3] = blocks;
+  return (int)e;
 }

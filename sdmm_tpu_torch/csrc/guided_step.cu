@@ -26,16 +26,32 @@
 //
 // shade_kernel. Shading frame, the BSDF sample of the lane's type (a
 // run-time branch where the reference specialised on the scene's type set;
-// a lane's results are the same), guided_tile.cuh on the lane's leaf row
-// read as bfloat16 straight from the [L, 353] table (no gathered row
-// matrix; the table stays in L2), the one-sample MIS combine, Russian
-// roulette, the 10 splat rows and the new meta word. Bound: per lane it
-// reads state rows 3-12 (40 bytes: direction, throughput, radiance, eta^2),
-// meta, 22 hit rows, cpos, leaf and 8 rand rows, and writes 16 state rows,
-// meta and 10 splat rows: 288 bytes, plus the bf16 table once (1.4 MB at
-// 2048 leaves). Against ~4,100 operations per lane (the mixture's 16
-// components dominate) bytes bound it: at 131,072 lanes 39.2 MB or 11.7 us
-// against 5.4e8 operations or 8.0 us (chip_smoke.py computes both).
+// a lane's results are the same), guided_tile.cuh on the lane's leaf row,
+// the one-sample MIS combine, Russian roulette, the 10 splat rows and the
+// new meta word. Bound: per lane it reads state rows 3-12 (40 bytes:
+// direction, throughput, radiance, eta^2), meta, 22 hit rows, cpos, leaf
+// and 8 rand rows, and writes 16 state rows, meta and 10 splat rows: 288
+// bytes, plus the table's bf16 values once (1.4 MB at 2048 leaves).
+// Against ~4,100 operations per lane (the mixture's 16 components
+// dominate) bytes bound it: at 131,072 lanes 39.2 MB or 11.7 us against
+// 5.4e8 operations or 8.0 us (chip_smoke.py computes both).
+//
+// Design. Neighbouring lanes hold different leaves, so every warp-wide
+// load of the table touches up to 32 cache lines: what costs is the number
+// of load instructions and their latency, not bytes (the table stays in
+// L2). The table comes packed once per render (ops/guided_step.
+// pack_shade_table: [L, 384] bfloat16, each component 24 values or three
+// 16-byte words, every row 16-byte aligned), so a component's pass-1 block
+// is two 16-byte loads and its pass-4 block one: 50 loads a lane where the
+// [L, 353] row took 359 two-byte loads. The per-component log-weights and
+// tangent means (48 floats) live in the thread's column of a 24 KB shared
+// array, and the kernel runs in three parts (the BSDF sample;
+// guided_tile; the combine on the lane's rows read again), so that little
+// stays live across the mixture math: 64 registers and eight blocks an SM
+// (SHADE_BLOCKS), where the [L, 353] design took 148 and three. One H100
+// at 700 W took ~0.074 ms at 131,072 lanes on 2048 random leaves, ~0.056
+// ms with every lane on one leaf (PERF.md section 6): the mixture math,
+// not the gather, is most of it now.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,6 +65,7 @@ using namespace bounce;
 
 constexpr int THREADS = 128;
 constexpr int TILE = 128;  // triangles staged in shared memory per chunk
+constexpr int SHADE_BLOCKS = 8;  // resident blocks an SM that shade asks for
 
 // type_mask bits: multi (a non-diffuse type is present), conductor,
 // dielectric, rough conductor. Attribute rows a type set never reads keep
@@ -163,110 +180,145 @@ trace_kernel(const float* __restrict__ state, const int* __restrict__ meta,
   h[21 * N] = (alive && hit_valid) ? 1.0f : 0.0f;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The pointer, hidden from the optimiser: loads through it are issued
+// again where they stand instead of reusing earlier loads of the same
+// address, whose values would stay live in registers in between.
+template <class T>
+__device__ __forceinline__ const T* reread(const T* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// The lane's shading frame: the shading normal flipped toward the ray
+// except on dielectrics, its tangents s and t, and -rd in the frame.
+struct Frame {
+  float n[3], s[3], t[3], wi[3];
+};
+
+__device__ __forceinline__ Frame shading_frame(float rdx, float rdy,
+                                               float rdz, float nsx,
+                                               float nsy, float nsz,
+                                               bool is_diel) {
+  Frame f;
+  const float cos_i_ns = -dot3(nsx, nsy, nsz, rdx, rdy, rdz);
+  const float flip = (cos_i_ns < 0.0f && !is_diel) ? -1.0f : 1.0f;
+  f.n[0] = nsx * flip;
+  f.n[1] = nsy * flip;
+  f.n[2] = nsz * flip;
+  coordinate_system(f.n[0], f.n[1], f.n[2], f.s, f.t);
+  f.wi[0] = -dot3(f.s[0], f.s[1], f.s[2], rdx, rdy, rdz);
+  f.wi[1] = -dot3(f.t[0], f.t[1], f.t[2], rdx, rdy, rdz);
+  f.wi[2] = -dot3(f.n[0], f.n[1], f.n[2], rdx, rdy, rdz);
+  return f;
+}
+
+// Three parts, so that little stays live across the mixture math: the
+// BSDF sample, guided_tile, then the combine on values read again.
+__global__ void __launch_bounds__(THREADS, SHADE_BLOCKS)
 shade_kernel(const float* __restrict__ state, const int* __restrict__ meta,
              const float* __restrict__ hit, const float* __restrict__ cpos,
-             const int* __restrict__ leaf, const uint16_t* __restrict__ table,
+             const int* __restrict__ leaf, const uint4* __restrict__ table,
              const float* __restrict__ rand, float* __restrict__ nstate,
              int* __restrict__ nmeta, float* __restrict__ splat, int n,
              int n_leaves, int max_depth, int rr_depth, float bsdf_fraction) {
+  __shared__ float slots[3 * guided::K][THREADS];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const size_t N = (size_t)n;
-  const float rdx = state[3 * N + i], rdy = state[4 * N + i],
-              rdz = state[5 * N + i];
-  const float thr_r = state[6 * N + i], thr_g = state[7 * N + i],
-              thr_b = state[8 * N + i];
-  const float li_r = state[9 * N + i], li_g = state[10 * N + i],
-              li_b = state[11 * N + i];
-  const float eta2 = state[12 * N + i];
+  const float* __restrict__ rr = rand + i;
+
+  // ---- part 1: the BSDF sample of the lane's type ----
+  float wo_x, wo_y, wo_z, w_r, w_g, w_b, eta_factor = 1.0f;
+  bool good, sampled_delta = false;
+  float wbx, wby, wbz;
+  {
+    const float* __restrict__ hr = hit + i;
+    const float b_ty = hr[12 * N];
+    const bool is_cond = b_ty == (float)T_CONDUCTOR;
+    const bool is_diel = b_ty == (float)T_DIELECTRIC;
+    const bool is_rc = b_ty == (float)T_ROUGHCONDUCTOR;
+    const Frame f = shading_frame(state[3 * N + i], state[4 * N + i],
+                                  state[5 * N + i], hr[6 * N], hr[7 * N],
+                                  hr[8 * N], is_diel);
+    const float wi_x = f.wi[0], wi_y = f.wi[1], wi_z = f.wi[2];
+    const float alr = hr[9 * N], alg = hr[10 * N], alb = hr[11 * N];
+    disk_concentric(rr[2 * N], rr[3 * N], &wo_x, &wo_y);
+    wo_z = sqrtf(fmaxf(0.0f, 1.0f - wo_x * wo_x - wo_y * wo_y));
+    w_r = alr, w_g = alg, w_b = alb;
+    good = alr > 0.0f || alg > 0.0f || alb > 0.0f;
+    if (is_cond) {
+      const float b_eta = hr[14 * N];
+      const float f_r = fresnel_conductor_1(wi_z, b_eta, hr[15 * N]);
+      const float f_g = fresnel_conductor_1(wi_z, b_eta, hr[16 * N]);
+      const float f_b = fresnel_conductor_1(wi_z, b_eta, hr[17 * N]);
+      wo_x = -wi_x;
+      wo_y = -wi_y;
+      wo_z = wi_z;
+      w_r = hr[18 * N] * f_r;
+      w_g = hr[19 * N] * f_g;
+      w_b = hr[20 * N] * f_b;
+      good = f_r > 0.0f || f_g > 0.0f || f_b > 0.0f;
+      sampled_delta = true;
+    } else if (is_diel) {
+      float cos_t, eta_it, eta_ti;
+      const float fr =
+          fresnel_dielectric(wi_z, hr[14 * N], &cos_t, &eta_it, &eta_ti);
+      const bool refl = rr[1 * N] < fr;
+      wo_x = refl ? -wi_x : -wi_x * eta_ti;
+      wo_y = refl ? -wi_y : -wi_y * eta_ti;
+      wo_z = refl ? wi_z : cos_t;
+      w_r = refl ? hr[18 * N] : alr * eta_ti * eta_ti;
+      w_g = refl ? hr[19 * N] : alg * eta_ti * eta_ti;
+      w_b = refl ? hr[20 * N] : alb * eta_ti * eta_ti;
+      good = w_r > 0.0f || w_g > 0.0f || w_b > 0.0f;
+      sampled_delta = true;
+      eta_factor = refl ? 1.0f : eta_it;
+    } else if (is_rc) {
+      float mx, my, mz;
+      sample_vndf(wi_x, wi_y, wi_z, hr[13 * N], rr[2 * N], rr[3 * N], &mx,
+                  &my, &mz);
+      const float widm = dot3(wi_x, wi_y, wi_z, mx, my, mz);
+      wo_x = 2.0f * widm * mx - wi_x;
+      wo_y = 2.0f * widm * my - wi_y;
+      wo_z = 2.0f * widm * mz - wi_z;
+      good = wo_z > 1e-6f;
+    }
+    wbx = f.s[0] * wo_x + f.t[0] * wo_y + f.n[0] * wo_z;
+    wby = f.s[1] * wo_x + f.t[1] * wo_y + f.n[1] * wo_z;
+    wbz = f.s[2] * wo_x + f.t[2] * wo_y + f.n[2] * wo_z;
+  }
+
+  // ---- part 2: the guided mixture on the leaf's packed bfloat16 row ----
+  const int l = min(max(leaf[i], 0), n_leaves - 1);
+  const guided::RowPacked row{table + (size_t)l * (guided::PROW / 8)};
+  guided::SharedSlots sl{&slots[0][threadIdx.x], THREADS};
+  const guided::TileOut g = guided::guided_tile(
+      row, sl, cpos[i], cpos[N + i], cpos[2 * N + i], wbx, wby, wbz,
+      rr[5 * N], rr[6 * N], rr[7 * N]);
+
+  // ---- part 3: the lane's rows read again ----
+  const float* __restrict__ st = reread(state) + i;
+  const float* __restrict__ hr = reread(hit) + i;
+  const float rdx = st[3 * N], rdy = st[4 * N], rdz = st[5 * N];
   const int m = meta[i];
   const bool alive = (m & ALIVE) != 0;
   const int depth0 = (m >> DEPTH_SHIFT) & DEPTH_MASK;
   const int pix = m & PIX_MASK;
   const int exh = m & EXH;
-
-  const float* __restrict__ hr = hit + i;
-  const float px_ = hr[0 * N], py_ = hr[1 * N], pz_ = hr[2 * N];
   const float ngx = hr[3 * N], ngy = hr[4 * N], ngz = hr[5 * N];
-  const float nsx = hr[6 * N], nsy = hr[7 * N], nsz = hr[8 * N];
-  const float alr = hr[9 * N], alg = hr[10 * N], alb = hr[11 * N];
-  const float b_ty = hr[12 * N], b_alp = hr[13 * N], b_eta = hr[14 * N];
-  const float kr = hr[15 * N], kg = hr[16 * N], kb = hr[17 * N];
-  const float sr = hr[18 * N], sg = hr[19 * N], sb = hr[20 * N];
-  bool on_surface = alive && hr[21 * N] > 0.5f;
-
+  const float b_ty = hr[12 * N];
   const bool is_diff = b_ty == (float)T_DIFFUSE;
   const bool is_cond = b_ty == (float)T_CONDUCTOR;
   const bool is_diel = b_ty == (float)T_DIELECTRIC;
   const bool is_rc = b_ty == (float)T_ROUGHCONDUCTOR;
-
-  // ---- shading frame, flipped toward the ray except on dielectrics ----
-  const float cos_i_ns = -dot3(nsx, nsy, nsz, rdx, rdy, rdz);
-  const float flip = (cos_i_ns < 0.0f && !is_diel) ? -1.0f : 1.0f;
-  const float nx = nsx * flip, ny = nsy * flip, nz = nsz * flip;
-  float s[3], t[3];
-  coordinate_system(nx, ny, nz, s, t);
-  const float wi_z = -dot3(nx, ny, nz, rdx, rdy, rdz);
-  const float wi_x = -dot3(s[0], s[1], s[2], rdx, rdy, rdz);
-  const float wi_y = -dot3(t[0], t[1], t[2], rdx, rdy, rdz);
+  const Frame f = shading_frame(rdx, rdy, rdz, hr[6 * N], hr[7 * N],
+                                hr[8 * N], is_diel);
+  const float wi_x = f.wi[0], wi_y = f.wi[1], wi_z = f.wi[2];
   const float wi_dot_geo = -dot3(ngx, ngy, ngz, rdx, rdy, rdz);
-  on_surface = on_surface && !(wi_dot_geo * wi_z < 0.0f);
+  const bool on_surface =
+      alive && hr[21 * N] > 0.5f && !(wi_dot_geo * wi_z < 0.0f);
   const bool delta_only = is_cond || is_diel;
 
-  // ---- BSDF sample of the lane's type ----
-  const float* __restrict__ rr = rand + i;
-  float wo_x, wo_y;
-  disk_concentric(rr[2 * N], rr[3 * N], &wo_x, &wo_y);
-  float wo_z = sqrtf(fmaxf(0.0f, 1.0f - wo_x * wo_x - wo_y * wo_y));
-  float w_r = alr, w_g = alg, w_b = alb;
-  bool good = alr > 0.0f || alg > 0.0f || alb > 0.0f;
-  bool sampled_delta = false;
-  float eta_factor = 1.0f;
-  if (is_cond) {
-    const float f_r = fresnel_conductor_1(wi_z, b_eta, kr);
-    const float f_g = fresnel_conductor_1(wi_z, b_eta, kg);
-    const float f_b = fresnel_conductor_1(wi_z, b_eta, kb);
-    wo_x = -wi_x;
-    wo_y = -wi_y;
-    wo_z = wi_z;
-    w_r = sr * f_r;
-    w_g = sg * f_g;
-    w_b = sb * f_b;
-    good = f_r > 0.0f || f_g > 0.0f || f_b > 0.0f;
-    sampled_delta = true;
-  } else if (is_diel) {
-    float cos_t, eta_it, eta_ti;
-    const float fr = fresnel_dielectric(wi_z, b_eta, &cos_t, &eta_it, &eta_ti);
-    const bool refl = rr[1 * N] < fr;
-    wo_x = refl ? -wi_x : -wi_x * eta_ti;
-    wo_y = refl ? -wi_y : -wi_y * eta_ti;
-    wo_z = refl ? wi_z : cos_t;
-    w_r = refl ? sr : alr * eta_ti * eta_ti;
-    w_g = refl ? sg : alg * eta_ti * eta_ti;
-    w_b = refl ? sb : alb * eta_ti * eta_ti;
-    good = w_r > 0.0f || w_g > 0.0f || w_b > 0.0f;
-    sampled_delta = true;
-    eta_factor = refl ? 1.0f : eta_it;
-  } else if (is_rc) {
-    float mx, my, mz;
-    sample_vndf(wi_x, wi_y, wi_z, b_alp, rr[2 * N], rr[3 * N], &mx, &my, &mz);
-    const float widm = dot3(wi_x, wi_y, wi_z, mx, my, mz);
-    wo_x = 2.0f * widm * mx - wi_x;
-    wo_y = 2.0f * widm * my - wi_y;
-    wo_z = 2.0f * widm * mz - wi_z;
-    good = wo_z > 1e-6f;
-  }
-  const float wbx = s[0] * wo_x + t[0] * wo_y + nx * wo_z;
-  const float wby = s[1] * wo_x + t[1] * wo_y + ny * wo_z;
-  const float wbz = s[2] * wo_x + t[2] * wo_y + nz * wo_z;
-
-  // ---- guided mixture on the leaf's bfloat16 row ----
-  const int l = min(max(leaf[i], 0), n_leaves - 1);
-  const guided::RowBF16 row{table + (size_t)l * guided::NROWS};
-  const guided::TileOut g = guided::guided_tile(
-      row, cpos[i], cpos[N + i], cpos[2 * N + i], wbx, wby, wbz, rr[5 * N],
-      rr[6 * N], rr[7 * N]);
   const bool guide_valid = g.cond_valid && g.init;
   const bool guide_ok = guide_valid && !delta_only;
   const float h = guide_ok ? bsdf_fraction : 1.0f;
@@ -278,18 +330,23 @@ shade_kernel(const float* __restrict__ state, const int* __restrict__ meta,
   const float wox = take_bsdf ? wbx : gx;
   const float woy = take_bsdf ? wby : gy;
   const float woz = take_bsdf ? wbz : gz;
-  const float wl_x = take_bsdf ? wo_x : dot3(s[0], s[1], s[2], gx, gy, gz);
-  const float wl_y = take_bsdf ? wo_y : dot3(t[0], t[1], t[2], gx, gy, gz);
-  const float wl_z = take_bsdf ? wo_z : dot3(nx, ny, nz, gx, gy, gz);
+  const float wl_x =
+      take_bsdf ? wo_x : dot3(f.s[0], f.s[1], f.s[2], gx, gy, gz);
+  const float wl_y =
+      take_bsdf ? wo_y : dot3(f.t[0], f.t[1], f.t[2], gx, gy, gz);
+  const float wl_z =
+      take_bsdf ? wo_z : dot3(f.n[0], f.n[1], f.n[2], gx, gy, gz);
   sampled_delta = take_bsdf && sampled_delta;
 
   // ---- f(wi, wo) and the BSDF pdf at the chosen direction ----
   const float cos_o = fmaxf(wl_z, 0.0f);
+  const float alr = hr[9 * N], alg = hr[10 * N], alb = hr[11 * N];
   float f_r = is_diff ? alr * (INV_PI * cos_o) : 0.0f;
   float f_g = is_diff ? alg * (INV_PI * cos_o) : 0.0f;
   float f_b = is_diff ? alb * (INV_PI * cos_o) : 0.0f;
   float pdf_ev = is_diff ? cos_o * INV_PI : 0.0f;
   if (is_rc) {
+    const float b_alp = hr[13 * N], b_eta = hr[14 * N];
     float hx = wi_x + wl_x, hy = wi_y + wl_y, hz = wi_z + wl_z;
     const float inv_hl = rsqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-20f));
     hx *= inv_hl;
@@ -305,9 +362,9 @@ shade_kernel(const float* __restrict__ state, const int* __restrict__ meta,
                         fmaxf(4.0f * fabsf(dot3(wl_x, wl_y, wl_z, hx, hy, hz)),
                               1e-12f)
                   : 0.0f;
-    f_r = sr * fresnel_conductor_1(widoth, b_eta, kr) * spec;
-    f_g = sg * fresnel_conductor_1(widoth, b_eta, kg) * spec;
-    f_b = sb * fresnel_conductor_1(widoth, b_eta, kb) * spec;
+    f_r = hr[18 * N] * fresnel_conductor_1(widoth, b_eta, hr[15 * N]) * spec;
+    f_g = hr[19 * N] * fresnel_conductor_1(widoth, b_eta, hr[16 * N]) * spec;
+    f_b = hr[20 * N] * fresnel_conductor_1(widoth, b_eta, hr[17 * N]) * spec;
   }
 
   // ---- one-sample MIS combine ----
@@ -327,6 +384,8 @@ shade_kernel(const float* __restrict__ state, const int* __restrict__ meta,
   ok_sample = ok_sample && !(wo_dot_geo * wl_z <= 0.0f);
 
   // ---- throughput and Russian roulette ----
+  const float thr_r = st[6 * N], thr_g = st[7 * N], thr_b = st[8 * N];
+  const float eta2 = st[12 * N];
   const int depth = depth0 + 1;
   bool survive = on_surface && ok_sample && depth < max_depth;
   float tr = thr_r * (survive ? bw_r : 1.0f);
@@ -342,6 +401,7 @@ shade_kernel(const float* __restrict__ state, const int* __restrict__ meta,
   tb *= rr_boost;
 
   // ---- film splat of the paths that end here (NaN radiance splats 0) ----
+  const float li_r = st[9 * N], li_g = st[10 * N], li_b = st[11 * N];
   const bool done = alive && !survive;
   const float df = done ? 1.0f : 0.0f;
   const float ls_r = (isfinite(li_r) ? li_r : 0.0f) * df;
@@ -362,9 +422,9 @@ shade_kernel(const float* __restrict__ state, const int* __restrict__ meta,
   // ---- next lane state ----
   const float off2 = wo_dot_geo > 0.0f ? RAY_EPS : -RAY_EPS;
   float* __restrict__ ns = nstate + i;
-  ns[0 * N] = px_ + ngx * off2;
-  ns[1 * N] = py_ + ngy * off2;
-  ns[2 * N] = pz_ + ngz * off2;
+  ns[0 * N] = hr[0 * N] + ngx * off2;
+  ns[1 * N] = hr[1 * N] + ngy * off2;
+  ns[2 * N] = hr[2 * N] + ngz * off2;
   ns[3 * N] = wox;
   ns[4 * N] = woy;
   ns[5 * N] = woz;
@@ -402,7 +462,25 @@ extern "C" int shade_launch(const float* state, const int* meta,
                             int rr_depth, float bsdf_fraction, void* stream) {
   const int blocks = (n + THREADS - 1) / THREADS;
   shade_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      state, meta, hit, cpos, leaf, static_cast<const uint16_t*>(table), rand,
+      state, meta, hit, cpos, leaf, static_cast<const uint4*>(table), rand,
       nstate, nmeta, splat, n, n_leaves, max_depth, rr_depth, bsdf_fraction);
   return (int)cudaGetLastError();
+}
+
+// Registers, local (spill) bytes, static shared bytes and resident blocks an
+// SM of trace_kernel (which 0) or shade_kernel (which 1), into info[4]; the
+// second argument is unused (bounce_info's table width).
+extern "C" int guided_step_info(int which, int, int* info) {
+  const void* f = which == 0 ? (const void*)trace_kernel
+                             : (const void*)shade_kernel;
+  cudaFuncAttributes a{};
+  cudaError_t e = cudaFuncGetAttributes(&a, f);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, THREADS, 0);
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = (int)a.sharedSizeBytes;
+  info[3] = blocks;
+  return (int)e;
 }

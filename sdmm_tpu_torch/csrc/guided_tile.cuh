@@ -9,14 +9,22 @@
 // evaluate the mixture pdf at the guided and at the BSDF-sampled
 // direction, with the reference's cubic arccos.
 //
-// The lane reads its leaf's 353-value row through a row reader (RowF32 or
-// RowBF16) straight from the [L, 353] table, which stays in L2; no per-lane
-// row matrix is gathered. guided_tile's four passes are four unrolled
-// k-loops that re-read the row instead of holding 16 x 22 values per
-// thread; only the per-component log-weight and the two conditional
-// tangent-mean coordinates stay in registers (48 floats). The selected
-// component is read back at a computed row offset, so no register array is
-// indexed at run time.
+// The lane reads its leaf's row through a row reader straight from the
+// table, which stays in L2; no per-lane row matrix is gathered. A reader
+// hands over a component's values in two blocks: pass 1's 16 (weight,
+// spatial mean, marginal Cholesky, premult) and pass 4's 6 (mean
+// direction, conditional Cholesky). RowF32 reads the [L, 353] float32
+// table value by value (guided_sample.cu); RowPacked reads shade's packed
+// bfloat16 table (ops/guided_step.pack_shade_table: 24 values a component,
+// 48 bytes, 16-byte aligned), pass 1's block as two 16-byte loads and pass
+// 4's as one. guided_tile's four passes are four unrolled k-loops that
+// re-read the row instead of holding 16 x 22 values per thread; the
+// per-component log-weight and the two conditional tangent-mean
+// coordinates (48 floats) live in a slot store: registers (RegSlots) or
+// the thread's column of a shared-memory array (SharedSlots), which frees
+// the registers for more warps in flight. The selected component is read
+// back at a computed row offset, so no register array is indexed at run
+// time.
 
 #pragma once
 
@@ -36,20 +44,96 @@ constexpr int NROWS = K * RPK + 1;
 constexpr float INV_TWO_PI = 0.15915494309189535f;
 constexpr float NEG = -1.0e30f;
 
-// A leaf row of float32 values.
+// A leaf row of float32 values in the [L, 353] layout.
 struct RowF32 {
   const float* __restrict__ p;
-  __device__ __forceinline__ float operator()(int j) const {
-    return __ldg(p + j);
+  __device__ __forceinline__ void pass1(int k, float v[16]) const {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = __ldg(p + k * RPK + j);
+  }
+  __device__ __forceinline__ void pass4(int k, float v[6]) const {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) v[j] = __ldg(p + k * RPK + 16 + j);
+  }
+  __device__ __forceinline__ float init() const {
+    return __ldg(p + NROWS - 1);
   }
 };
 
-// A leaf row of bfloat16 values: the upper 16 bits of a float32, so the
-// widening is exact.
-struct RowBF16 {
-  const uint16_t* __restrict__ p;
-  __device__ __forceinline__ float operator()(int j) const {
-    return __uint_as_float(static_cast<uint32_t>(__ldg(p + j)) << 16);
+// The packed bfloat16 layout of shade's table: per leaf K components of
+// PSTRIDE values (the 22 of the [L, 353] row, then two pads), so a
+// component is three 16-byte words; the init flag sits in component 0's
+// first pad (value PINIT). bfloat16 is the upper 16 bits of a float32, so
+// the widening is exact.
+constexpr int PSTRIDE = 24;
+constexpr int PROW = K * PSTRIDE;
+constexpr int PINIT = 22;
+
+__device__ __forceinline__ float bf16_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t x) {
+  return __uint_as_float(x & 0xFFFF0000u);
+}
+
+struct RowPacked {
+  const uint4* __restrict__ p;  // the leaf's PROW values, 16-byte aligned
+  __device__ __forceinline__ void pass1(int k, float v[16]) const {
+    const uint4 a = __ldg(p + 3 * k), b = __ldg(p + 3 * k + 1);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[2 * j] = bf16_lo(w[j]);
+      v[2 * j + 1] = bf16_hi(w[j]);
+    }
+  }
+  __device__ __forceinline__ void pass4(int k, float v[6]) const {
+    const uint4 c = __ldg(p + 3 * k + 2);
+    v[0] = bf16_lo(c.x);
+    v[1] = bf16_hi(c.x);
+    v[2] = bf16_lo(c.y);
+    v[3] = bf16_hi(c.y);
+    v[4] = bf16_lo(c.z);
+    v[5] = bf16_hi(c.z);
+  }
+  __device__ __forceinline__ float init() const {
+    static_assert(PINIT == 22, "the init flag is the low half of word 3");
+    return bf16_lo(__ldg(p + 2).w);
+  }
+};
+
+// Per-component slots of one lane in registers: every index is a
+// compile-time constant once the k-loops unroll.
+struct RegSlots {
+  float lw_[K], tm0_[K], tm1_[K];
+  __device__ __forceinline__ float& lw(int k) { return lw_[k]; }
+  __device__ __forceinline__ float& tm0(int k) { return tm0_[k]; }
+  __device__ __forceinline__ float& tm1(int k) { return tm1_[k]; }
+  __device__ __forceinline__ void sel_tm(int sel, float* a, float* b) {
+    float x = 0.0f, y = 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      x = k == sel ? tm0_[k] : x;
+      y = k == sel ? tm1_[k] : y;
+    }
+    *a = x;
+    *b = y;
+  }
+};
+
+// Per-component slots of one lane in its column of a [3 K][stride]
+// shared-memory array: the lanes of a warp hit 32 distinct banks.
+struct SharedSlots {
+  float* p;  // &array[0][lane]
+  int stride;
+  __device__ __forceinline__ float& lw(int k) { return p[k * stride]; }
+  __device__ __forceinline__ float& tm0(int k) { return p[(K + k) * stride]; }
+  __device__ __forceinline__ float& tm1(int k) {
+    return p[(2 * K + k) * stride];
+  }
+  __device__ __forceinline__ void sel_tm(int sel, float* a, float* b) {
+    *a = tm0(sel);
+    *b = tm1(sel);
   }
 };
 
@@ -119,35 +203,38 @@ struct TileOut {
   bool init;        // the leaf holds a trained mixture
 };
 
-// guided_tile for one lane: row is the leaf's row reader, (px, py, pz) the
-// canonical position, (bx, by, bz) the BSDF-sampled world direction,
-// (u_sel, u_r, u_th) the uniforms of component selection and Box-Muller.
-template <class Row>
-__device__ __forceinline__ TileOut guided_tile(const Row& row, float px,
-                                               float py, float pz, float bx,
-                                               float by, float bz, float u_sel,
-                                               float u_r, float u_th) {
+// guided_tile for one lane: row is the leaf's row reader, sl the lane's
+// slot store, (px, py, pz) the canonical position, (bx, by, bz) the
+// BSDF-sampled world direction, (u_sel, u_r, u_th) the uniforms of
+// component selection and Box-Muller.
+template <class Row, class Slots>
+__device__ __forceinline__ TileOut guided_tile(const Row& row, Slots& sl,
+                                               float px, float py, float pz,
+                                               float bx, float by, float bz,
+                                               float u_sel, float u_r,
+                                               float u_th) {
   // ---- pass 1: log spatial-marginal weights + conditional tangent means ----
-  float lw[K], tm0[K], tm1[K];
   float lmax = NEG;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int b = k * RPK;
-    const float d0 = px - row(b + 1);
-    const float d1 = py - row(b + 2);
-    const float d2 = pz - row(b + 3);
-    const float m00 = row(b + 4), m10 = row(b + 5), m11 = row(b + 6);
-    const float m20 = row(b + 7), m21 = row(b + 8), m22 = row(b + 9);
+    float r[16];
+    row.pass1(k, r);
+    const float d0 = px - r[1];
+    const float d1 = py - r[2];
+    const float d2 = pz - r[3];
+    const float m00 = r[4], m10 = r[5], m11 = r[6];
+    const float m20 = r[7], m21 = r[8], m22 = r[9];
     const float z0 = m00 * d0;
     const float z1 = m10 * d0 + m11 * d1;
     const float z2 = m20 * d0 + m21 * d1 + m22 * d2;
     const float q = z0 * z0 + z1 * z1 + z2 * z2;
-    const float wd = row(b) * m00 * m11 * m22;
-    lw[k] = wd > 0.0f ? logf(fmaxf(wd, 1e-38f)) - 0.5f * q : NEG;
+    const float wd = r[0] * m00 * m11 * m22;
+    const float lwk = wd > 0.0f ? logf(fmaxf(wd, 1e-38f)) - 0.5f * q : NEG;
     const float cl = fminf(1.0f, 3.0f / sqrtf(fmaxf(q, 1e-30f)));
-    tm0[k] = cl * (row(b + 10) * d0 + row(b + 11) * d1 + row(b + 12) * d2);
-    tm1[k] = cl * (row(b + 13) * d0 + row(b + 14) * d1 + row(b + 15) * d2);
-    lmax = fmaxf(lmax, lw[k]);
+    sl.lw(k) = lwk;
+    sl.tm0(k) = cl * (r[10] * d0 + r[11] * d1 + r[12] * d2);
+    sl.tm1(k) = cl * (r[13] * d0 + r[14] * d1 + r[15] * d2);
+    lmax = fmaxf(lmax, lwk);
   }
   // fmaxf drops NaN operands where jnp.maximum propagates them; a NaN
   // log-weight can only come from a NaN table row, which pack_guided_rows
@@ -159,8 +246,9 @@ __device__ __forceinline__ TileOut guided_tile(const Row& row, float px,
   float total = 0.0f;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const float w = lw[k] > 0.5f * NEG ? expf(fmaxf(lw[k] - lref, -80.0f)) : 0.0f;
-    lw[k] = w;
+    const float lwk = sl.lw(k);
+    const float w = lwk > 0.5f * NEG ? expf(fmaxf(lwk - lref, -80.0f)) : 0.0f;
+    sl.lw(k) = w;
     total += w;
   }
   const float inv_total = cond_valid ? 1.0f / fmaxf(total, 1e-38f) : 0.0f;
@@ -170,22 +258,21 @@ __device__ __forceinline__ TileOut guided_tile(const Row& row, float px,
   int sel = 0;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const float ln = sqrtf(fmaxf(tm0[k] * tm0[k] + tm1[k] * tm1[k], 0.0f));
-    lw[k] = ln < PI_F ? lw[k] * inv_total : 0.0f;
-    cdf += lw[k];
+    const float a = sl.tm0(k), b = sl.tm1(k);
+    const float ln = sqrtf(fmaxf(a * a + b * b, 0.0f));
+    const float w = ln < PI_F ? sl.lw(k) * inv_total : 0.0f;
+    sl.lw(k) = w;
+    cdf += w;
     sel += u_sel > cdf ? 1 : 0;
   }
   sel = min(sel, K - 1);
-  float sel_tm0 = 0.0f, sel_tm1 = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    sel_tm0 = k == sel ? tm0[k] : sel_tm0;
-    sel_tm1 = k == sel ? tm1[k] : sel_tm1;
-  }
-  const int bs = sel * RPK;
+  float sel_tm0, sel_tm1;
+  sl.sel_tm(sel, &sel_tm0, &sel_tm1);
+  float sc[6];
+  row.pass4(sel, sc);
   float smu[3];
-  cond_mean(sel_tm0, sel_tm1, row(bs + 16), row(bs + 17), row(bs + 18), smu);
-  const float sc00 = row(bs + 19), sc10 = row(bs + 20), sc11 = row(bs + 21);
+  cond_mean(sel_tm0, sel_tm1, sc[0], sc[1], sc[2], smu);
+  const float sc00 = sc[3], sc10 = sc[4], sc11 = sc[5];
 
   // ---- Box-Muller sample in the selected component's tangent frame ----
   const float r = sqrtf(fmaxf(0.0f, -2.0f * logf(1.0f - fminf(u_r, 1.0f - 1e-7f))));
@@ -211,17 +298,19 @@ __device__ __forceinline__ TileOut guided_tile(const Row& row, float px,
   float pdf_g = 0.0f, pdf_b = 0.0f;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int b = k * RPK;
+    float c[6];
+    row.pass4(k, c);
     float mu[3], fs[3], ft[3];
-    cond_mean(tm0[k], tm1[k], row(b + 16), row(b + 17), row(b + 18), mu);
+    cond_mean(sl.tm0(k), sl.tm1(k), c[0], c[1], c[2], mu);
     coordinate_system(mu[0], mu[1], mu[2], fs, ft);
-    const float c00 = row(b + 19), c10 = row(b + 20), c11 = row(b + 21);
+    const float c00 = c[3], c10 = c[4], c11 = c[5];
     const float i00 = 1.0f / c00;
     const float i11 = 1.0f / c11;
     const float i10 = -c10 * i00 * i11;
     const float inv_det = i00 * i11;
-    pdf_g += lw[k] * log_map_pdf(fs, ft, mu, gx, gy, gz, i00, i10, i11, inv_det);
-    pdf_b += lw[k] * log_map_pdf(fs, ft, mu, bx, by, bz, i00, i10, i11, inv_det);
+    const float lwk = sl.lw(k);
+    pdf_g += lwk * log_map_pdf(fs, ft, mu, gx, gy, gz, i00, i10, i11, inv_det);
+    pdf_b += lwk * log_map_pdf(fs, ft, mu, bx, by, bz, i00, i10, i11, inv_det);
   }
 
   out.d[0] = gx;
@@ -230,8 +319,18 @@ __device__ __forceinline__ TileOut guided_tile(const Row& row, float px,
   out.pdf_g = pdf_g;
   out.pdf_b = pdf_b;
   out.cond_valid = cond_valid;
-  out.init = row(NROWS - 1) > 0.5f;
+  out.init = row.init() > 0.5f;
   return out;
+}
+
+// guided_tile with the lane's slots in registers.
+template <class Row>
+__device__ __forceinline__ TileOut guided_tile(const Row& row, float px,
+                                               float py, float pz, float bx,
+                                               float by, float bz, float u_sel,
+                                               float u_r, float u_th) {
+  RegSlots sl;
+  return guided_tile(row, sl, px, py, pz, bx, by, bz, u_sel, u_r, u_th);
 }
 
 }  // namespace guided

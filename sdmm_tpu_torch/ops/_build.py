@@ -129,3 +129,22 @@ def check(rc: int, name: str):
     """Raise on a non-zero ``cudaError_t`` returned by a launch function."""
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {rc}")
+
+
+def kernel_info(name: str, symbol: str, kernels,
+                arg: int = 0) -> dict[str, dict[str, int]]:
+    """Per kernel of ``csrc/<name>.cu``: registers, spilled (local) bytes,
+    static shared bytes and resident blocks an SM, from the source's
+    ``symbol(int which, int arg, int* info)``, which fills four ints for
+    kernel number ``which`` of ``kernels`` (``arg``: what the launch's
+    dynamic shared memory depends on, if anything)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for which, kernel in enumerate(kernels):
+        info = (ctypes.c_int * 4)()
+        check(fn(which, arg, ctypes.cast(info, ctypes.c_void_p)), symbol)
+        out[kernel] = dict(zip(("registers", "spill_bytes", "shared_bytes",
+                                "blocks_per_sm"), info))
+    return out

@@ -375,8 +375,8 @@ def bounce_core_plain(sv, m, rnd, tri_rows, em_rows, env_row, n_em: int,
     ``bounce_core``; the reference's ``_make_core``): sv [14, N] lane state,
     m [N] meta, rnd [7, N] uniforms. Returns (new state [16, N], new meta
     [N] int32, splat [8, N]). ``stats``, a dict, receives the number of
-    NEE candidates (the lanes whose occlusion sweep the kernel runs) and
-    each lane's BSDF type (-1 off a surface)."""
+    NEE candidates (the lanes whose occlusion sweep the kernel runs), the
+    candidate mask [N] and each lane's BSDF type (-1 off a surface)."""
     multi, has_cond, has_diel, has_rc = _type_flags(types)
     (rox, roy, roz, rdx, rdy, rdz, thr_r, thr_g, thr_b, li_r, li_g, li_b,
      eta2, ppdf) = sv[0:14]
@@ -525,6 +525,7 @@ def bounce_core_plain(sv, m, rnd, tri_rows, em_rows, env_row, n_em: int,
                    ldx, ldy, ldz, dist * (1.0 - 1e-3), tri_rows)
     if stats is not None:
         stats["nee_candidates"] = int(cand.sum())
+        stats["nee_mask"] = cand
         stats["lane_type"] = torch.where(on_surface, b_ty.long(), -1)
     w_nee = mi_weight(pdf_sa, pdf_b_nee)
     scale = torch.where(cand & ~occ, w_nee / pdf_sa.clamp_min(1e-20), 0.0)
@@ -827,6 +828,14 @@ def bounce(state, meta, rand, tri_rows, em_rows, env_row, n_em: int,
         _build.check(rc, "bounce")
         bounce.launches += 1
     return nstate, nmeta, splat
+
+
+def kernel_info(n_cols: int) -> dict[str, dict[str, int]]:
+    """Registers, spilled (local) bytes, static shared bytes and resident
+    blocks an SM of the step and bounce kernels, as built, at the dynamic
+    shared memory of an ``n_cols``-column triangle table."""
+    return _build.kernel_info("bounce", "bounce_info", ("step", "bounce"),
+                              n_cols)
 
 
 step.launches = 0

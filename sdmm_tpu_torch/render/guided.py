@@ -382,7 +382,8 @@ def render_pool_guided_fused(
 ):
     """Frozen-model guided render on the fused kernels: per pool step,
     regenerate dead lanes, ``trace``, leaf lookup, ``shade`` on the bf16
-    conditioning table. The same estimator as ``render_pool_guided``
+    conditioning table (packed for the kernel once, here). The same
+    estimator as ``render_pool_guided``
     (the pdf in the MIS weight comes from the same rounded rows the sample
     was drawn from, so it stays unbiased); callers pass
     ``guided_fused_supported`` scenes. Returns the same dict (without
@@ -400,7 +401,7 @@ def render_pool_guided_fused(
     total = n_pix * spp
     N = n_lanes
     tri_rows, _, env_row = bo.build_tables(scene)
-    kt16 = gs.kernel_table.to(torch.bfloat16).contiguous()
+    shade_table = gst.pack_shade_table(gs.kernel_table)
     types = tuple(bsdf_types)
 
     film = torch.zeros((n_pix, 7), device=dev)
@@ -454,7 +455,7 @@ def render_pool_guided_fused(
             c_pos = canonical(gs, hit[0:3].T)
             leaf = stree.find_leaf(gs.tables, c_pos).to(torch.int32)
             state, meta, splat = gst.shade(
-                state, meta, hit, c_pos.T.contiguous(), leaf, kt16,
+                state, meta, hit, c_pos.T.contiguous(), leaf, shade_table,
                 rnd[2:].contiguous(), types, max_depth, rr_depth,
                 bsdf_fraction)
             sums = sums + splat[7:10].sum(dim=1, dtype=torch.float64)

@@ -178,14 +178,14 @@ def test_shade_kernel_matches_twin(cuda, n):
     st, hit = gst.trace_plain(state, meta, tri, env, types)
     L = 64
     sdmm, init = _state(9, L, cuda)
-    table16 = gso.pack_guided_rows(mix.prepare(sdmm), sdmm.weight, init).T \
-        .to(torch.bfloat16).contiguous()
+    table = gso.pack_guided_rows(mix.prepare(sdmm), sdmm.weight, init).T
+    table16 = table.to(torch.bfloat16).contiguous()
     leaf = torch.as_tensor(np.random.RandomState(3).randint(0, L, n)
                            .astype(np.int32), device=cuda)
     cpos = ((hit[0:3].T - scene.aabb_lo) / 2.0).T.contiguous()
     before = gst.shade.launches
-    out_k = gst.shade(st, meta, hit, cpos, leaf, table16, rand, types, 10, 5,
-                      0.5)
+    out_k = gst.shade(st, meta, hit, cpos, leaf, gst.pack_shade_table(table),
+                      rand, types, 10, 5, 0.5)
     torch.cuda.synchronize()
     assert gst.shade.launches == before + 1
     out_p = gst.shade_plain(st, meta, hit, cpos,
@@ -198,15 +198,49 @@ def test_shade_kernel_matches_twin(cuda, n):
     assert int(out_p[2][9].sum()) > 0  # guided samples were drawn
 
 
+# The shade kernel on 2,048 leaves of the packed table: lanes on random
+# leaves (a gather of up to 32 rows a warp) and every lane on one leaf.
+@pytest.mark.parametrize("leaves", ["random", "one"])
+def test_shade_kernel_on_2048_leaves(cuda, leaves):
+    n, L = 50_003, 2048
+    scene, types, tri, env, state, meta, rand = _wave(cuda, n, 13)
+    st, hit = gst.trace_plain(state, meta, tri, env, types)
+    sdmm, init = _state(14, L, cuda)
+    table = gso.pack_guided_rows(mix.prepare(sdmm), sdmm.weight, init).T
+    rs = np.random.RandomState(15)
+    leaf = rs.randint(0, L, n) if leaves == "random" else np.full(
+        n, int(init.nonzero()[0]))
+    leaf = torch.as_tensor(leaf.astype(np.int32), device=cuda)
+    cpos = ((hit[0:3].T - scene.aabb_lo) / 2.0).T.contiguous()
+    out_k = gst.shade(st, meta, hit, cpos, leaf, gst.pack_shade_table(table),
+                      rand, types, 10, 5, 0.5)
+    torch.cuda.synchronize()
+    rows_t = table.to(torch.bfloat16)[leaf.long()].T.float()
+    out_p = gst.shade_plain(st, meta, hit, cpos, rows_t, rand, types, 10, 5,
+                            0.5)
+    for ok in (torch.isclose(out_k[0], out_p[0], rtol=2e-4, atol=1e-5,
+                             equal_nan=True).all(0),
+               out_k[1] == out_p[1], (out_k[2] == out_p[2]).all(0)):
+        assert float(ok.float().mean()) >= 0.998
+    assert int(out_p[2][9].sum()) > n // 8  # guided samples were drawn
+
+
 def test_guided_step_wrappers_reject_bad_inputs(cuda):
     _, types, tri, env, state, meta, rand = _wave(cuda, 256, 7)
     with pytest.raises(ValueError):
         gst.trace(state, meta.long(), tri, env, types)  # meta not int32
-    table = torch.zeros((4, gso.N_ROWS), device=cuda)  # not bf16
-    with pytest.raises(ValueError):
-        gst.shade(state, meta, torch.zeros((gst.HIT_ROWS, 256), device=cuda),
-                  state[0:3].contiguous(), meta, table, rand, types, 10, 5,
-                  0.5)
+    hit = torch.zeros((gst.HIT_ROWS, 256), device=cuda)
+    cpos = state[0:3].contiguous()
+    packed = torch.zeros((5, gst.SHADE_COLS), dtype=torch.bfloat16,
+                         device=cuda)
+    for table in (torch.zeros((4, gst.SHADE_COLS), device=cuda),  # not bf16
+                  torch.zeros((4, gso.N_ROWS), dtype=torch.bfloat16,
+                              device=cuda),  # the unpacked [L, 353] rows
+                  packed.view(-1)[4:4 + 4 * gst.SHADE_COLS]
+                  .view(4, gst.SHADE_COLS)):  # off a 16-byte boundary
+        with pytest.raises(ValueError):
+            gst.shade(state, meta, hit, cpos, meta, table, rand, types, 10,
+                      5, 0.5)
 
 
 def _path_setup(cuda, n, seed, tiled=False):
@@ -287,6 +321,78 @@ def test_bounce_kernel_matches_twin(cuda, n, skip):
     _agree([(out[0], ref[0], False), (out[1], ref[1], True),
             (out[2], ref[2], False)])
     assert int(ref[2][6].sum()) > 100 and int(ref[2][7].sum()) > n // 4
+
+
+# Past STAGE_MAX triangles (csrc/bounce.cu) the kernels sweep the Woop rows
+# in chunks staged per sweep: both path kernels on a 2,172-triangle scene.
+def test_path_kernels_past_the_staging_budget(cuda):
+    scene, cfg = make_sphere_box(tscene, tshapes, 16, 16).build(device=cuda)
+    tri, em, env = bo.build_tables(scene)
+    assert tri.shape[1] > 1024
+    n_em = int(scene.em_tri_idx.shape[0])
+    cam = bo.build_cam_params(scene, 16, 16)
+    state, meta, film, pxpy, rand = (torch.as_tensor(a, device=cuda) for a
+                                     in path_wave(8_192, 16, max_depth=10))
+    ones = torch.ones(8_192 // bo.lane_tile(tri.shape[1]), dtype=torch.int32,
+                      device=cuda)
+    args = (cam, (3, 4), pxpy, tri, em, env, n_em, 10, 5, cfg.bsdf_types,
+            16, 16)
+    stats = {}
+    ref = bo.step_plain(state, meta, film, ones, *args, stats=stats)
+    out = bo.step(*(x.clone() for x in (state, meta, film)), ones, *args)
+    rand8 = rand[:bo.RAND_ROWS].contiguous()
+    ref_b = bo.bounce_plain(state, meta, rand8, tri, em, env, n_em, 10, 5,
+                            cfg.bsdf_types)
+    out_b = bo.bounce(state, meta, rand8, tri, em, env, n_em, 10, 5,
+                      cfg.bsdf_types)
+    torch.cuda.synchronize()
+    for o, r in ((out, ref), (out_b, ref_b)):
+        _agree([(o[0], r[0], False), (o[1], r[1], True),
+                (o[2], r[2], False)])
+    assert stats["nee_candidates"] > 1000
+
+
+def _nee_wave(cuda, n, seed):
+    """Lanes at depth 0 above the box's floor, heading down: each hits the
+    diffuse floor in view of the ceiling light, so every lane is an NEE
+    candidate below depth max_depth - 1."""
+    rs = np.random.RandomState(seed)
+    state = np.zeros((16, n), np.float32)
+    state[0] = rs.uniform(-0.7, 0.7, n)
+    state[1] = rs.uniform(0.5, 1.5, n)
+    state[2] = rs.uniform(-0.7, 0.5, n)  # the box is open toward +z
+    d = np.stack([rs.uniform(-0.2, 0.2, n), -np.ones(n),
+                  rs.uniform(-0.2, 0.2, n)])
+    state[3:6] = d / np.linalg.norm(d, axis=0)
+    state[6:9] = 1.0
+    state[12:14] = 1.0
+    meta = (np.arange(n) % 256) | bo._ALIVE
+    return (torch.as_tensor(state, device=cuda),
+            torch.as_tensor(meta.astype(np.int32), device=cuda),
+            torch.as_tensor(rs.rand(bo.RAND_ROWS, n).astype(np.float32),
+                            device=cuda))
+
+
+# The block's shadow-ray queue when it is empty and when it is full:
+# max_depth 1 gates every lane's NEE off, max_depth 10 leaves every lane of
+# the wave above a candidate.
+@pytest.mark.parametrize("max_depth,share", [(1, 0.0), (10, 1.0)])
+def test_bounce_kernel_nee_queue_empty_and_full(cuda, max_depth, share):
+    scene, cfg = make_box(tscene, tshapes, 16, 16).build(device=cuda)
+    tri, em, env = bo.build_tables(scene)
+    n_em = int(scene.em_tri_idx.shape[0])
+    state, meta, rand = _nee_wave(cuda, 4_099, 17)
+    stats = {}
+    ref = bo.bounce_plain(state, meta, rand, tri, em, env, n_em, max_depth,
+                          5, cfg.bsdf_types, stats=stats)
+    out = bo.bounce(state, meta, rand, tri, em, env, n_em, max_depth, 5,
+                    cfg.bsdf_types)
+    torch.cuda.synchronize()
+    assert stats["nee_candidates"] == int(share * 4_099)
+    _agree([(out[0], ref[0], False), (out[1], ref[1], True),
+            (out[2], ref[2], False)])
+    if share:  # the candidates' light reached the film
+        assert float(ref[0][9:12].sum()) > 0.0
 
 
 def test_path_wrappers_reject_bad_inputs(cuda):

@@ -37,7 +37,9 @@ from torch_parity import (  # noqa: E402
     jax_scene_arrays, lane_wave, make_box, make_mixture_state, to_np,
 )
 
+from sdmm_tpu.guiding import mixture as jmix  # noqa: E402
 from sdmm_tpu.ops import bounce_pallas as bp  # noqa: E402
+from sdmm_tpu.ops import guided_pallas as jgp  # noqa: E402
 from sdmm_tpu.ops import guided_step_pallas as gsp  # noqa: E402
 from sdmm_tpu.render import guided as jguided  # noqa: E402
 from sdmm_tpu.scene import scene as jscene  # noqa: E402
@@ -287,8 +289,8 @@ def test_shade_twin_matches_reference_kernel(kernels):
     st, meta, splat = gst.shade(
         torch.as_tensor(k["st_j"]), torch.as_tensor(k["meta"]),
         torch.as_tensor(k["hit_j"]), torch.as_tensor(k["cpos"]),
-        torch.as_tensor(k["leaf"]), k["table16"], torch.as_tensor(k["rand"]),
-        TYPES, MAX_DEPTH, RR_DEPTH, FRACTION)
+        torch.as_tensor(k["leaf"]), gst.pack_shade_table(k["table16"]),
+        torch.as_tensor(k["rand"]), TYPES, MAX_DEPTH, RR_DEPTH, FRACTION)
     st_r, meta_r, splat_r = k["shade_j"]
     st, meta, splat = to_np(st), to_np(meta), to_np(splat)
     assert meta.dtype == np.int32 and splat.shape == (gst.SPLAT_ROWS, N)
@@ -305,6 +307,68 @@ def test_shade_twin_matches_reference_kernel(kernels):
     for name, ok in (("state", ok_state), ("meta", ok_meta),
                      ("splat", ok_splat)):
         assert ok.mean() >= 0.998, (name, ok.mean(), np.nonzero(~ok)[0][:8])
+
+
+def _reference_table(L, seed):
+    """The reference's pack_guided_rows of a seeded mixture state, carried
+    to the port as numpy (convert's array bridge): [L, N_ROWS] float32."""
+    ms = make_mixture_state(seed=seed, L=L)
+    js = jmix.SDMM(weight=jnp.asarray(ms["weight"]),
+                   mean=jnp.asarray(ms["mean"]), cov=jnp.asarray(ms["cov"]))
+    rows = jgp.pack_guided_rows(jmix.prepare(js), js.weight,
+                                jnp.asarray(ms["initialized"]))
+    return torch.as_tensor(convert._np(rows).T.copy()), ms["initialized"]
+
+
+def test_pack_shade_table_round_trips_reference_rows():
+    L = 64
+    table, initialized = _reference_table(L, seed=4)
+    t16 = table.to(torch.bfloat16)
+    packed = gst.pack_shade_table(table)
+    assert packed.dtype == torch.bfloat16
+    assert packed.shape == (L, gst.SHADE_COLS) and packed.is_contiguous()
+    # Every row and every component's three words start on 16 bytes.
+    assert (gst.SHADE_COLS * 2) % 16 == 0 and (gst.SHADE_STRIDE * 2) % 16 == 0
+    bits = packed.view(torch.int16)
+    assert torch.equal(gst.unpack_shade_table(packed).view(torch.int16),
+                       t16.view(torch.int16))
+    comp = bits.reshape(L, gso.K, gst.SHADE_STRIDE)
+    ref = t16.view(torch.int16)
+    # The kernel's blocks: values 0-15 (two words) and 16-21 (one word).
+    assert torch.equal(comp[:, :, :16].reshape(L, -1),
+                       ref[:, :gso.K * 22].reshape(L, gso.K, 22)[:, :, :16]
+                       .reshape(L, -1))
+    assert torch.equal(comp[:, :, 16:22],
+                       ref[:, :gso.K * 22].reshape(L, gso.K, 22)[:, :, 16:])
+    # The init flag in component 0's first pad; every other pad is 0.
+    assert torch.equal(comp[:, 0, gst.SHADE_INIT], ref[:, gso.N_ROWS - 1])
+    assert torch.equal(packed.float()[:, gst.SHADE_INIT] > 0.5,
+                       torch.as_tensor(initialized))
+    pads = comp[:, :, 22:].clone()
+    pads[:, 0, 0] = 0
+    assert not pads.any()
+
+
+def test_shade_on_packed_table_equals_shade_on_rows():
+    _, ts, tcfg = _scenes(True)
+    tri, _, env = bo.build_tables(ts)
+    n, L = 2048, 64
+    state, meta, rand = (torch.as_tensor(a) for a in
+                         lane_wave(n, seed=12, max_depth=MAX_DEPTH))
+    st, hit = gst.trace(state, meta, tri, env, TYPES)
+    table, _ = _reference_table(L, seed=5)
+    leaf = torch.as_tensor(np.random.RandomState(6).randint(0, L, n)
+                           .astype(np.int32))
+    cpos = ((hit[0:3].T - ts.aabb_lo) / 2.0).T.contiguous()
+    packed = gst.shade(st, meta, hit, cpos, leaf,
+                       gst.pack_shade_table(table), rand, TYPES, MAX_DEPTH,
+                       RR_DEPTH, FRACTION)
+    rows = gst.shade_plain(st, meta, hit, cpos,
+                           table.to(torch.bfloat16)[leaf.long()].T.float(),
+                           rand, TYPES, MAX_DEPTH, RR_DEPTH, FRACTION)
+    for a, b in zip(packed, rows):  # bit for bit, NaN radiance included
+        assert bool(((a == b) | (a.isnan() & b.isnan())).all())
+    assert 0 < int(rows[2][9].sum())  # guided samples were drawn
 
 
 @pytest.fixture(scope="module")
