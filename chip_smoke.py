@@ -6,15 +6,20 @@ plain PyTorch twin.
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit, torch/CUDA versions; build every CUDA
      kernel from csrc/ (one nvcc per source, all started together).
-  2. guided_sample: kernel vs plain twin at the main path's shapes
-     (2048-leaf table, 131,072 lanes); times by CUDA events.
+  2. guided_sample: kernel vs plain twin at the main path's shapes (the
+     packed float32 table of 2048 leaves, pack_sample_table, checked to
+     hold the rows bit for bit; 131,072 lanes), on uniformly random leaves
+     and with every lane on one leaf; times of both by CUDA-graph replays;
+     the kernel's registers, spills and resident blocks an SM.
   3. EM sufficient statistics: kernel vs plain twin at 2048 leaves and
      2.8 M samples; times by CUDA events.
   4. the fused guided bounce: trace and shade kernels vs their plain twins
      at 131,072 lanes on the Cornell box and on the four-type box (every
      in-kernel BSDF type), shade on the packed bf16 table of 2048 leaves
      (pack_shade_table, checked to hold the twin's bf16 rows bit for bit);
-     the twin's hit buffer feeds both shade calls. Kernel and twin may
+     the twin's hit buffer feeds both shade calls; trace also on the
+     Cornell box plus one sphere (1,024 triangle columns, past its
+     shared-memory staging budget). Kernel and twin may
      disagree on 1e-4 of all lanes and on 1e-3 of each BSDF type's lanes.
      Times by CUDA events on the Cornell box, shade on uniformly random
      leaves and with every lane on one leaf; the registers, spills and
@@ -69,10 +74,12 @@ Phases (any failure raises and the script exits non-zero):
      samples on every pixel, clas_cull launched for intersect and occluded
      on every step) and SDMMTrainer(...).run at 32 spp with
      tail_chunk_spp=8 (2 training iterations, 3 frozen ones on the eager
-     guided pool): the guided image mean within 5% of the path row's, the
-     valid-conditional share of the frozen tail > 0.5.
+     guided pool, guided_sample's launches read around it): the guided
+     image mean within 5% of the path row's, the valid-conditional share
+     of the frozen tail > 0.5.
 Phases 5 and 6 also read mt_sweep's launches: the training iterations and
-the eager render_pool intersect through it.
+the eager render_pool intersect through it. guided_sample's launch count
+is the sum of phases 5 and 7.
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last the {"ok": true, "device": ...} line.
 """
@@ -254,66 +261,82 @@ def phase_guided(dev):
     L, N = 2048, 131_072
     sdmm, prep, init = mixture_state(L, 3, dev)
     table = gso.pack_guided_rows(prep, sdmm.weight, init).T.contiguous()
+    # The kernel reads the packed float32 table, which holds the rows bit
+    # for bit.
+    packed = gso.pack_sample_table(table)
+    check(torch.equal(gso.unpack_sample_table(packed), table),
+          "guided_sample: the packed table does not round-trip the rows")
     rs = np.random.RandomState(11)
-    leaf = torch.as_tensor(rs.randint(0, L, size=N).astype(np.int32),
-                           device=dev)
+    leaf_r = torch.as_tensor(rs.randint(0, L, size=N).astype(np.int32),
+                             device=dev)
     pos = torch.as_tensor(rs.rand(N, 3).astype(np.float32), device=dev)
     wob = rs.randn(N, 3).astype(np.float32)
     wob = torch.as_tensor(wob / np.linalg.norm(wob, axis=-1, keepdims=True),
                           device=dev)
     u = torch.as_tensor(rs.rand(N, 3).astype(np.float32), device=dev)
+    # Every lane on one leaf: the table gather at its most coherent.
+    leaf_1 = torch.full_like(leaf_r, int(init.nonzero()[0]))
+    errs, times = [], {}
+    for leaves, leaf in (("random", leaf_r), ("one", leaf_1)):
+        dk, okk, pgk, pbk, vk = gso.guided_sample(packed, leaf, pos, wob, u)
+        rows_t = table[leaf.long()].T
+        dp, okp, pgp, pbp, vp = gso.guided_sample_plain(rows_t, pos.T, wob.T,
+                                                        u.T)
+        torch.cuda.synchronize()
+        what = f"guided_sample [{leaves} leaves]"
+        check(torch.isfinite(dk).all() and torch.isfinite(pgk).all()
+              and torch.isfinite(pbk).all(), f"{what}: non-finite output")
+        check(bool((vk == vp).all()), f"{what}: guide_valid differs")
+        m = vk
+        check(int(m.sum()) > N // 2, f"{what}: comparison is vacuous")
+        err_d = (dk - dp.T).abs().max(-1).values[m]
+        errs.append(float(err_d.max()))
+        # A conditional mean with mu_dir.z at an ulp of 0 flips the Duff-
+        # frame sign branch, and a u_sel within an ulp of a CDF step picks
+        # the neighbour component: measure-zero knife edges, allowed up to
+        # 0.2% of the lanes (the reference's own parity bound).
+        out_d = float((err_d > 1e-4).float().mean())
+        pb_close = torch.isclose(pbk[m], pbp[m], rtol=2e-3, atol=1e-5)
+        pg_close = torch.isclose(pgk[m], pgp[m], rtol=2e-3, atol=1e-5)
+        print(f"{what}: valid {int(m.sum())}/{N}, max|dir err| "
+              f"{errs[-1]:.3g} (share > 1e-4: {out_d:.2e}), pdf_b close "
+              f"{float(pb_close.float().mean()):.6f}, pdf_g close "
+              f"{float(pg_close.float().mean()):.6f}", flush=True)
+        check(out_d <= 0.002, f"{what}: directions disagree")
+        check(float(pb_close.float().mean()) > 0.998, f"{what}: pdf_b")
+        check(float(pg_close.float().mean()) > 0.998, f"{what}: pdf_g")
+        check(bool((okk[m] == okp[m]).float().mean() > 0.998),
+              f"{what}: g_ok")
+        # A float64 evaluation of the twin judges the two float32 versions:
+        # near a component's antipode the log map's 1 - cos^2 cancels, and
+        # the kernel's fused multiply-adds round it otherwise than the twin
+        # does.
+        _, _, pg64, pb64, _ = gso.guided_sample_plain(
+            rows_t.double(), pos.T.double(), wob.T.double(), u.T.double())
 
-    dk, okk, pgk, pbk, vk = gso.guided_sample(table, leaf, pos, wob, u)
-    rows_t = table[leaf.long()].T
-    dp, okp, pgp, pbp, vp = gso.guided_sample_plain(rows_t, pos.T, wob.T, u.T)
-    torch.cuda.synchronize()
-    check(torch.isfinite(dk).all() and torch.isfinite(pgk).all()
-          and torch.isfinite(pbk).all(), "guided_sample: non-finite output")
-    check(bool((vk == vp).all()), "guided_sample: guide_valid differs")
-    m = vk
-    check(int(m.sum()) > N // 2, "guided_sample: comparison is vacuous")
-    err_d = (dk - dp.T).abs().max(-1).values[m]
-    max_abs_err = float(err_d.max())
-    # A conditional mean with mu_dir.z at an ulp of 0 flips the Duff-frame
-    # sign branch, and a u_sel within an ulp of a CDF step picks the
-    # neighbour component: measure-zero knife edges, allowed up to 0.2% of
-    # the lanes (the reference's own parity bound).
-    out_d = float((err_d > 1e-4).float().mean())
-    pb_close = torch.isclose(pbk[m], pbp[m], rtol=2e-3, atol=1e-5)
-    pg_close = torch.isclose(pgk[m], pgp[m], rtol=2e-3, atol=1e-5)
-    print(f"guided_sample: valid {int(m.sum())}/{N}, max|dir err| "
-          f"{max_abs_err:.3g} (share > 1e-4: {out_d:.2e}), pdf_b close "
-          f"{float(pb_close.float().mean()):.6f}, pdf_g close "
-          f"{float(pg_close.float().mean()):.6f}", flush=True)
-    check(out_d <= 0.002, "guided_sample: directions disagree")
-    check(float(pb_close.float().mean()) > 0.998, "guided_sample: pdf_b")
-    check(float(pg_close.float().mean()) > 0.998, "guided_sample: pdf_g")
-    check(bool((okk[m] == okp[m]).float().mean() > 0.998), "guided: g_ok")
-    # A float64 evaluation of the twin judges the two float32 versions: near
-    # a component's antipode the log map's 1 - cos^2 cancels, and the
-    # kernel's fused multiply-adds round it otherwise than the twin does.
-    _, _, pg64, pb64, _ = gso.guided_sample_plain(
-        rows_t.double(), pos.T.double(), wob.T.double(), u.T.double())
+        def off(a, ref):
+            return float((~torch.isclose(a[m].double(), ref[m], rtol=2e-3,
+                                         atol=1e-5)).float().mean())
 
-    def off(a, ref):
-        return float((~torch.isclose(a[m].double(), ref[m], rtol=2e-3,
-                                     atol=1e-5)).float().mean())
-
-    offs = {"kernel": (off(pgk, pg64), off(pbk, pb64)),
-            "twin": (off(pgp, pg64), off(pbp, pb64))}
-    print("guided_sample: share of pdfs off float64 beyond rtol 2e-3 "
-          "(pdf_g, pdf_b): " + ", ".join(
-              f"{k} {g:.2e} {b:.2e}" for k, (g, b) in offs.items()),
-          flush=True)
-    for j in range(2):
-        check(offs["kernel"][j] <= offs["twin"][j] + 1e-3,
-              "guided_sample: kernel pdfs less accurate than the twin's")
-
-    ms = time_ms(lambda: gso.guided_sample(table, leaf, pos, wob, u),
-                 reps=20, graph=True)
+        offs = {"kernel": (off(pgk, pg64), off(pbk, pb64)),
+                "twin": (off(pgp, pg64), off(pbp, pb64))}
+        print(f"{what}: share of pdfs off float64 beyond rtol 2e-3 "
+              "(pdf_g, pdf_b): " + ", ".join(
+                  f"{k} {g:.2e} {b:.2e}" for k, (g, b) in offs.items()),
+              flush=True)
+        for j in range(2):
+            check(offs["kernel"][j] <= offs["twin"][j] + 1e-3,
+                  f"{what}: kernel pdfs less accurate than the twin's")
+        times[leaves] = time_ms(
+            lambda: gso.guided_sample(packed, leaf, pos, wob, u), reps=20,
+            graph=True)
+    ms = times["random"]
+    print(f"guided_sample: {ms:.4f} ms on uniformly random leaves of {L}, "
+          f"{times['one']:.4f} ms with every lane on one leaf", flush=True)
+    print_kernel_info(gso.kernel_info())
     plain_ms = time_ms(lambda: gso.guided_sample_plain(
-        table[leaf.long()].T, pos.T, wob.T, u.T), reps=20)
-    bytes_ = L * gso.N_ROWS * 4 + N * (4 + 3 * 12) + N * (12 + 16)
+        table[leaf_r.long()].T, pos.T, wob.T, u.T), reps=20)
+    bytes_ = packed.numel() * 4 + N * (4 + 3 * 12) + N * (12 + 16)
     t_bytes = bytes_ / PEAK_BYTES * 1e3
     t_ops = N * GUIDED_OPS_PER_LANE / PEAK_FP32 * 1e3
     print(f"guided_sample: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -322,7 +345,7 @@ def phase_guided(dev):
     return {"name": "guided_sample", "route": "cuda",
             "source": "sdmm_tpu_torch/csrc/guided_sample.cu",
             "replaces": "sdmm_tpu/ops/guided_pallas.py:344",
-            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": None}
@@ -475,8 +498,9 @@ def cornell_box(width, height, dev, extra_bsdfs=False, spheres=()):
 
 def phase_guided_step(dev, width=640, height=360):
     """trace and shade against their twins on the Cornell box and the
-    four-type box; returns the two kernels' entries, measured on the
-    Cornell box (the main path's scene)."""
+    four-type box, trace also on the box plus one sphere (past its staging
+    budget); returns the two kernels' entries, measured on the Cornell box
+    (the main path's scene)."""
     from sdmm_tpu_torch.ops import bounce as bo
     from sdmm_tpu_torch.ops import guided_sample as gso
     from sdmm_tpu_torch.ops import guided_step as gst
@@ -489,11 +513,17 @@ def phase_guided_step(dev, width=640, height=360):
     table16 = table.to(torch.bfloat16)
     # shade's packed table holds the same bf16 values as the twin's rows.
     shade_table = gst.pack_shade_table(table)
-    check(torch.equal(gst.unpack_shade_table(shade_table), table16),
+    check(torch.equal(gso.unpack_sample_table(shade_table), table16),
           "shade: the packed table does not round-trip the bf16 rows")
     entries = {}
-    for scene_name, extra in (("cornell", False), ("four-type", True)):
-        scene, cfg = cornell_box(width, height, dev, extra_bsdfs=extra)
+    # The third scene, the box plus one sphere (1,024 triangle columns),
+    # takes trace past its shared-memory staging budget (csrc/
+    # woop_stage.cuh STAGE_MAX): the Woop rows are staged in chunks.
+    sphere = [([0.0, 1.0, 0.3], 0.35, 16, 32)]
+    for extra, (scene_name, kw) in enumerate((
+            ("cornell", {}), ("four-type", {"extra_bsdfs": True}),
+            ("past the staging budget", {"spheres": sphere}))):
+        scene, cfg = cornell_box(width, height, dev, **kw)
         types = cfg.bsdf_types
         tri, _, env = bo.build_tables(scene)
         state, meta, rand = (
@@ -523,6 +553,10 @@ def phase_guided_step(dev, width=640, height=360):
         check(all(n_types[t] > 0 for t in types), "trace: a BSDF type was "
               "never hit")
         agreement("trace, all rows within rtol 1e-5", ok_t, groups)
+        if scene_name == "past the staging budget":
+            print_kernel_info(gst.kernel_info(tri.shape[1]),
+                              f" [{tri.shape[1]} triangle columns]")
+            continue
 
         # Shade from the twin's hit buffer, so errors do not compound.
         rs = np.random.RandomState(31 + extra)
@@ -568,7 +602,8 @@ def phase_guided_step(dev, width=640, height=360):
                                           rr_depth, frac), reps=20, graph=True)
         print(f"shade: {ms_s:.4f} ms on uniformly random leaves of {L}, "
               f"{ms_s1:.4f} ms with every lane on one leaf", flush=True)
-        print_kernel_info(gst.kernel_info())
+        print_kernel_info(gst.kernel_info(tri.shape[1]),
+                          f" [{tri.shape[1]} triangle columns]")
         plain_s = time_ms(lambda: gst.shade_plain(
             st_p, meta, hit_p, cpos, table16[leaf.long()].T.float(), rand,
             types, max_depth, rr_depth, frac), reps=5)
@@ -1248,9 +1283,12 @@ def phase_cull(dev, large, width=640, height=360):
 
 def phase_large_path(dev, scene, cfg, smi, width=640, height=360):
     """The large scene's path row and training render, with clas_cull's
-    launches read around them; returns them."""
+    launches read around both and guided_sample's around the training
+    render (every iteration of it runs the eager guided pool); returns
+    the two counts."""
     from sdmm_tpu_torch.guiding.trainer import SDMMTrainer, TrainerConfig
     from sdmm_tpu_torch.ops import clas_cull as ccull
+    from sdmm_tpu_torch.ops import guided_sample as gso
     from sdmm_tpu_torch.render.wavefront import render_wavefront
 
     ccull.cull.launches = 0
@@ -1283,11 +1321,13 @@ def phase_large_path(dev, scene, cfg, smi, width=640, height=360):
         c = t.counters["avg_found_conditional"]
         snap[st["iteration"]] = (c.value, c.base)
 
+    gso.guided_sample.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     img, iters = tr.run(total_spp=32, on_iteration=on_iteration)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    n_gs = gso.guided_sample.launches
     train = [s for s in tr.stats if s["optimized_nodes_count"] > 0]
     frozen = [s for s in tr.stats if s["optimized_nodes_count"] == 0]
     check(len(iters) == 5 and len(train) == 2,
@@ -1306,13 +1346,14 @@ def phase_large_path(dev, scene, cfg, smi, width=640, height=360):
           f"training iteration, {per_spp:.4f} s per frozen spp, "
           f"valid-conditional share in the tail {tail_share:.4f}, image "
           f"mean {img.mean():.5f} vs the path row's {m_row:.5f} (rel "
-          f"{rel:.4f}); clas_cull launches {ccull.cull.launches} on {smi}",
-          flush=True)
+          f"{rel:.4f}); clas_cull launches {ccull.cull.launches}, "
+          f"guided_sample launches {n_gs} on {smi}", flush=True)
     check(tail_share > 0.5, "large training render: tail conditionals "
           "mostly invalid")
     check(rel < 0.05, "large training render: the guided image disagrees "
           "with the path row")
-    return ccull.cull.launches
+    check(n_gs > 0, "large training render: guided_sample was not launched")
+    return ccull.cull.launches, n_gs
 
 
 def main():
@@ -1349,7 +1390,13 @@ def main():
                phase_cull(dev, large)]
     launches, guided_mean = phase_main_path(dev)
     launches.update(phase_path_row(dev, guided_mean, smi))
-    launches["clas_cull"] = phase_large_path(dev, large, large_cfg, smi)
+    # guided_sample's count sums its two paths: phase 5's training
+    # iterations and phase 7's training and eager frozen iterations.
+    launches["clas_cull"], n_gs = phase_large_path(dev, large, large_cfg,
+                                                   smi)
+    print(f"guided_sample launches: {launches['guided_sample']} in phase 5,"
+          f" {n_gs} in phase 7", flush=True)
+    launches["guided_sample"] += n_gs
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

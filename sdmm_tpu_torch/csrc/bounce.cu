@@ -32,11 +32,12 @@
 // IEEE reciprocal, the update), so the sweeps are bound by instruction
 // issue and its latency, not by bytes:
 // - The Woop rows (0-11 of the table) are staged as [T][12] float rows in
-//   dynamic shared memory, three 16-byte loads a triangle, once per block
-//   for both sweeps while the table fits STAGE_MAX triangles (42 KB, which
-//   keeps four blocks an SM); past it, in TILE-triangle chunks of the same
-//   layout, staged per sweep. Rows past the count, up to a multiple of
-//   UNROLL, are zero: never hit, so the loops have no tail.
+//   dynamic shared memory (woop_stage.cuh, shared with the guided trace
+//   kernel), once per block for both sweeps while the table fits
+//   STAGE_MAX triangles (42 KB, which keeps four blocks an SM); past it,
+//   in TILE-triangle chunks of the same layout, staged per sweep. Rows
+//   past the count, up to a multiple of UNROLL, are zero: never hit, so
+//   the loops have no tail.
 // - The sweeps test UNROLL triangles at a time, independent tests whose
 //   loads and reciprocals may overlap (one H100 run timed 1, 2 and 4
 //   alike); the closest hit then updates in index order with a strict
@@ -74,6 +75,7 @@
 
 #include "bounce_math.cuh"
 #include "philox.cuh"
+#include "woop_stage.cuh"
 
 namespace {
 
@@ -81,9 +83,6 @@ using namespace bounce;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE = 128;  // triangles a chunk past STAGE_MAX
-constexpr int STAGE_MAX = 896;  // triangles staged once a block (42 KB)
-constexpr int UNROLL = 4;  // triangle tests in flight
 // Resident blocks an SM the path kernels ask for: 80 registers, where they
 // would take ~90 and fit five (one H100 run: 2-3% faster for a few spilled
 // bytes).
@@ -114,15 +113,6 @@ struct Shared {
   int warp_cand[WARPS];
 };
 
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-// Dynamic shared bytes of a table of T triangle columns.
-__host__ __device__ constexpr int woop_bytes(int T) {
-  return round_up(T <= STAGE_MAX ? T : TILE, UNROLL) * 12 * 4;
-}
-
 __device__ __forceinline__ float mi_weight(float pdf_a, float pdf_b) {
   const float a2 = pdf_a * pdf_a;
   return pdf_a > 0.0f ? a2 / fmaxf(a2 + pdf_b * pdf_b, 1e-32f) : 0.0f;
@@ -135,74 +125,6 @@ __device__ __forceinline__ void stage_em(Shared& sh, const float* em,
     const int r = idx / MAX_EM, c = idx % MAX_EM;
     if (c < n_em) sh.em[r][c] = __ldg(em + r * e_cols + c);
   }
-}
-
-// Woop rows 0-11 of triangles [base, base + cnt) into [c][12] float rows
-// of wr, zero rows up to the next multiple of UNROLL. Reads are coalesced
-// along the table's rows. The caller synchronises around it.
-__device__ __forceinline__ void stage_woop(float4* wr, const float* tri,
-                                           int T, int base, int cnt) {
-  float* w = reinterpret_cast<float*>(wr);
-  const int cnt4 = round_up(cnt, UNROLL);
-  for (int idx = threadIdx.x; idx < 12 * cnt4; idx += blockDim.x) {
-    const int r = idx / cnt4, c = idx % cnt4;
-    w[c * 12 + r] = c < cnt ? __ldg(tri + (size_t)r * T + base + c) : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void woop_row(const float4* __restrict__ wr, int c,
-                                         float w[12]) {
-  const float4 a = wr[3 * c], b = wr[3 * c + 1], d = wr[3 * c + 2];
-  w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
-  w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
-  w[8] = d.x, w[9] = d.y, w[10] = d.z, w[11] = d.w;
-}
-
-// Closest hit over cnt4 staged rows (triangles base + c), UNROLL at a time;
-// the updates run in index order with a strict <, so the first minimum
-// wins.
-__device__ __forceinline__ void closest_sweep(
-    const float4* __restrict__ wr, int cnt4, int base, float ox, float oy,
-    float oz, float dx, float dy, float dz, float& best_t, float& bu,
-    float& bv, int& bj) {
-  for (int c = 0; c < cnt4; c += UNROLL) {
-    float t[UNROLL], u[UNROLL], v[UNROLL];
-    bool ok[UNROLL];
-#pragma unroll
-    for (int k = 0; k < UNROLL; ++k) {
-      float w[12];
-      woop_row(wr, c + k, w);
-      ok[k] = woop_tri(ox, oy, oz, dx, dy, dz, w, &t[k], &u[k], &v[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < UNROLL; ++k) {
-      if (ok[k] && t[k] > EPS && t[k] < best_t) {
-        best_t = t[k];
-        bu = u[k];
-        bv = v[k];
-        bj = base + c + k;
-      }
-    }
-  }
-}
-
-// Whether any of cnt4 staged rows is hit within (EPS, t_lim).
-__device__ __forceinline__ bool any_sweep(const float4* __restrict__ wr,
-                                          int cnt4, float ox, float oy,
-                                          float oz, float dx, float dy,
-                                          float dz, float t_lim) {
-  for (int c = 0; c < cnt4; c += UNROLL) {
-    bool hit = false;
-#pragma unroll
-    for (int k = 0; k < UNROLL; ++k) {
-      float w[12], t, u, v;
-      woop_row(wr, c + k, w);
-      hit |= woop_tri(ox, oy, oz, dx, dy, dz, w, &t, &u, &v) && t > EPS &&
-             t < t_lim;
-    }
-    if (hit) return true;
-  }
-  return false;
 }
 
 // One bounce of one lane: sv = 14 state values, m = meta, rnd = 7
@@ -701,19 +623,6 @@ bounce_kernel(const float* __restrict__ state, const int* __restrict__ meta,
   nmeta[i] = nm;
 #pragma unroll
   for (int r = 0; r < 8; ++r) splat[r * N + i] = sp[r];
-}
-
-// Let the kernel take the dynamic shared memory of the largest staged
-// table on the current device (above 48 KB only after this opt-in).
-template <class Kernel>
-cudaError_t allow_woop_smem(Kernel kernel, unsigned& done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || (done >> dev) & 1u) return e;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           woop_bytes(STAGE_MAX));
-  if (e == cudaSuccess) done |= 1u << dev;
-  return e;
 }
 
 unsigned step_smem_done = 0, bounce_smem_done = 0;

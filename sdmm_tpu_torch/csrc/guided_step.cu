@@ -11,18 +11,26 @@
 //
 // trace_kernel. The closest-hit sweep visits the triangles in index order
 // with a strict t < best_t, so among equal t the lowest index wins, as in
-// the reference. Each block stages the Woop rows (0-11) of 128 triangles at
-// a time in shared memory (6 KB) and every thread sweeps them; the sweep's
-// arithmetic is rounded after every operation in the plain twin's order
-// (bounce_math.cuh woop_tri), so kernel and twin pick the same winner. The
-// reference re-sweeps all triangles to select the winner's attributes
-// because a TPU tile cannot gather; here the thread reads the winner's
-// attribute column once by its index. Bound: per lane the 16 state rows
-// and meta in, 16 state and 22 hit rows out (220 bytes), against ~60
-// operations per triangle and ~80 after the sweep. On an H100 (3.35 TB/s,
-// 67 TFLOP/s FP32) bytes bound it up to ~72 triangles: at the Cornell box's
-// 36 and 131,072 lanes, 28.8 MB or 8.6 us against 2.9e8 operations or
-// 4.4 us (chip_smoke.py computes both from the run).
+// the reference; its arithmetic is rounded after every operation in the
+// plain twin's order (bounce_math.cuh woop_tri), so kernel and twin pick
+// the same winner. The reference re-sweeps all triangles to select the
+// winner's attributes because a TPU tile cannot gather; here the thread
+// reads the winner's attribute column once by its index. Bound: per lane
+// the 16 state rows and meta in, 16 state and 22 hit rows out (220
+// bytes), against ~60 operations per triangle and ~80 after the sweep. On
+// an H100 (3.35 TB/s, 67 TFLOP/s FP32) bytes bound it up to ~72
+// triangles: at the Cornell box's 36 and 131,072 lanes, 28.8 MB or 8.6 us
+// against 2.9e8 operations or 4.4 us (chip_smoke.py computes both from the
+// run). Design: the block stages the scene's Woop rows once as 16-byte
+// [T][12] rows and sweeps them UNROLL triangles at a time (woop_stage.cuh,
+// shared with the path kernels; past STAGE_MAX triangles, chunks of the
+// same layout); a launch bound of TRACE_BLOCKS keeps a wave of 131,072
+// lanes in one round. The sweep is
+// most of the time: on one H100 at 700 W, with the lane's traffic cut to
+// the ray and four hit rows, the earlier design took 0.0192 ms of its
+// 0.0228, and loading the lane's other rows before the staging, to have
+// them in flight during the sweep, was 2-5% slower than loading them after
+// it (PERF.md section 6).
 //
 // shade_kernel. Shading frame, the BSDF sample of the lane's type (a
 // run-time branch where the reference specialised on the scene's type set;
@@ -58,26 +66,28 @@
 
 #include "bounce_math.cuh"
 #include "guided_tile.cuh"
+#include "woop_stage.cuh"
 
 namespace {
 
 using namespace bounce;
 
 constexpr int THREADS = 128;
-constexpr int TILE = 128;  // triangles staged in shared memory per chunk
-constexpr int SHADE_BLOCKS = 8;  // resident blocks an SM that shade asks for
+// Resident blocks an SM that trace and shade ask for: 64 registers.
+constexpr int TRACE_BLOCKS = 8;
+constexpr int SHADE_BLOCKS = 8;
 
 // type_mask bits: multi (a non-diffuse type is present), conductor,
 // dielectric, rough conductor. Attribute rows a type set never reads keep
 // their defaults, as in the reference's hit buffer.
 constexpr int M_MULTI = 1, M_COND = 2, M_DIEL = 4, M_RC = 8;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, TRACE_BLOCKS)
 trace_kernel(const float* __restrict__ state, const int* __restrict__ meta,
              const float* __restrict__ tri, const float* __restrict__ env,
              float* __restrict__ nstate, float* __restrict__ hit, int n,
              int n_tris, int type_mask) {
-  __shared__ float woop[12][TILE];
+  extern __shared__ float4 wr[];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = i < n;
   const int li = active ? i : n - 1;
@@ -89,26 +99,19 @@ trace_kernel(const float* __restrict__ state, const int* __restrict__ meta,
 
   float best_t = INF, bu = 0.0f, bv = 0.0f;
   int bj = -1;
-  for (int base = 0; base < n_tris; base += TILE) {
-    const int cnt = min(TILE, n_tris - base);
+  if (n_tris <= STAGE_MAX) {
+    stage_woop(wr, tri, n_tris, 0, n_tris);
     __syncthreads();
-    for (int idx = threadIdx.x; idx < 12 * TILE; idx += blockDim.x) {
-      const int r = idx / TILE, c = idx % TILE;
-      if (c < cnt) woop[r][c] = __ldg(tri + (size_t)r * n_tris + base + c);
-    }
-    __syncthreads();
-    for (int c = 0; c < cnt; ++c) {
-      float w[12];
-#pragma unroll
-      for (int r = 0; r < 12; ++r) w[r] = woop[r][c];
-      float t, u, v;
-      const bool okg = woop_tri(rox, roy, roz, rdx, rdy, rdz, w, &t, &u, &v);
-      if (okg && t > EPS && t < best_t) {
-        best_t = t;
-        bu = u;
-        bv = v;
-        bj = base + c;
-      }
+    closest_sweep(wr, round_up(n_tris, UNROLL), 0, rox, roy, roz, rdx, rdy,
+                  rdz, best_t, bu, bv, bj);
+  } else {
+    for (int base = 0; base < n_tris; base += TILE) {
+      const int cnt = min(TILE, n_tris - base);
+      __syncthreads();
+      stage_woop(wr, tri, n_tris, base, cnt);
+      __syncthreads();
+      closest_sweep(wr, round_up(cnt, UNROLL), base, rox, roy, roz, rdx, rdy,
+                    rdz, best_t, bu, bv, bj);
     }
   }
   if (!active) return;
@@ -178,15 +181,6 @@ trace_kernel(const float* __restrict__ state, const int* __restrict__ meta,
   h[19 * N] = attr(TSP + 1, 1.0f, eta_sp);
   h[20 * N] = attr(TSP + 2, 1.0f, eta_sp);
   h[21 * N] = (alive && hit_valid) ? 1.0f : 0.0f;
-}
-
-// The pointer, hidden from the optimiser: loads through it are issued
-// again where they stand instead of reusing earlier loads of the same
-// address, whose values would stay live in registers in between.
-template <class T>
-__device__ __forceinline__ const T* reread(const T* p) {
-  asm volatile("" : "+l"(p));
-  return p;
 }
 
 // The lane's shading frame: the shading normal flipped toward the ray
@@ -293,12 +287,14 @@ shade_kernel(const float* __restrict__ state, const int* __restrict__ meta,
   const guided::RowPacked row{table + (size_t)l * (guided::PROW / 8)};
   guided::SharedSlots sl{&slots[0][threadIdx.x], THREADS};
   const guided::TileOut g = guided::guided_tile(
-      row, sl, cpos[i], cpos[N + i], cpos[2 * N + i], wbx, wby, wbz,
-      rr[5 * N], rr[6 * N], rr[7 * N]);
+      row, sl,
+      guided::LaneValues{{cpos[i], cpos[N + i], cpos[2 * N + i]},
+                         {wbx, wby, wbz},
+                         {rr[5 * N], rr[6 * N], rr[7 * N]}});
 
   // ---- part 3: the lane's rows read again ----
-  const float* __restrict__ st = reread(state) + i;
-  const float* __restrict__ hr = reread(hit) + i;
+  const float* __restrict__ st = guided::reread(state) + i;
+  const float* __restrict__ hr = guided::reread(hit) + i;
   const float rdx = st[3 * N], rdy = st[4 * N], rdz = st[5 * N];
   const int m = meta[i];
   const bool alive = (m & ALIVE) != 0;
@@ -442,14 +438,18 @@ shade_kernel(const float* __restrict__ state, const int* __restrict__ meta,
   nmeta[i] = pix | (depth_packed << DEPTH_SHIFT) | (survive ? ALIVE : 0) | exh;
 }
 
+unsigned trace_smem_done = 0;
+
 }  // namespace
 
 extern "C" int trace_launch(const float* state, const int* meta,
                             const float* tri, const float* env, float* nstate,
                             float* hit, int n, int n_tris, int type_mask,
                             void* stream) {
+  const cudaError_t e = allow_woop_smem(trace_kernel, trace_smem_done);
+  if (e != cudaSuccess) return (int)e;
   const int blocks = (n + THREADS - 1) / THREADS;
-  trace_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  trace_kernel<<<blocks, THREADS, woop_bytes(n_tris), (cudaStream_t)stream>>>(
       state, meta, tri, env, nstate, hit, n, n_tris, type_mask);
   return (int)cudaGetLastError();
 }
@@ -468,16 +468,19 @@ extern "C" int shade_launch(const float* state, const int* meta,
 }
 
 // Registers, local (spill) bytes, static shared bytes and resident blocks an
-// SM of trace_kernel (which 0) or shade_kernel (which 1), into info[4]; the
-// second argument is unused (bounce_info's table width).
-extern "C" int guided_step_info(int which, int, int* info) {
+// SM of trace_kernel (which 0; at the dynamic shared memory of an
+// n_cols-column triangle table) or shade_kernel (which 1), into info[4].
+extern "C" int guided_step_info(int which, int n_cols, int* info) {
   const void* f = which == 0 ? (const void*)trace_kernel
                              : (const void*)shade_kernel;
+  cudaError_t e = which == 0 ? allow_woop_smem(trace_kernel, trace_smem_done)
+                             : cudaSuccess;
   cudaFuncAttributes a{};
-  cudaError_t e = cudaFuncGetAttributes(&a, f);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, f);
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, THREADS, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, f, THREADS, which == 0 ? woop_bytes(n_cols) : 0);
   info[0] = a.numRegs;
   info[1] = (int)a.localSizeBytes;
   info[2] = (int)a.sharedSizeBytes;

@@ -10,21 +10,28 @@
 // direction, with the reference's cubic arccos.
 //
 // The lane reads its leaf's row through a row reader straight from the
-// table, which stays in L2; no per-lane row matrix is gathered. A reader
-// hands over a component's values in two blocks: pass 1's 16 (weight,
-// spatial mean, marginal Cholesky, premult) and pass 4's 6 (mean
-// direction, conditional Cholesky). RowF32 reads the [L, 353] float32
-// table value by value (guided_sample.cu); RowPacked reads shade's packed
-// bfloat16 table (ops/guided_step.pack_shade_table: 24 values a component,
-// 48 bytes, 16-byte aligned), pass 1's block as two 16-byte loads and pass
-// 4's as one. guided_tile's four passes are four unrolled k-loops that
-// re-read the row instead of holding 16 x 22 values per thread; the
-// per-component log-weight and the two conditional tangent-mean
-// coordinates (48 floats) live in a slot store: registers (RegSlots) or
-// the thread's column of a shared-memory array (SharedSlots), which frees
-// the registers for more warps in flight. The selected component is read
-// back at a computed row offset, so no register array is indexed at run
-// time.
+// table, which stays in L2; no per-lane row matrix is gathered. Both
+// kernels read a packed table (ops/guided_sample.pack_sample_table: per
+// leaf K components of PSTRIDE = 24 values, the 22 of the [L, 353] row and
+// two pads, the init flag in component 0's first pad, every row 16-byte
+// aligned). A reader hands over a component's values in two blocks: pass
+// 1's 16 (weight, spatial mean, marginal Cholesky, premult) and pass 4's 6
+// (mean direction, conditional Cholesky). RowPackedF32 reads the float32
+// table of guided_sample.cu, six 16-byte words a component: pass 1's block
+// as four loads, pass 4's as two. RowPacked reads shade's bfloat16 table,
+// three words a component: pass 1's block as two loads, pass 4's as one.
+// guided_tile's four passes are four unrolled k-loops that re-read the row
+// instead of holding 16 x 22 values per thread; the per-component
+// log-weight and the two conditional tangent-mean coordinates (48 floats)
+// live in a slot store: registers (RegSlots, guided_sample.cu) or the
+// thread's column of a shared-memory array (SharedSlots, shade), which
+// frees the registers for more warps in flight. The selected component is
+// read back at a computed offset, so no register array is indexed at run
+// time. The lane's own inputs come through an accessor that guided_tile
+// asks where each is first needed (the position before pass 1, the
+// uniforms before pass 3, the BSDF direction before pass 4), so a kernel
+// can read them there from memory instead of holding them in registers
+// across the mixture math.
 
 #pragma once
 
@@ -44,31 +51,42 @@ constexpr int NROWS = K * RPK + 1;
 constexpr float INV_TWO_PI = 0.15915494309189535f;
 constexpr float NEG = -1.0e30f;
 
-// A leaf row of float32 values in the [L, 353] layout.
-struct RowF32 {
-  const float* __restrict__ p;
-  __device__ __forceinline__ void pass1(int k, float v[16]) const {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) v[j] = __ldg(p + k * RPK + j);
-  }
-  __device__ __forceinline__ void pass4(int k, float v[6]) const {
-#pragma unroll
-    for (int j = 0; j < 6; ++j) v[j] = __ldg(p + k * RPK + 16 + j);
-  }
-  __device__ __forceinline__ float init() const {
-    return __ldg(p + NROWS - 1);
-  }
-};
-
-// The packed bfloat16 layout of shade's table: per leaf K components of
-// PSTRIDE values (the 22 of the [L, 353] row, then two pads), so a
-// component is three 16-byte words; the init flag sits in component 0's
-// first pad (value PINIT). bfloat16 is the upper 16 bits of a float32, so
-// the widening is exact.
+// The packed layout: per leaf K components of PSTRIDE values (the 22 of
+// the [L, 353] row, then two pads); the init flag sits in component 0's
+// first pad (value PINIT).
 constexpr int PSTRIDE = 24;
 constexpr int PROW = K * PSTRIDE;
 constexpr int PINIT = 22;
 
+// A leaf row of the packed float32 table: six 16-byte words a component.
+struct RowPackedF32 {
+  const float4* __restrict__ p;  // the leaf's PROW values, 16-byte aligned
+  __device__ __forceinline__ void pass1(int k, float v[16]) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 a = __ldg(p + 6 * k + j);
+      v[4 * j] = a.x;
+      v[4 * j + 1] = a.y;
+      v[4 * j + 2] = a.z;
+      v[4 * j + 3] = a.w;
+    }
+  }
+  __device__ __forceinline__ void pass4(int k, float v[6]) const {
+    const float4 a = __ldg(p + 6 * k + 4), b = __ldg(p + 6 * k + 5);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+    v[4] = b.x;
+    v[5] = b.y;
+  }
+  __device__ __forceinline__ float init() const {
+    static_assert(PINIT == 22, "the init flag is value z of word 5");
+    return __ldg(p + 5).z;
+  }
+};
+
+// bfloat16 is the upper 16 bits of a float32, so the widening is exact.
 __device__ __forceinline__ float bf16_lo(uint32_t x) {
   return __uint_as_float(x << 16);
 }
@@ -76,6 +94,8 @@ __device__ __forceinline__ float bf16_hi(uint32_t x) {
   return __uint_as_float(x & 0xFFFF0000u);
 }
 
+// A leaf row of the packed bfloat16 table: three 16-byte words a
+// component.
 struct RowPacked {
   const uint4* __restrict__ p;  // the leaf's PROW values, 16-byte aligned
   __device__ __forceinline__ void pass1(int k, float v[16]) const {
@@ -134,6 +154,31 @@ struct SharedSlots {
   __device__ __forceinline__ void sel_tm(int sel, float* a, float* b) {
     *a = tm0(sel);
     *b = tm1(sel);
+  }
+};
+
+// The pointer, hidden from the optimiser: loads through it are issued
+// again where they stand instead of reusing earlier loads of the same
+// address, whose values would stay live in registers in between.
+template <class T>
+__device__ __forceinline__ const T* reread(const T* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// A lane's inputs to guided_tile held as values: (px, py, pz) the
+// canonical position, (bx, by, bz) the BSDF-sampled world direction,
+// (u_sel, u_r, u_th) the uniforms of component selection and Box-Muller.
+struct LaneValues {
+  float p[3], b[3], u[3];
+  __device__ __forceinline__ void pos(float x[3]) const {
+    x[0] = p[0], x[1] = p[1], x[2] = p[2];
+  }
+  __device__ __forceinline__ void uniforms(float x[3]) const {
+    x[0] = u[0], x[1] = u[1], x[2] = u[2];
+  }
+  __device__ __forceinline__ void wob(float x[3]) const {
+    x[0] = b[0], x[1] = b[1], x[2] = b[2];
   }
 };
 
@@ -204,15 +249,13 @@ struct TileOut {
 };
 
 // guided_tile for one lane: row is the leaf's row reader, sl the lane's
-// slot store, (px, py, pz) the canonical position, (bx, by, bz) the
-// BSDF-sampled world direction, (u_sel, u_r, u_th) the uniforms of
-// component selection and Box-Muller.
-template <class Row, class Slots>
+// slot store, lane its input accessor (LaneValues' interface).
+template <class Row, class Slots, class Lane>
 __device__ __forceinline__ TileOut guided_tile(const Row& row, Slots& sl,
-                                               float px, float py, float pz,
-                                               float bx, float by, float bz,
-                                               float u_sel, float u_r,
-                                               float u_th) {
+                                               const Lane& lane) {
+  float p[3];
+  lane.pos(p);
+  const float px = p[0], py = p[1], pz = p[2];
   // ---- pass 1: log spatial-marginal weights + conditional tangent means ----
   float lmax = NEG;
 #pragma unroll
@@ -254,6 +297,9 @@ __device__ __forceinline__ TileOut guided_tile(const Row& row, Slots& sl,
   const float inv_total = cond_valid ? 1.0f / fmaxf(total, 1e-38f) : 0.0f;
 
   // ---- pass 3: zero out-of-range conditional means, CDF selection ----
+  float uv[3];
+  lane.uniforms(uv);
+  const float u_sel = uv[0], u_r = uv[1], u_th = uv[2];
   float cdf = 0.0f;
   int sel = 0;
 #pragma unroll
@@ -295,6 +341,9 @@ __device__ __forceinline__ TileOut guided_tile(const Row& row, Slots& sl,
   const float gz = gs[2] * rg0 + gt[2] * rg1 + smu[2] * rg2;
 
   // ---- pass 4: mixture pdf at both candidate directions ----
+  float b[3];
+  lane.wob(b);
+  const float bx = b[0], by = b[1], bz = b[2];
   float pdf_g = 0.0f, pdf_b = 0.0f;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -321,16 +370,6 @@ __device__ __forceinline__ TileOut guided_tile(const Row& row, Slots& sl,
   out.cond_valid = cond_valid;
   out.init = row.init() > 0.5f;
   return out;
-}
-
-// guided_tile with the lane's slots in registers.
-template <class Row>
-__device__ __forceinline__ TileOut guided_tile(const Row& row, float px,
-                                               float py, float pz, float bx,
-                                               float by, float bz, float u_sel,
-                                               float u_r, float u_th) {
-  RegSlots sl;
-  return guided_tile(row, sl, px, py, pz, bx, by, bz, u_sel, u_r, u_th);
 }
 
 }  // namespace guided

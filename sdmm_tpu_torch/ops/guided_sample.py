@@ -2,11 +2,16 @@
 lane (port of sdmm_tpu/ops/guided_pallas.py).
 
 ``guided_sample`` is the wrapper of the hand-written CUDA kernel
-``csrc/guided_sample.cu``: it reads each lane's row of the [L, 353] leaf
-table directly, so no per-lane row matrix is gathered. For a CUDA tensor it
-launches the kernel; for a CPU tensor it runs ``guided_sample_plain``, the
-plain PyTorch twin of the same math, which keeps the reference function's
-attribute-major [C, N] layout at its boundary.
+``csrc/guided_sample.cu``: it reads each lane's row of the packed leaf
+table of ``pack_sample_table`` directly, so no per-lane row matrix is
+gathered. The packed table holds the float32 values of
+``pack_guided_rows(...).T`` [L, 353], each component's 22 on a 24-value
+stride (two pads), the init flag in component 0's first pad, so that every
+component is six 16-byte words the kernel loads whole; it is built once per
+render. For a CUDA tensor the wrapper launches the kernel; for a CPU tensor
+it runs ``guided_sample_plain``, the plain PyTorch twin of the same math,
+which keeps the reference function's attribute-major [C, N] layout at its
+boundary.
 
 Semantics follow the reference kernel's ``guided_tile`` exactly: log-space
 conditioning weights with max-subtraction, the 3σ trust-region clamp of the
@@ -34,6 +39,12 @@ ROWS_PER_K = 22
 #  16-18  mu_dir (unit mean direction; the frame is rebuilt from it)
 #  19-21  cond_chol lower (c00, c10, c11)
 N_ROWS = K * ROWS_PER_K + 1  # + initialized flag row = 353
+# The packed table (csrc/guided_tile.cuh RowPackedF32, and RowPacked for
+# shade's bf16 copy): per leaf K components of PACK_STRIDE values, the init
+# flag at value PACK_INIT, which is component 0's first pad.
+PACK_STRIDE = 24
+PACK_COLS = K * PACK_STRIDE
+PACK_INIT = ROWS_PER_K
 _NEG = -1.0e30
 _SINC_EPS = 1e-4
 
@@ -59,6 +70,27 @@ def pack_guided_rows(prep, weight: torch.Tensor,
     rows = per_k.permute(2, 0, 1).reshape(K * ROWS_PER_K, L)
     return torch.cat([rows, initialized.to(torch.float32)[None, :]],
                      dim=0).to(torch.float32)
+
+
+def pack_sample_table(table, dtype=torch.float32):
+    """The [L, N_ROWS] conditioning table (``pack_guided_rows(...).T``) →
+    the [L, PACK_COLS] table the kernels read, in ``dtype``: the same
+    values, each component's ROWS_PER_K on a PACK_STRIDE stride, the init
+    flag in the pad slot PACK_INIT, the other pads 0."""
+    t = table.to(dtype)
+    L = t.shape[0]
+    out = torch.zeros((L, K, PACK_STRIDE), dtype=dtype, device=t.device)
+    out[:, :, :ROWS_PER_K] = t[:, :K * ROWS_PER_K].reshape(L, K, ROWS_PER_K)
+    out[:, 0, PACK_INIT] = t[:, N_ROWS - 1]
+    return out.reshape(L, PACK_COLS)
+
+
+def unpack_sample_table(packed):
+    """Inverse of ``pack_sample_table``: [L, PACK_COLS] → [L, N_ROWS] in
+    the packed table's dtype."""
+    comp = packed.reshape(packed.shape[0], K, PACK_STRIDE)
+    return torch.cat([comp[:, :, :ROWS_PER_K].reshape(packed.shape[0], -1),
+                      comp[:, 0, PACK_INIT:PACK_INIT + 1]], dim=1)
 
 
 def _sinc(x):
@@ -207,23 +239,26 @@ def guided_sample(table: torch.Tensor, leaf: torch.Tensor, pos: torch.Tensor,
                   wo_b: torch.Tensor, u: torch.Tensor):
     """Guided sampling for a lane wave.
 
-    table [L, N_ROWS] f32 (``pack_guided_rows(...).T``); leaf [N] int32;
-    pos, wo_b, u [N, 3] f32 (lane-major). Returns (d_guide [N, 3], g_ok [N],
-    pdf_guide [N], pdf_bsdf [N], guide_valid [N]). CUDA tensors launch the
-    kernel; CPU tensors run the plain twin.
+    table [L, PACK_COLS] f32 (``pack_sample_table``, 16-byte aligned);
+    leaf [N] int32; pos, wo_b, u [N, 3] f32 (lane-major). Returns (d_guide
+    [N, 3], g_ok [N], pdf_guide [N], pdf_bsdf [N], guide_valid [N]). CUDA
+    tensors launch the kernel; CPU tensors run the plain twin.
     """
     if table.device.type == "cpu":
-        rows_t = table[leaf.long()].T
+        rows_t = unpack_sample_table(table)[leaf.long()].T
         d, g_ok, pdf_g, pdf_b, valid = guided_sample_plain(
             rows_t, pos.T, wo_b.T, u.T)
         return d.T, g_ok, pdf_g, pdf_b, valid
     n = leaf.shape[0]
     _build.check_inputs("guided_sample", (
-        ("table", table, (table.shape[0], N_ROWS), torch.float32),
+        ("table", table, (table.shape[0], PACK_COLS), torch.float32),
         ("leaf", leaf, (n,), torch.int32),
         ("pos", pos, (n, 3), torch.float32),
         ("wo_b", wo_b, (n, 3), torch.float32),
         ("u", u, (n, 3), torch.float32)))
+    if table.data_ptr() % 16:
+        raise ValueError("guided_sample: table must start on a 16-byte "
+                         "boundary")
     dg = torch.empty((n, 3), dtype=torch.float32, device=table.device)
     misc = torch.empty((n, 4), dtype=torch.float32, device=table.device)
     if n > 0:
@@ -234,6 +269,13 @@ def guided_sample(table: torch.Tensor, leaf: torch.Tensor, pos: torch.Tensor,
         _build.check(rc, "guided_sample")
         guided_sample.launches += 1
     return dg, misc[:, 0] > 0.5, misc[:, 1], misc[:, 2], misc[:, 3] > 0.5
+
+
+def kernel_info() -> dict[str, dict[str, int]]:
+    """Registers, spilled (local) bytes, static shared bytes and resident
+    blocks an SM of the guided-sampling kernel, as built."""
+    return _build.kernel_info("guided_sample", "guided_sample_info",
+                              ("guided_sample",))
 
 
 guided_sample.launches = 0

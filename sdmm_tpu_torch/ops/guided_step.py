@@ -13,9 +13,10 @@ leaf lookup (port of sdmm_tpu/ops/guided_step_pallas.py).
 
 ``shade`` reads the leaf rows from the packed table of
 ``pack_shade_table``: the bf16 values of ``pack_guided_rows(...).T``
-[L, 353], each component's 22 on a 24-value stride (two pads), the init
-flag in component 0's first pad, so that every component is three 16-byte
-words the kernel loads whole. It is built once per render.
+[L, 353] in ``guided_sample.pack_sample_table``'s layout, each component's
+22 on a 24-value stride (two pads), the init flag in component 0's first
+pad, so that every component is three 16-byte words the kernel loads
+whole. It is built once per render.
 
 Layouts are the reference's attribute-major ones, flattened to [rows, N]:
 state [16, N] f32 (0-2 origin, 3-5 direction, 6-8 throughput, 9-11
@@ -42,7 +43,10 @@ from .bounce import (
     _TAL, _TALP, _TEM, _TETA, _TK, _TNG, _TNS, _TSP, _TTY, _dot3, _type_flags,
     _type_mask,
 )
-from .guided_sample import K, N_ROWS, ROWS_PER_K, guided_sample_plain
+from .guided_sample import (
+    N_ROWS, PACK_COLS, guided_sample_plain, pack_sample_table,
+    unpack_sample_table,
+)
 
 HIT_ROWS = 22
 # Hit rows: 0-2 p, 3-5 ng, 6-8 ns, 9-11 albedo, 12 type, 13 alpha, 14 eta,
@@ -50,33 +54,12 @@ HIT_ROWS = 22
 SPLAT_ROWS = 10  # rgb, rgb², done weight, n_vert, cond_try, cond_ok
 RAND_ROWS = 8  # u_sel, lobe_u, b2a, b2b, rr, g_sel, g_r, g_th
 
-# The packed shade table (csrc/guided_tile.cuh RowPacked): per leaf K
-# components of SHADE_STRIDE bf16 values (48 bytes), the init flag at value
-# SHADE_INIT, which is component 0's first pad.
-SHADE_STRIDE = 24
-SHADE_COLS = K * SHADE_STRIDE
-SHADE_INIT = ROWS_PER_K
-
-
 def pack_shade_table(table):
     """The [L, N_ROWS] conditioning table (``pack_guided_rows(...).T``, any
-    float dtype) → the [L, SHADE_COLS] bf16 table ``shade`` reads: the same
-    bf16 values, each component's ROWS_PER_K on a SHADE_STRIDE stride, the
-    init flag in the pad slot SHADE_INIT, the other pads 0."""
-    t16 = table.to(torch.bfloat16)
-    L = t16.shape[0]
-    out = torch.zeros((L, K, SHADE_STRIDE), dtype=torch.bfloat16,
-                      device=t16.device)
-    out[:, :, :ROWS_PER_K] = t16[:, :K * ROWS_PER_K].reshape(L, K, ROWS_PER_K)
-    out[:, 0, SHADE_INIT] = t16[:, N_ROWS - 1]
-    return out.reshape(L, SHADE_COLS)
-
-
-def unpack_shade_table(packed):
-    """Inverse of ``pack_shade_table``: [L, SHADE_COLS] → [L, N_ROWS] bf16."""
-    comp = packed.reshape(packed.shape[0], K, SHADE_STRIDE)
-    return torch.cat([comp[:, :, :ROWS_PER_K].reshape(packed.shape[0], -1),
-                      comp[:, 0, SHADE_INIT:SHADE_INIT + 1]], dim=1)
+    float dtype) → the [L, PACK_COLS] bf16 table ``shade`` reads
+    (csrc/guided_tile.cuh RowPacked, 48 bytes a component):
+    ``pack_sample_table`` of the same bf16 values."""
+    return pack_sample_table(table, torch.bfloat16)
 
 
 def trace_plain(state, meta, tri_rows, env_row, types):
@@ -357,12 +340,12 @@ def shade(state, meta, hit, cpos, leaf, shade_table, rand, types,
           max_depth: int, rr_depth: int, bsdf_fraction: float):
     """Shade kernel for a lane wave: state [16, N], meta [N] int32, hit
     [HIT_ROWS, N] from ``trace``, cpos [3, N] canonical hit positions, leaf
-    [N] int32 leaf slots, shade_table [L, SHADE_COLS] bf16 from
+    [N] int32 leaf slots, shade_table [L, PACK_COLS] bf16 from
     ``pack_shade_table`` (each lane reads its leaf's row), rand
     [RAND_ROWS, N] uniforms. Returns (new_state [16, N], new_meta [N],
     splat [SPLAT_ROWS, N])."""
     if state.device.type == "cpu":
-        rows_t = unpack_shade_table(shade_table)[leaf.long()].T.float()
+        rows_t = unpack_sample_table(shade_table)[leaf.long()].T.float()
         return shade_plain(state, meta, hit, cpos, rows_t, rand, types,
                            max_depth, rr_depth, bsdf_fraction)
     n = meta.shape[0]
@@ -372,7 +355,7 @@ def shade(state, meta, hit, cpos, leaf, shade_table, rand, types,
         ("hit", hit, (HIT_ROWS, n), torch.float32),
         ("cpos", cpos, (3, n), torch.float32),
         ("leaf", leaf, (n,), torch.int32),
-        ("shade_table", shade_table, (shade_table.shape[0], SHADE_COLS),
+        ("shade_table", shade_table, (shade_table.shape[0], PACK_COLS),
          torch.bfloat16),
         ("rand", rand, (RAND_ROWS, n), torch.float32)))
     if shade_table.data_ptr() % 16:
@@ -395,11 +378,12 @@ def shade(state, meta, hit, cpos, leaf, shade_table, rand, types,
     return nstate, nmeta, splat
 
 
-def kernel_info() -> dict[str, dict[str, int]]:
+def kernel_info(n_cols: int) -> dict[str, dict[str, int]]:
     """Registers, spilled (local) bytes, static shared bytes and resident
-    blocks an SM of the trace and shade kernels, as built."""
+    blocks an SM of the trace and shade kernels, as built, trace's at the
+    dynamic shared memory of an ``n_cols``-column triangle table."""
     return _build.kernel_info("guided_step", "guided_step_info",
-                              ("trace", "shade"))
+                              ("trace", "shade"), n_cols)
 
 
 trace.launches = 0

@@ -8,7 +8,9 @@ Every pool step traces one bounce for all lanes; dead lanes restart on the
 next camera sample of a global counter until ``spp`` samples per pixel are
 spent. ``render_pool_guided`` is the eager pool: guided sampling
 (conditioning + sample + pdf) runs through ``ops.guided_sample``, the CUDA
-kernel for tensors on the card and its plain twin on the CPU.
+kernel for tensors on the card and its plain twin on the CPU, on the packed
+float32 leaf table of ``ops.guided_sample.pack_sample_table``, built once
+per render.
 ``render_pool_guided_fused`` is the frozen-model pool on the fused
 ``ops.guided_step`` kernels (trace + shade). NEE is compiled out (MIS weight
 1 on emitter hits), as in the reference package's guided path.
@@ -109,6 +111,7 @@ def render_pool_guided(
     dev = resolve_device(device)
     scene = scene_to(scene, dev)
     gs = gs.to(dev)
+    sample_table = gso.pack_sample_table(gs.kernel_table)
     collect = collect_cap > 0
     extra = 1 if collect else 0
     n_pix = width * height
@@ -204,7 +207,7 @@ def render_pool_guided(
         wo_bsdf_world = to_world(s_ax, t_ax, n_ax, bs["wo"])
 
         d_guide, g_ok, pdf_g, pdf_b, guide_valid = gso.guided_sample(
-            gs.kernel_table, leaf, c_pos.contiguous(),
+            sample_table, leaf, c_pos.contiguous(),
             wo_bsdf_world.contiguous(), ug.contiguous())
         guide_ok = guide_valid & ~delta_only
         take_bsdf = (u_sel < torch.where(guide_ok, bsdf_fraction, 1.0)) \

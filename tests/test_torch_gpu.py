@@ -82,6 +82,7 @@ def test_guided_sample_kernel_matches_twin(cuda, n):
     sdmm, init = _state(9, L, cuda)
     table = gso.pack_guided_rows(mix.prepare(sdmm), sdmm.weight,
                                  init).T.contiguous()
+    packed = gso.pack_sample_table(table)
     rs = np.random.RandomState(13)
     leaf = torch.as_tensor(rs.randint(0, L, size=n).astype(np.int32),
                            device=cuda)
@@ -91,14 +92,21 @@ def test_guided_sample_kernel_matches_twin(cuda, n):
                           device=cuda)
     u = torch.as_tensor(rs.rand(n, 3).astype(np.float32), device=cuda)
     before = gso.guided_sample.launches
-    dk, okk, pgk, pbk, vk = gso.guided_sample(table, leaf, pos, wob, u)
+    out = gso.guided_sample(packed, leaf, pos, wob, u)
     torch.cuda.synchronize()
     assert gso.guided_sample.launches == before + 1
+    _guided_sample_agrees(out, table, leaf, pos, wob, u)
+
+
+def _guided_sample_agrees(out, table, leaf, pos, wob, u):
+    """The kernel's outputs ``out`` against the twin on the [L, 353]
+    rows."""
+    dk, okk, pgk, pbk, vk = out
     dp, okp, pgp, pbp, vp = gso.guided_sample_plain(
         table[leaf.long()].T, pos.T, wob.T, u.T)
     assert bool((vk == vp).all())
     m = vk
-    assert int(m.sum()) > n // 2
+    assert int(m.sum()) > leaf.shape[0] // 2
     err = (dk - dp.T).abs().max(-1).values[m]
     assert float((err > 1e-4).float().mean()) <= 0.002
     for a, b in ((pbk, pbp), (pgk, pgp)):
@@ -107,12 +115,43 @@ def test_guided_sample_kernel_matches_twin(cuda, n):
     assert torch.isfinite(dk).all() and torch.isfinite(pgk).all()
 
 
+# The kernel on 2,048 leaves of the packed table: lanes on random leaves (a
+# gather of up to 32 rows a warp) and every lane on one leaf.
+@pytest.mark.parametrize("leaves", ["random", "one"])
+def test_guided_sample_kernel_on_2048_leaves(cuda, leaves):
+    n, L = 50_003, 2048
+    sdmm, init = _state(14, L, cuda)
+    table = gso.pack_guided_rows(mix.prepare(sdmm), sdmm.weight,
+                                 init).T.contiguous()
+    rs = np.random.RandomState(16)
+    leaf = rs.randint(0, L, n) if leaves == "random" else np.full(
+        n, int(init.nonzero()[0]))
+    leaf = torch.as_tensor(leaf.astype(np.int32), device=cuda)
+    pos = torch.as_tensor(rs.rand(n, 3).astype(np.float32), device=cuda)
+    wob = rs.randn(n, 3).astype(np.float32)
+    wob = torch.as_tensor(wob / np.linalg.norm(wob, axis=-1, keepdims=True),
+                          device=cuda)
+    u = torch.as_tensor(rs.rand(n, 3).astype(np.float32), device=cuda)
+    out = gso.guided_sample(gso.pack_sample_table(table), leaf, pos, wob, u)
+    torch.cuda.synchronize()
+    _guided_sample_agrees(out, table, leaf, pos, wob, u)
+
+
 def test_guided_sample_wrapper_rejects_bad_inputs(cuda):
-    table = torch.zeros((4, gso.N_ROWS), device=cuda)
-    leaf = torch.zeros(8, dtype=torch.int64, device=cuda)  # not int32
+    packed = torch.zeros((5, gso.PACK_COLS), device=cuda)
+    table = packed[:4]
+    leaf = torch.zeros(8, dtype=torch.int32, device=cuda)
     x = torch.zeros((8, 3), device=cuda)
-    with pytest.raises(ValueError):
-        gso.guided_sample(table, leaf, x, x, x)
+    gso.guided_sample(table, leaf, x, x, x)  # the well-formed call runs
+    with pytest.raises(ValueError):  # leaf not int32
+        gso.guided_sample(table, leaf.long(), x, x, x)
+    for bad in (torch.zeros((4, gso.N_ROWS), device=cuda),  # [L, 353] rows
+                table.double(),  # not float32
+                table.to(torch.bfloat16),  # shade's table
+                packed.view(-1)[1:1 + 4 * gso.PACK_COLS]
+                .view(4, gso.PACK_COLS)):  # off a 16-byte boundary
+        with pytest.raises(ValueError):
+            gso.guided_sample(bad, leaf, x, x, x)
 
 
 @pytest.mark.parametrize("L,S", [(32, 100_000), (7, 2_500)])
@@ -225,19 +264,62 @@ def test_shade_kernel_on_2048_leaves(cuda, leaves):
     assert int(out_p[2][9].sum()) > n // 8  # guided samples were drawn
 
 
+# Past STAGE_MAX triangles (csrc/woop_stage.cuh) trace sweeps the Woop
+# rows in chunks: the 2,172-triangle scene of the path kernels' case.
+def test_trace_kernel_past_the_staging_budget(cuda):
+    scene, cfg = make_sphere_box(tscene, tshapes, 16, 16).build(device=cuda)
+    tri, _, env = bo.build_tables(scene)
+    assert tri.shape[1] > 1024
+    state, meta, _ = (torch.as_tensor(a, device=cuda)
+                      for a in lane_wave(8_192, 18, max_depth=10))
+    st_k, hit_k = gst.trace(state, meta, tri, env, cfg.bsdf_types)
+    torch.cuda.synchronize()
+    st_p, hit_p = gst.trace_plain(state, meta, tri, env, cfg.bsdf_types)
+    _trace_agrees(st_k, hit_k, st_p, hit_p)
+    assert int((hit_p[21] > 0.5).sum()) > 8_192 // 4
+
+
+def _trace_agrees(st_k, hit_k, st_p, hit_p):
+    exact = [3, 4, 5] + list(range(9, 22))
+    ok = (hit_k[exact] == hit_p[exact]).all(0)
+    ok &= torch.isclose(hit_k, hit_p, rtol=1e-5, atol=1e-6).all(0)
+    ok &= torch.isclose(st_k, st_p, rtol=1e-5, atol=1e-6,
+                        equal_nan=True).all(0)
+    assert float(ok.float().mean()) >= 0.998
+
+
+# Every triangle twice, the copy with another albedo: among equal t the
+# lower index wins, in the kernel as in the twin.
+@pytest.mark.parametrize("first", ["original", "copy"])
+def test_trace_keeps_the_lower_index_on_duplicated_triangles(cuda, first):
+    _, types, tri, env, state, meta, _ = _wave(cuda, 8_192, 19)
+    copy = tri.clone()
+    copy[bo._TAL:bo._TAL + 3] = 0.125
+    pair = (tri, copy) if first == "original" else (copy, tri)
+    tri2 = torch.cat(pair, dim=1).contiguous()
+    st_k, hit_k = gst.trace(state, meta, tri2, env, types)
+    torch.cuda.synchronize()
+    st_p, hit_p = gst.trace_plain(state, meta, tri2, env, types)
+    _trace_agrees(st_k, hit_k, st_p, hit_p)
+    on = hit_k[21] > 0.5
+    assert int(on.sum()) > 8_192 // 4
+    marked = (hit_k[9:12, on] == 0.125).all(0)
+    assert bool(marked.all() if first == "copy" else (~marked).all())
+
+
 def test_guided_step_wrappers_reject_bad_inputs(cuda):
     _, types, tri, env, state, meta, rand = _wave(cuda, 256, 7)
     with pytest.raises(ValueError):
         gst.trace(state, meta.long(), tri, env, types)  # meta not int32
     hit = torch.zeros((gst.HIT_ROWS, 256), device=cuda)
     cpos = state[0:3].contiguous()
-    packed = torch.zeros((5, gst.SHADE_COLS), dtype=torch.bfloat16,
+    packed = torch.zeros((5, gso.PACK_COLS), dtype=torch.bfloat16,
                          device=cuda)
-    for table in (torch.zeros((4, gst.SHADE_COLS), device=cuda),  # not bf16
+    for table in (torch.zeros((4, gso.PACK_COLS), device=cuda),  # not bf16
                   torch.zeros((4, gso.N_ROWS), dtype=torch.bfloat16,
                               device=cuda),  # the unpacked [L, 353] rows
-                  packed.view(-1)[4:4 + 4 * gst.SHADE_COLS]
-                  .view(4, gst.SHADE_COLS)):  # off a 16-byte boundary
+                  packed.view(-1)[4:4 + 4 * gso.PACK_COLS]
+                  .view(4, gso.PACK_COLS)):  # off a 16-byte boundary
         with pytest.raises(ValueError):
             gst.shade(state, meta, hit, cpos, meta, table, rand, types, 10,
                       5, 0.5)

@@ -109,7 +109,7 @@ def test_entry_points_default_to_the_card(no_gpu):
         gstep.shade(state, meta, torch.zeros((gstep.HIT_ROWS, n),
                                              device="meta"),
                     state[0:3], meta,
-                    torch.zeros((4, gstep.SHADE_COLS), dtype=torch.bfloat16,
+                    torch.zeros((4, gstep.PACK_COLS), dtype=torch.bfloat16,
                                 device="meta"),
                     state[0:8], (0,), 10, 10, 0.5)
 

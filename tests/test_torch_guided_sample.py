@@ -26,16 +26,27 @@ from sdmm_tpu_torch.ops import guided_sample as tgs  # noqa: E402
 torch.set_num_threads(1)
 
 
-def _tables(st, weight=None, initialized=None):
+def _jax_table(st):
+    js = jmix.SDMM(weight=jnp.asarray(st["weight"]),
+                   mean=jnp.asarray(st["mean"]), cov=jnp.asarray(st["cov"]))
+    return jgp.pack_guided_rows(jmix.prepare(js), js.weight,
+                                jnp.asarray(st["initialized"]))
+
+
+def _torch_table(st, weight=None, initialized=None):
     w = st["weight"] if weight is None else weight
     ini = st["initialized"] if initialized is None else initialized
-    js = jmix.SDMM(weight=jnp.asarray(w), mean=jnp.asarray(st["mean"]),
-                   cov=jnp.asarray(st["cov"]))
-    jtab = jgp.pack_guided_rows(jmix.prepare(js), js.weight, jnp.asarray(ini))
     ts = tmix.SDMM(weight=t(w), mean=t(st["mean"]), cov=t(st["cov"]))
-    ttab = tgs.pack_guided_rows(tmix.prepare(ts), ts.weight,
+    return tgs.pack_guided_rows(tmix.prepare(ts), ts.weight,
                                 torch.as_tensor(ini))
-    return jtab, ttab
+
+
+@pytest.fixture(scope="module")
+def tables3():
+    """The 8-leaf mixture state of seed 3 and its [353, L] tables from both
+    packages: the reference's jitted pack runs once a module (~7 s)."""
+    st = make_mixture_state(3, 8)
+    return st, _jax_table(st), _torch_table(st)
 
 
 def _lanes(seed, L, N):
@@ -48,10 +59,9 @@ def _lanes(seed, L, N):
     return leaf, pos, wob, u
 
 
-def test_plain_twin_matches_reference_kernel():
+def test_plain_twin_matches_reference_kernel(tables3):
     L, N = 8, 2048
-    st = make_mixture_state(3, L)
-    jtab, ttab = _tables(st)
+    _, jtab, ttab = tables3
     leaf, pos, wob, u = _lanes(11, L, N)
     jd, jok, jpg, jpb, jv = jgp.guided_sample(
         jtab[:, leaf], jnp.asarray(pos.T), jnp.asarray(wob.T),
@@ -75,7 +85,7 @@ def test_twin_matches_mixture_path():
     """The twin also agrees with the mixture functions it fuses."""
     L, N = 8, 1024
     st = make_mixture_state(4, L)
-    _, ttab = _tables(st)
+    ttab = _torch_table(st)
     leaf, pos, wob, u = _lanes(12, L, N)
     ts = tmix.SDMM(weight=t(st["weight"]), mean=t(st["mean"]),
                    cov=t(st["cov"]))
@@ -85,7 +95,7 @@ def test_twin_matches_mixture_path():
                                    ts.weight[li], t(pos))
     d_ref, _ = tmix.conditional_sample_from_uniforms(cond, t(u[:, 0]),
                                                      t(u[:, 1:]))
-    td, _, _, tpb, tv = tgs.guided_sample(ttab.T.contiguous(),
+    td, _, _, tpb, tv = tgs.guided_sample(tgs.pack_sample_table(ttab.T),
                                           torch.as_tensor(leaf), t(pos),
                                           t(wob), t(u))
     m = to_np(tv)
@@ -104,9 +114,9 @@ def test_uninitialized_and_empty_leaves_are_invalid_and_finite():
     w = st["weight"].copy()
     w[2] = 0.0  # leaf 2: every component dead
     ini = np.array([True, False, True, True])
-    _, ttab = _tables(st, w, ini)
+    ttab = _torch_table(st, w, ini)
     leaf, pos, wob, u = _lanes(5, L, N)
-    d, ok, pg, pb, v = tgs.guided_sample(ttab.T.contiguous(),
+    d, ok, pg, pb, v = tgs.guided_sample(tgs.pack_sample_table(ttab.T),
                                          torch.as_tensor(leaf), t(pos),
                                          t(wob), t(u))
     v = to_np(v)
@@ -115,3 +125,41 @@ def test_uninitialized_and_empty_leaves_are_invalid_and_finite():
     assert v[(leaf == 0) | (leaf == 3)].mean() > 0.9
     for a in (d, pg, pb):
         assert np.isfinite(to_np(a)).all()
+
+
+def test_pack_sample_table_round_trips_reference_rows(tables3):
+    """The packed float32 table the kernel reads holds the reference's
+    rows bit for bit: each component's 22 values on a 24-value stride (a
+    component is six 16-byte words), the init flag in component 0's first
+    pad, the other pads 0."""
+    _, jtab, _ = tables3
+    rows = torch.as_tensor(np.asarray(jtab).T.copy())  # [L, 353]
+    L = rows.shape[0]
+    packed = tgs.pack_sample_table(rows)
+    assert packed.dtype == torch.float32
+    assert packed.shape == (L, tgs.PACK_COLS)
+    assert tgs.PACK_STRIDE * 4 % 16 == 0
+    assert torch.equal(tgs.unpack_sample_table(packed).view(torch.int32),
+                       rows.view(torch.int32))
+    comp = packed.reshape(L, tgs.K, tgs.PACK_STRIDE)
+    assert torch.equal(comp[:, :, :tgs.ROWS_PER_K],
+                       rows[:, :-1].reshape(L, tgs.K, tgs.ROWS_PER_K))
+    assert torch.equal(comp[:, 0, tgs.PACK_INIT], rows[:, -1])
+    pads = comp[:, :, tgs.ROWS_PER_K:].clone()
+    pads[:, 0, tgs.PACK_INIT - tgs.ROWS_PER_K] = 0.0
+    assert not pads.any()
+
+
+def test_cpu_branch_on_packed_table_equals_plain_twin(tables3):
+    """guided_sample on the packed table (its CPU branch) gives bit for bit
+    what guided_sample_plain gives on the lanes' rows of the [L, 353]
+    table."""
+    _, _, ttab = tables3
+    leaf, pos, wob, u = _lanes(19, ttab.shape[1], 1024)
+    got = tgs.guided_sample(tgs.pack_sample_table(ttab.T),
+                            torch.as_tensor(leaf), t(pos), t(wob), t(u))
+    want = tgs.guided_sample_plain(ttab.T[torch.as_tensor(leaf).long()].T,
+                                   t(pos).T, t(wob).T, t(u).T)
+    assert torch.equal(got[0], want[0].T)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)

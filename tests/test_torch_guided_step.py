@@ -326,13 +326,13 @@ def test_pack_shade_table_round_trips_reference_rows():
     t16 = table.to(torch.bfloat16)
     packed = gst.pack_shade_table(table)
     assert packed.dtype == torch.bfloat16
-    assert packed.shape == (L, gst.SHADE_COLS) and packed.is_contiguous()
+    assert packed.shape == (L, gso.PACK_COLS) and packed.is_contiguous()
     # Every row and every component's three words start on 16 bytes.
-    assert (gst.SHADE_COLS * 2) % 16 == 0 and (gst.SHADE_STRIDE * 2) % 16 == 0
+    assert (gso.PACK_COLS * 2) % 16 == 0 and (gso.PACK_STRIDE * 2) % 16 == 0
     bits = packed.view(torch.int16)
-    assert torch.equal(gst.unpack_shade_table(packed).view(torch.int16),
+    assert torch.equal(gso.unpack_sample_table(packed).view(torch.int16),
                        t16.view(torch.int16))
-    comp = bits.reshape(L, gso.K, gst.SHADE_STRIDE)
+    comp = bits.reshape(L, gso.K, gso.PACK_STRIDE)
     ref = t16.view(torch.int16)
     # The kernel's blocks: values 0-15 (two words) and 16-21 (one word).
     assert torch.equal(comp[:, :, :16].reshape(L, -1),
@@ -341,8 +341,8 @@ def test_pack_shade_table_round_trips_reference_rows():
     assert torch.equal(comp[:, :, 16:22],
                        ref[:, :gso.K * 22].reshape(L, gso.K, 22)[:, :, 16:])
     # The init flag in component 0's first pad; every other pad is 0.
-    assert torch.equal(comp[:, 0, gst.SHADE_INIT], ref[:, gso.N_ROWS - 1])
-    assert torch.equal(packed.float()[:, gst.SHADE_INIT] > 0.5,
+    assert torch.equal(comp[:, 0, gso.PACK_INIT], ref[:, gso.N_ROWS - 1])
+    assert torch.equal(packed.float()[:, gso.PACK_INIT] > 0.5,
                        torch.as_tensor(initialized))
     pads = comp[:, :, 22:].clone()
     pads[:, 0, 0] = 0
