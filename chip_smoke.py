@@ -11,8 +11,14 @@ Phases (any failure raises and the script exits non-zero):
      hold the rows bit for bit; 131,072 lanes), on uniformly random leaves
      and with every lane on one leaf; times of both by CUDA-graph replays;
      the kernel's registers, spills and resident blocks an SM.
-  3. EM sufficient statistics: kernel vs plain twin at 2048 leaves and
-     2.8 M samples; times by CUDA events.
+  3. EM sufficient statistics: the E-step pipeline (keys, packed rows and
+     a stable counting sort by leaf, scans, tile and reduction kernels)
+     vs the plain twin at
+     2048 leaves and 2.8 M samples, and vs a float64 evaluation; its sort
+     and work list equal to the twin's; two calls bit-equal. Times by CUDA
+     events of the whole e_step wrapper (row 2's ms) and of sort_and_tile,
+     by CUDA-graph replays of the two statistics kernels alone; the
+     registers, spills and resident blocks an SM of both.
   4. the fused guided bounce: trace and shade kernels vs their plain twins
      at 131,072 lanes on the Cornell box and on the four-type box (every
      in-kernel BSDF type), shade on the packed bf16 table of 2048 leaves
@@ -56,7 +62,9 @@ Phases (any failure raises and the script exits non-zero):
      hits in random directions, occlusion queries toward emitter samples
      with a finite t_max) on the Cornell box, the four-type box, the
      116-triangle box and the Cornell box plus one 16x32 sphere (996
-     triangles): hit ids, valid, t, u and v equal on every query. The
+     triangles): hit ids, valid, t, u and v equal on every query; times
+     by CUDA-graph replays on the Cornell box and the 996-triangle scene,
+     with the registers, spills and resident blocks an SM at each. The
      cluster cull clas_cull against its twin on the Cornell box plus one
      default sphere (4,004 triangles, 131,072 queries) and on the large
      scene (the Cornell box plus 32 default spheres: 127,012 triangles,
@@ -78,8 +86,8 @@ Phases (any failure raises and the script exits non-zero):
      image mean within 5% of the path row's, the valid-conditional share
      of the frozen tail > 0.5.
 Phases 5 and 6 also read mt_sweep's launches: the training iterations and
-the eager render_pool intersect through it. guided_sample's launch count
-is the sum of phases 5 and 7.
+the eager render_pool intersect through it, and its launch count is the sum
+of both. guided_sample's launch count is the sum of phases 5 and 7.
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last the {"ok": true, "device": ...} line.
 """
@@ -112,11 +120,11 @@ PEAK_FP32 = 67e12
 # pdfs); plus ~100 per lane for the selected frame and the Box-Muller
 # sample.
 GUIDED_OPS_PER_LANE = 16 * (43 + 5 + 11 + 2 + 176) + 100
-# FP32 operations per valid sample of the E-step kernel, the same way:
-# per component 102 (log map with the polynomial arccos, 5x5 triangular
-# solve, Gaussian pdf, posterior) + 4 (normalisation, floor, weight) + 41
-# (the 21 accumulations).
-EM_OPS_PER_SAMPLE = 16 * (102 + 4 + 41)
+# FP32 operations per valid sample and live component of the E-step
+# kernel, the same way: 102 (log map with the polynomial arccos, 5x5
+# triangular solve, Gaussian pdf, posterior) + 4 (normalisation, floor,
+# weight) + 41 (the 21 accumulations).
+EM_OPS_PER_COMPONENT = 102 + 4 + 41
 # FP32 operations of trace, the same way (csrc/bounce_math.cuh woop_tri and
 # csrc/guided_step.cu trace_kernel): 60 per lane and triangle (the Woop
 # transform, the barycentric tests, the closest-hit update), 80 per lane
@@ -399,24 +407,48 @@ def phase_em(dev):
               f"em: kernel less accurate than the twin on {name}")
     max_abs_err = max(errs)
 
-    samples, tile_leaf, tile_off, _, count = ems.sort_and_tile(
-        pos, d, w, leaf, L, S)
+    again = ems.e_step(sdmm, prep, pos, d, w, leaf, L)
+    check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+          "em: two calls on one input differ")
+    rows, order, leaf_start, tile_off, count = ems.sort_and_tile(
+        pos, d, w, leaf, L)
+    want = ems.sort_and_tile_plain(pos, d, w, leaf, L)
+    n_valid = int(count.sum())
+    o = want[1][:n_valid].long()
+    check(torch.equal(order[:n_valid].long(), o)
+          and torch.equal(rows[o], want[0][o])
+          and all(torch.equal(a, b) for a, b in
+                  zip((leaf_start, tile_off, count), want[2:])),
+          "em: the packed rows, the sort or the work list differ from the "
+          "twin's")
     params = ems.pack_params(sdmm, prep)
-    ms = time_ms(lambda: ems.suffstats(samples, tile_leaf, tile_off, params,
-                                       L), reps=20)
-    glue_ms = time_ms(lambda: ems.sort_and_tile(pos, d, w, leaf, L, S),
-                      reps=5)
+    ms = time_ms(lambda: ems.e_step(sdmm, prep, pos, d, w, leaf, L),
+                 reps=20)
+    kernel_ms = time_ms(lambda: ems.suffstats(
+        rows, order, leaf_start, tile_off, params, L), reps=20, graph=True)
+    glue_ms = time_ms(lambda: ems.sort_and_tile(pos, d, w, leaf, L),
+                      reps=20)
     plain_ms = time_ms(lambda: ems.e_step_plain(sdmm, prep, pos, d, w, leaf,
                                                 L), reps=5)
-    n_valid = int(count.sum())
-    bytes_ = (n_valid * 7 * 4 + tile_leaf.numel() * 4 + tile_off.numel() * 4
-              + params.numel() * 4 + L * 16 * 21 * 4)
+    # Operations of the live components only: the kernel skips a component
+    # of zero weight, whose posterior is 0 exactly.
+    live = (sdmm.weight != 0).sum(-1).double()
+    ops = float((count.double() * live).sum()) * EM_OPS_PER_COMPONENT
+    bytes_ = (pos.numel() + d.numel() + w.numel() + leaf.numel()) * 4 \
+        + params.numel() * 4 + L * 16 * (1 + 5 + 25) * 4 + L * 8
     t_bytes = bytes_ / PEAK_BYTES * 1e3
-    t_ops = n_valid * EM_OPS_PER_SAMPLE / PEAK_FP32 * 1e3
-    print(f"em_suffstats: {n_valid} valid samples, max|err| {max_abs_err:.3g}"
-          f", kernel {ms:.4f} ms, sort_and_tile glue {glue_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms (bytes "
-          f"{t_bytes:.4f}, ops {t_ops:.4f})", flush=True)
+    t_ops = ops / PEAK_FP32 * 1e3
+    n_tiles = int(tile_off[-1])
+    print(f"em_suffstats: {n_valid} valid samples of {S}, {n_tiles} tiles of"
+          f" at most {ems.TILE} ({ems.cap_tiles(S, L)} blocks launched), "
+          f"live components {float(live.mean()):.3f} a leaf; max|err| "
+          f"{max_abs_err:.3g}; e_step wrapper {ms:.4f} ms, kernels alone "
+          f"{kernel_ms:.4f} ms, sort_and_tile (keys, rows, counting sort, "
+          f"scans) "
+          f"{glue_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, ops "
+          f"{t_ops:.4f})", flush=True)
+    print_kernel_info(ems.kernel_info())
     return {"name": "em_suffstats", "route": "cuda",
             "source": "sdmm_tpu_torch/csrc/em_suffstats.cu",
             "replaces": "sdmm_tpu/ops/em_pallas.py:169",
@@ -984,6 +1016,7 @@ def phase_path_row(dev, guided_mean, smi, width=640, height=360):
     check(isweep.mt_sweep.launches == 2 * eager["steps"],
           "path row: the eager pool's intersect and occluded did not go "
           "through mt_sweep")
+    launches["mt_sweep"] = isweep.mt_sweep.launches
     m_eager = float((eager["image"] / eager["weight"].clamp_min(1.0)[:, None])
                     .mean())
     m_row, m_row2 = float(row["image"].mean()), float(row2["image"].mean())
@@ -1131,7 +1164,9 @@ def phase_sweep(dev, N=262_144, width=640, height=360):
         t_ops = N * n_tris * MT_OPS_PER_TRI / PEAK_FP32 * 1e3
         print(f"mt_sweep [{name}]: kernel {ms:.4f} ms, bound "
               f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, ops "
-              f"{t_ops:.4f})", flush=True)
+              f"{t_ops:.4f}; every operation a separate instruction: "
+              f"{2 * t_ops:.4f})", flush=True)
+        print_kernel_info(isweep.kernel_info(n_tris), f" [{name}]")
         if name == "cornell":
             plain_ms = time_ms(lambda: isweep.mt_sweep_plain(
                 ro, rd, tm, *tris), reps=5)
@@ -1389,7 +1424,13 @@ def main():
                *phase_path_kernels(dev), phase_sweep(dev),
                phase_cull(dev, large)]
     launches, guided_mean = phase_main_path(dev)
-    launches.update(phase_path_row(dev, guided_mean, smi))
+    # mt_sweep's count sums its two paths: phase 5's training iterations
+    # and phase 6's eager render_pool.
+    row = phase_path_row(dev, guided_mean, smi)
+    print(f"mt_sweep launches: {launches['mt_sweep']} in phase 5, "
+          f"{row['mt_sweep']} in phase 6", flush=True)
+    launches["mt_sweep"] += row.pop("mt_sweep")
+    launches.update(row)
     # guided_sample's count sums its two paths: phase 5's training
     # iterations and phase 7's training and eager frozen iterations.
     launches["clas_cull"], n_gs = phase_large_path(dev, large, large_cfg,

@@ -11,32 +11,114 @@
 // t < min(best_t, t_max); triangles are swept in index order with a strict
 // <, so the lowest index wins among equal t, as the reference's chunk
 // argmin and strict < across chunks give. A degenerate triangle has
-// det = 0 and is skipped before its t is used, so it never yields a NaN.
+// det = 0 and fails the det test, so its NaN t is never taken.
 //
-// One thread owns one ray; a block of 128 stages 128 triangles at a time
-// (v0, e1, e2: 4.5 KB) in shared memory, component-major, from coalesced
-// reads of the [T, 3] arrays. A thread past the last ray sweeps a real
-// ray's copy so that it joins every barrier, and writes nothing. The file
-// is compiled with -fmad=false: every multiply and add rounds on its own,
-// in the order of the plain twin's PyTorch operations (ops/intersect_sweep
-// _mt_chunk), so kernel and twin give the same winner, t, u and v.
+// The file is compiled with -fmad=false: every multiply and add rounds on
+// its own, in the order of the plain twin's PyTorch operations
+// (ops/intersect_sweep _mt_chunk), so kernel and twin give the same winner,
+// t, u and v, bit for bit.
+//
+// What bounds it: instructions issued. Before this design the inner loop
+// took ~88 SASS instructions a ray-triangle pair for ~46 multiplies and
+// adds (nine 4-byte shared loads, the IEEE division's slow-path
+// scaffolding, the tests and the branch of the det test), at 3.2-3.8x the
+// operation bound. Now:
+//  - the whole scene (<= 1024 triangles) is staged once a block as 48-byte
+//    rows (v0, e1, e2) behind one barrier, in dynamic shared memory sized to
+//    the scene, and read as three 16-byte words a triangle;
+//  - the det test is a select, not a branch, and t_max and the best t are
+//    one limit;
+//  - above DEFER_FROM triangles each thread sweeps R = 4 rays and defers
+//    the reciprocal and the scaling of u, v and t behind a pre-test on their
+//    unscaled numerators and a warp vote (mt_pair<true>): with many small
+//    triangles few warps have a lane near any one triangle, and the four
+//    rays share each staged row. On a few large triangles some lane of a
+//    warp passes the pre-test on most triangles (u >= 0 and v >= 0 on 99.3%
+//    of warp-triangle pairs on the Cornell box), so there each thread sweeps
+//    one ray with no vote. The threshold and the ray counts were measured
+//    on chip_smoke.py phase 7's four scenes (scripts/em_sweep_variants.py).
 //
 // Bound: 61 FP32 operations per ray and triangle (the cross products, the
 // determinant and its reciprocal, u, v, t, the six tests and the update),
 // against 28 bytes in and 16 out per ray and 36 per triangle: operations
-// bound it from ~14 triangles on. On the 36-triangle Cornell box, 262,144
-// rays move 11.5 MB (~3.4 us at 3.35 TB/s) and need 5.8e8 operations
-// (~8.6 us at 67 TFLOP/s); chip_smoke.py computes both from its run.
+// bound it from ~14 triangles on. With every multiply and add a separate
+// instruction, the same arithmetic cannot run faster than twice that bound.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int TILE = 128;  // triangles staged in shared memory per chunk
+constexpr int MAX_TRIS = 1024;     // triangles staged at a time
+constexpr int ROW = 12;            // floats a staged triangle (48 bytes)
+constexpr int DEFER_FROM = 100;    // triangles from which the vote pays
 constexpr float INF = 3.4e38f;
 constexpr float EPS = 1e-6f;
 
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, lim, t, u, v;
+  int tri;
+};
+
+// One ray against one triangle, in the twin's order of operations. With
+// DEFER, the reciprocal and the scaling of u, v and t wait behind a
+// pre-test on their unscaled numerators U, V, T and a warp vote; the
+// result is the same on every pair, as the pre-test passes every pair that
+// the final test accepts. With s = sign(det), A = |det| > 1e-12 and
+// r = fl(1/det) (finite, nonzero, sign s, within 2^-24 of 1/det relative,
+// or 2^-150 absolute where 1/A is subnormal):
+//  - u = fl(U r) >= 0 needs s U >= 0, or s U < 0 with U r rounding to -0,
+//    so |U r| <= 2^-150 and |U| <= 2^-149 A (or <= 1/2 where r is
+//    subnormal): below fl(A 2^-100), as A > 2^-40 makes A 2^-100 >= 2^-140.
+//    The same for v.
+//  - fl(u + v) <= 1 needs u + v <= 1 + 2^-24, so s U + s V <=
+//    A (1 + 2^-21), below fl(A * 1.0001f) (or it overflows to inf).
+//  - t > EPS > 0 needs T r > 0, that is s T > 0, exactly.
+//  - t = fl(T r) < lim, t normal, needs s T < lim A (1 + 2^-22), below
+//    fl(fl(lim A) * 1.0001f) (or it overflows to inf); a NaN lim rejects
+//    in both.
+// A NaN or infinite U, V or T fails the final test, so the pre-test's
+// answer there does not matter. Every lane of the warp reaches the vote:
+// the triangle loop is uniform over the block.
+template <bool DEFER>
+__device__ __forceinline__ void mt_pair(Ray& r, float v0x, float v0y,
+                                        float v0z, float e1x, float e1y,
+                                        float e1z, float e2x, float e2y,
+                                        float e2z, int idx) {
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool det_ok = fabsf(det) > 1e-12f;
+  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+  const float U = tx * px + ty * py + tz * pz;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float V = r.dx * qx + r.dy * qy + r.dz * qz;
+  const float T = e2x * qx + e2y * qy + e2z * qz;
+  if (DEFER) {
+    const float A = fabsf(det);
+    const bool neg = det < 0.0f;
+    const float us = neg ? -U : U, vs = neg ? -V : V, ts = neg ? -T : T;
+    const bool pre = det_ok && us >= -(A * 0x1p-100f) &&
+                     vs >= -(A * 0x1p-100f) && ts > 0.0f &&
+                     us + vs <= A * 1.0001f && ts <= r.lim * A * 1.0001f;
+    if (!__any_sync(0xffffffffu, pre)) return;
+  }
+  const float inv_det = 1.0f / (det_ok ? det : 1.0f);
+  const float u = U * inv_det, v = V * inv_det, t = T * inv_det;
+  if (det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > EPS &&
+      t < r.lim) {
+    r.lim = t;
+    r.t = t;
+    r.u = u;
+    r.v = v;
+    r.tri = idx;
+  }
+}
+
+template <int R, bool DEFER>
 __global__ void __launch_bounds__(THREADS)
 mt_sweep_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                 const float* __restrict__ t_max,
@@ -44,58 +126,65 @@ mt_sweep_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                 const float* __restrict__ e2, float* __restrict__ out_t,
                 int* __restrict__ out_tri, float* __restrict__ out_u,
                 float* __restrict__ out_v, int n, int T) {
-  __shared__ float sh[9][TILE];  // v0xyz, e1xyz, e2xyz of the chunk
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  const bool active = i < n;
-  const int li = active ? i : n - 1;
-  const float rox = ro[3 * li], roy = ro[3 * li + 1], roz = ro[3 * li + 2];
-  const float rdx = rd[3 * li], rdy = rd[3 * li + 1], rdz = rd[3 * li + 2];
-  const float tmax = t_max[li];
+  extern __shared__ float4 rows[];  // [min(T, MAX_TRIS)][3]
+  float* rowf = reinterpret_cast<float*>(rows);
+  const int first = blockIdx.x * THREADS * R + threadIdx.x;
+  Ray ray[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    // A ray past the last one sweeps a copy of ray n - 1, so that its
+    // thread joins every barrier, and writes nothing.
+    const int i = min(first + k * THREADS, n - 1);
+    Ray& r = ray[k];
+    r.ox = ro[3 * i], r.oy = ro[3 * i + 1], r.oz = ro[3 * i + 2];
+    r.dx = rd[3 * i], r.dy = rd[3 * i + 1], r.dz = rd[3 * i + 2];
+    // t < lim stands for t < t_max && t < best_t (best_t starts at INF); a
+    // NaN t_max stays NaN, so no t passes, as in the twin.
+    const float tm = t_max[i];
+    r.lim = tm >= INF ? INF : tm;
+    r.t = INF, r.u = 0.0f, r.v = 0.0f, r.tri = -1;
+  }
 
-  float best_t = INF, best_u = 0.0f, best_v = 0.0f;
-  int best_i = -1;
-  for (int base = 0; base < T; base += TILE) {
-    const int cnt = min(TILE, T - base);
-    __syncthreads();  // the previous chunk has been swept
+  for (int base = 0; base < T; base += MAX_TRIS) {
+    const int cnt = min(MAX_TRIS, T - base);
+    if (base > 0) __syncthreads();  // the previous chunk has been swept
     for (int k = threadIdx.x; k < 3 * cnt; k += THREADS) {
       const int c = k / 3, comp = k - 3 * c;
       const size_t g = (size_t)base * 3 + k;
-      sh[comp][c] = __ldg(v0 + g);
-      sh[3 + comp][c] = __ldg(e1 + g);
-      sh[6 + comp][c] = __ldg(e2 + g);
+      rowf[c * ROW + comp] = __ldg(v0 + g);
+      rowf[c * ROW + 3 + comp] = __ldg(e1 + g);
+      rowf[c * ROW + 6 + comp] = __ldg(e2 + g);
     }
     __syncthreads();
     for (int c = 0; c < cnt; ++c) {
-      const float v0x = sh[0][c], v0y = sh[1][c], v0z = sh[2][c];
-      const float e1x = sh[3][c], e1y = sh[4][c], e1z = sh[5][c];
-      const float e2x = sh[6][c], e2y = sh[7][c], e2z = sh[8][c];
-      const float px = rdy * e2z - rdz * e2y;
-      const float py = rdz * e2x - rdx * e2z;
-      const float pz = rdx * e2y - rdy * e2x;
-      const float det = e1x * px + e1y * py + e1z * pz;
-      if (!(fabsf(det) > 1e-12f)) continue;
-      const float inv_det = 1.0f / det;
-      const float tx = rox - v0x, ty = roy - v0y, tz = roz - v0z;
-      const float u = (tx * px + ty * py + tz * pz) * inv_det;
-      const float qx = ty * e1z - tz * e1y;
-      const float qy = tz * e1x - tx * e1z;
-      const float qz = tx * e1y - ty * e1x;
-      const float v = (rdx * qx + rdy * qy + rdz * qz) * inv_det;
-      const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-      if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > EPS && t < tmax &&
-          t < best_t) {
-        best_t = t;
-        best_u = u;
-        best_v = v;
-        best_i = base + c;
-      }
+      const float4 a = rows[3 * c], b = rows[3 * c + 1], e = rows[3 * c + 2];
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        mt_pair<DEFER>(ray[k], a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, e.x,
+                       base + c);
     }
   }
-  if (!active) return;
-  out_t[i] = best_t;
-  out_tri[i] = best_i;
-  out_u[i] = best_u;
-  out_v[i] = best_v;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int i = first + k * THREADS;
+    if (i < n) {
+      out_t[i] = ray[k].t;
+      out_tri[i] = ray[k].tri;
+      out_u[i] = ray[k].u;
+      out_v[i] = ray[k].v;
+    }
+  }
+}
+
+size_t shared_bytes(int T) {
+  return (size_t)min(T, MAX_TRIS) * ROW * sizeof(float);
+}
+
+// The kernel a scene of T triangles takes, and its rays a thread.
+const void* kernel_for(int T, int* rays) {
+  *rays = T >= DEFER_FROM ? 4 : 1;
+  return T >= DEFER_FROM ? (const void*)mt_sweep_kernel<4, true>
+                         : (const void*)mt_sweep_kernel<1, false>;
 }
 
 }  // namespace
@@ -105,8 +194,34 @@ extern "C" int mt_sweep_launch(const float* ro, const float* rd,
                                const float* e1, const float* e2, float* t,
                                int* tri, float* u, float* v, int n, int T,
                                void* stream) {
-  const int blocks = (n + THREADS - 1) / THREADS;
-  mt_sweep_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      ro, rd, t_max, v0, e1, e2, t, tri, u, v, n, T);
+  int rays;
+  kernel_for(T, &rays);
+  const int blocks = (n + THREADS * rays - 1) / (THREADS * rays);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rays == 4)
+    mt_sweep_kernel<4, true><<<blocks, THREADS, shared_bytes(T), st>>>(
+        ro, rd, t_max, v0, e1, e2, t, tri, u, v, n, T);
+  else
+    mt_sweep_kernel<1, false><<<blocks, THREADS, shared_bytes(T), st>>>(
+        ro, rd, t_max, v0, e1, e2, t, tri, u, v, n, T);
   return (int)cudaGetLastError();
+}
+
+// Registers, local (spilled) bytes, static shared bytes and resident blocks
+// an SM of the kernel a scene of T triangles takes (which 0), with its
+// dynamic shared memory, into info[4].
+extern "C" int mt_sweep_info(int, int T, int* info) {
+  int rays;
+  const void* f = kernel_for(T, &rays);
+  cudaFuncAttributes a{};
+  cudaError_t e = cudaFuncGetAttributes(&a, f);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, THREADS,
+                                                      shared_bytes(T));
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = (int)a.sharedSizeBytes;
+  info[3] = blocks;
+  return (int)e;
 }

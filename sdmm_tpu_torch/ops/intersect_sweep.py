@@ -4,9 +4,10 @@
 
 ``mt_sweep`` launches ``csrc/mt_sweep.cu`` for tensors on the card and runs
 ``mt_sweep_plain`` for tensors on the CPU. The kernel reads the scene's
-[T, 3] triangle arrays as they lie; the reference's transposed, padded copy
-was a TPU layout. Both return the hit record of ``render/intersect.py``:
-t (INF on a miss), tri (int32, -1 on a miss), u, v (0 on a miss), valid.
+[T, 3] triangle arrays as they lie (the reference's transposed, padded copy
+was a TPU layout), stages them once a block and sweeps two rays a thread.
+Both return the hit record of ``render/intersect.py``: t (INF on a miss),
+tri (int32, -1 on a miss), u, v (0 on a miss), valid.
 """
 
 from __future__ import annotations
@@ -106,3 +107,11 @@ def mt_sweep(ro, rd, t_max, v0, e1, e2):
 
 
 mt_sweep.launches = 0
+
+
+def kernel_info(n_tris: int) -> dict[str, dict[str, int]]:
+    """Registers, spilled (local) bytes, static shared bytes and resident
+    blocks an SM of the sweep kernel, as built, with the shared memory it
+    takes for a scene of ``n_tris`` triangles."""
+    return _build.kernel_info("mt_sweep", "mt_sweep_info", ("mt_sweep",),
+                              n_tris)

@@ -79,26 +79,93 @@ def test_plain_twin_matches_reference(reference):
         np.testing.assert_array_equal(to_np(a), to_np(b))
 
 
+def _check_work_list(order, leaf_start, tile_off, count, leaf, L, tile):
+    """Every tile covers a run of one leaf, at most ``tile`` long, and the
+    tiles of each leaf cover its run exactly once, in order; the sorted
+    runs hold that leaf's valid samples."""
+    n_tiles = tes.cap_tiles(order.shape[0], L, tile)
+    tl, start, end = (to_np(x) for x in tes.work_list(leaf_start, tile_off,
+                                                      n_tiles, tile))
+    ls, off, order, leaf = (to_np(x) for x in (leaf_start, tile_off, order,
+                                               leaf))
+    np.testing.assert_array_equal(np.diff(ls), to_np(count))
+    used = tl < L
+    assert used.sum() == off[L] <= n_tiles
+    assert (end[used] - start[used] >= 1).all()
+    assert (end[used] - start[used] <= tile).all()
+    for lf in range(L):
+        mine = np.flatnonzero(tl == lf)
+        np.testing.assert_array_equal(mine, np.arange(off[lf], off[lf + 1]))
+        cover = np.concatenate([np.arange(a, b) for a, b in
+                                zip(start[mine], end[mine])] or [[]])
+        np.testing.assert_array_equal(cover, np.arange(ls[lf], ls[lf + 1]))
+        assert (leaf[order[ls[lf]:ls[lf + 1]]] == lf).all()
+
+
 def test_sort_and_tile_and_pack_params_match():
+    """The sorted order and work list against the reference's
+    sort_and_tile with its padding stripped: the same samples in the same
+    order, the same counts, weight sums within rtol 1e-6."""
     js, ts, pos, d, w, leaf = _problem(1, L=4, S=3000)
     jsamp, jtl, jws, jcnt = jep.sort_and_tile(
         jnp.asarray(pos), jnp.asarray(d), jnp.asarray(w), jnp.asarray(leaf),
         4, 3000)
-    samp, tl, toff, ws, cnt = tes.sort_and_tile(
-        t(pos), t(d), t(w), torch.as_tensor(leaf), 4, 3000)
-    np.testing.assert_array_equal(to_np(samp),
-                                  np.asarray(jsamp).reshape(8, -1))
-    np.testing.assert_array_equal(to_np(tl), np.asarray(jtl))
+    rows, order, ls, toff, cnt = tes.sort_and_tile(
+        t(pos), t(d), t(w), torch.as_tensor(leaf), 4)
     np.testing.assert_array_equal(to_np(cnt), np.asarray(jcnt))
-    np.testing.assert_allclose(to_np(ws), np.asarray(jws), rtol=1e-6)
-    # tile_off[l] is the first tile of leaf l.
-    tl_np, off = to_np(tl), to_np(toff)
-    for lf in range(4):
-        assert (tl_np[off[lf]:off[lf + 1]] == lf).all()
+    # The reference's rows without padding: each leaf's tiles in order, the
+    # first count[leaf] slots of them.
+    jsamp = np.asarray(jsamp).reshape(8, -1, jep.TILE)
+    jtl, jcnt = np.asarray(jtl), np.asarray(jcnt)
+    ref = np.concatenate([jsamp[:, jtl == lf].reshape(8, -1)[:, :jcnt[lf]]
+                          for lf in range(4)], axis=1)
+    n_valid = int(jcnt.sum())
+    o = to_np(order)[:n_valid]
+    np.testing.assert_array_equal(to_np(rows)[o].T, ref)
+    ws = np.add.reduceat(w[o].astype(np.float64), to_np(ls)[:4]) \
+        * (np.asarray(jcnt) > 0)
+    np.testing.assert_allclose(ws, np.asarray(jws), rtol=1e-6)
+    _check_work_list(order, ls, toff, cnt, leaf, 4, tes.TILE)
     np.testing.assert_allclose(
         to_np(tes.pack_params(ts, tmix.prepare(ts))),
         np.asarray(jep.pack_params(js, jmix.prepare(js))), rtol=1e-4,
         atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["sizes", "all invalid", "empty"])
+def test_work_list_edge_cases(case):
+    """Leaves of 0, 1, TILE and TILE + 1 samples (and one of 2 TILE + 5),
+    with invalid rows interleaved; every sample invalid; no samples."""
+    tile, L = tes.TILE, 6
+    sizes = {"sizes": [0, 1, tile, tile + 1, 2 * tile + 5, 0],
+             "all invalid": [3, 0, 7, 0, 0, 1], "empty": [0] * L}[case]
+    rs = np.random.RandomState(3)
+    leaf = rs.permutation(np.repeat(np.arange(L), sizes)).astype(np.int64)
+    w = rs.rand(leaf.size).astype(np.float32)
+    if case == "all invalid":
+        w[:] = -1.0
+    elif case == "sizes":  # invalid rows: negative, NaN, out of range
+        leaf = np.concatenate([leaf, [2, 3, 4, -1, L]])
+        w = np.concatenate([w, [-1.0, np.nan, np.inf, 0.5, 0.5]]
+                           ).astype(np.float32)
+    n = leaf.size
+    pos, dirs = rs.rand(n, 3), rs.randn(n, 3)
+    dirs /= np.maximum(np.linalg.norm(dirs, axis=-1, keepdims=True), 1e-6)
+    _, order, ls, toff, cnt = tes.sort_and_tile(
+        t(pos), t(dirs), t(w), torch.as_tensor(leaf), L)
+    want = sizes if case != "all invalid" else [0] * L
+    np.testing.assert_array_equal(to_np(cnt), want)
+    _check_work_list(order, ls, toff, cnt, leaf, L, tile)
+    assert int(to_np(toff)[L]) == sum(-(-c // tile) for c in want)
+    # The statistics of a leaf without samples are zero.
+    st = make_mixture_state(4, L)
+    sdmm = tmix.SDMM(weight=t(st["weight"]), mean=t(st["mean"]),
+                     cov=t(st["cov"]))
+    out = tes.e_step(sdmm, tmix.prepare(sdmm), t(pos), t(dirs), t(w),
+                     torch.as_tensor(leaf), L)
+    np.testing.assert_array_equal(to_np(out[4]), want)
+    for lf in np.flatnonzero(np.asarray(want) == 0):
+        assert all(float(x[lf].abs().sum()) == 0.0 for x in out[:4])
 
 
 def test_empty_and_single_leaf():

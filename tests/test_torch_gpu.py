@@ -185,6 +185,72 @@ def test_em_suffstats_kernel_matches_twin(cuda, L, S):
                                    atol=af * float(b.abs().max()) + 1e-12)
 
 
+def _em_case(cuda, case):
+    """E-step inputs: leaves of 0, 1, TILE and TILE + 1 samples (and
+    2 TILE + 5), int32 leaf ids; or the trainer's replica layout, int64
+    leaf ids with most rows w = -1 (rows past the filled replicas)."""
+    L, tile = 6, ems.TILE
+    rs = np.random.RandomState(8)
+    if case == "sizes":
+        leaf = rs.permutation(np.repeat(np.arange(L), [0, 1, tile, tile + 1,
+                                                       2 * tile + 5, 0]))
+        leaf = leaf.astype(np.int32)
+        w = (rs.rand(leaf.size) * 2.0).astype(np.float32)
+    else:
+        L, n, filled = 64, 1 << 17, 20_000
+        leaf = rs.randint(0, L - 4, size=n).astype(np.int64)  # 4 empty
+        w = np.full(n, -1.0, np.float32)
+        w[:filled] = rs.rand(filled) * 2.0
+        leaf[filled:] = 0
+    n = leaf.size
+    sdmm, _ = _state(6, L, cuda)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (sdmm, mix.prepare(sdmm),
+            *(torch.as_tensor(a, device=cuda) for a in (
+                rs.rand(n, 3).astype(np.float32), d, w, leaf)), L)
+
+
+@pytest.mark.parametrize("case", ["sizes", "replicas"])
+def test_e_step_pipeline_on_edge_layouts(cuda, case):
+    """The kernels' packed rows, sort and work list equal their twin's; the
+    statistics match a float64 evaluation of the twin (tolerances of the
+    test above) and two calls on one input give the same bits."""
+    sdmm, prep, pos, d, w, leaf, L = _em_case(cuda, case)
+    got = ems.sort_and_tile(pos, d, w, leaf, L)
+    want = ems.sort_and_tile_plain(pos, d, w, leaf, L)
+    n_valid = int(want[2][-1])
+    o = want[1][:n_valid].long()
+    assert torch.equal(got[1][:n_valid].long(), o)
+    assert torch.equal(got[0][o], want[0][o])
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a, b)
+    # The statistics against a float64 evaluation of the twin: near a
+    # component's antipode the float32 twin's own rounding reaches the
+    # tolerance (chip_smoke.py phase 3 measures the two errors).
+    ref = ems.e_step_plain(
+        type(sdmm)(*(x.double() for x in sdmm)),
+        type(prep)(*(x.double() if x.is_floating_point() else x
+                     for x in prep)), pos.double(), d.double(), w.double(),
+        leaf, L)
+    ref = tuple(x.float() if x.is_floating_point() else x for x in ref)
+    out = ems.e_step(sdmm, prep, pos, d, w, leaf, L)
+    again = ems.e_step(sdmm, prep, pos, d, w, leaf, L)
+    torch.cuda.synchronize()
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    assert torch.equal(out[4], ref[4])
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-5, atol=0)
+    for a, b, rtol, af in ((out[0], ref[0], 2e-4, 2e-5),
+                           (out[1], ref[1], 2e-4, 4e-4),
+                           (out[2], ref[2], 3e-4, 4e-4)):
+        torch.testing.assert_close(a, b, rtol=rtol,
+                                   atol=af * float(b.abs().max()) + 1e-12)
+    empty = ref[4] == 0
+    assert bool(empty.any()) and all(
+        float(x[empty].abs().sum()) == 0.0 for x in out[:4])
+
+
 def _wave(cuda, n, seed):
     scene, cfg = make_box(tscene, tshapes, 16, 16, True).build(device=cuda)
     tri, _, env = bo.build_tables(scene)
@@ -514,6 +580,90 @@ def test_mt_sweep_kernel_matches_twin(cuda, n, extra):
     for k in ("tri", "valid", "t", "u", "v"):
         assert torch.equal(got[k], want[k]), k
     assert 0.3 < float(want["valid"].float().mean()) < 0.95
+
+
+def _sweep_equal(ro, rd, tm, tris):
+    got = intersect_sweep.mt_sweep(ro, rd, tm, *tris)
+    torch.cuda.synchronize()
+    want = intersect_sweep.mt_sweep_plain(ro, rd, tm, *tris)
+    for k in ("tri", "valid", "t", "u", "v"):
+        assert torch.equal(got[k], want[k]), k
+    return want
+
+
+def _random_tris(cuda, n_tris, seed):
+    rs = np.random.RandomState(seed)
+    v0 = rs.uniform(-1.0, 1.0, (n_tris, 3))
+    e1, e2 = rs.uniform(-0.3, 0.3, (2, n_tris, 3))
+    return tuple(torch.as_tensor(a.astype(np.float32), device=cuda)
+                 for a in (v0, e1, e2))
+
+
+# One triangle, the whole staging budget, and past it (a second staged
+# chunk); ray counts that are no multiple of the 256 rays of a block.
+@pytest.mark.parametrize("n_tris,n", [(1, 257), (1024, 4_099),
+                                      (1100, 1)])
+def test_mt_sweep_on_scene_sizes(cuda, n_tris, n):
+    tris = _random_tris(cuda, n_tris, n_tris)
+    ro, rd, tm = (torch.as_tensor(a, device=cuda) for a in random_rays(
+        tris[0].cpu().numpy(), n, 24))
+    if n_tris == 1:  # every other ray toward the triangle
+        c = tris[0] + (tris[1] + tris[2]) / 3.0
+        toward = torch.nn.functional.normalize(c - ro, dim=-1)
+        rd = torch.where((torch.arange(n, device=cuda) % 2 == 0)[:, None],
+                         toward, rd).contiguous()
+    want = _sweep_equal(ro, rd, tm, tris)
+    if n > 1:
+        assert bool(want["valid"].any()) and not bool(want["valid"].all())
+
+
+def test_mt_sweep_keeps_the_lower_index_on_duplicated_triangles(cuda):
+    scene, _ = make_box(tscene, tshapes, 16, 16).build(device=cuda)
+    tris = tuple(torch.cat([a, a]).contiguous() for a in (
+        scene.tri_v0, scene.tri_e1, scene.tri_e2))
+    ro, rd, tm = _rays(cuda, scene, 8_192, 25)
+    want = _sweep_equal(ro, rd, tm, tris)
+    hit = want["valid"]
+    assert float(hit.float().mean()) > 0.3
+    assert bool((want["tri"][hit] < scene.tri_v0.shape[0]).all())
+
+
+def test_mt_sweep_on_grazing_rays(cuda):
+    """Rays toward points on the triangles' edges (u = 0, v = 0, u + v = 1
+    up to rounding), and rays almost in the plane of the box's axis-aligned
+    walls, with |det| from 0.5e-12 to 2e-12 on both sides of the 1e-12
+    test."""
+    scene, _ = make_box(tscene, tshapes, 16, 16).build(device=cuda)
+    v0, e1, e2 = (a.cpu().numpy().astype(np.float64) for a in (
+        scene.tri_v0, scene.tri_e1, scene.tri_e2))
+    rs = np.random.RandomState(26)
+    n = 8_192
+    k = rs.randint(0, v0.shape[0], n)
+    a = rs.rand(n)[:, None]
+    edge = rs.randint(0, 3, n)[:, None]
+    p = v0[k] + np.where(edge == 0, a * e2[k], np.where(
+        edge == 1, a * e1[k], a * e1[k] + (1 - a) * e2[k]))
+    o = rs.uniform(-1.0, 1.0, (n, 3)) + np.array([0.0, 1.0, 0.0])
+    d = p - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    # In-plane rays: the wall's normal axis gets the component that puts
+    # det = dn * (e1 x e2)[axis] at c * 1e-12.
+    nrm = np.cross(e1[k], e2[k])
+    axis = np.abs(nrm).argmax(-1)
+    flat = np.isclose(np.abs(nrm).max(-1), np.linalg.norm(nrm, axis=-1))
+    half = (np.arange(n) % 2 == 0) & flat
+    c = rs.uniform(0.5, 2.0, n) * np.where(rs.rand(n) < 0.5, -1.0, 1.0)
+    dn = -c * 1e-12 / nrm[np.arange(n), axis]
+    d[half] = rs.randn(int(half.sum()), 3)
+    d[half, axis[half]] = 0.0
+    d[half] /= np.linalg.norm(d[half], axis=-1, keepdims=True)
+    d[half, axis[half]] = dn[half]
+    ro, rd = (torch.as_tensor(x.astype(np.float32), device=cuda)
+              for x in (o, d))
+    tm = torch.full((n,), intersect_sweep.INF, device=cuda)
+    want = _sweep_equal(ro, rd, tm, (scene.tri_v0, scene.tri_e1,
+                                     scene.tri_e2))
+    assert bool(want["valid"].any())
 
 
 def _clusters(cuda, tris, t_c):
