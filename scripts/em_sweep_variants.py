@@ -31,6 +31,18 @@ two of them; and of the sweep on phase 7's four scenes (1, 2 or 4 rays a
 thread, with and without the warp-voted reciprocal), each held against the
 plain twin, with the share of pairs that pass each test on each scene.
 
+--what sort: the whole e_step wrapper with its hand-written counting sort
+against the same pipeline with the counting sort's scatter replaced by a
+stable torch.sort of int16 keys (written by the keys kernel), in
+alternating turns (ABBA, three times 20 calls a turn, by events), at phase
+3's shape and on a phase 5 trainer batch; both held bit-equal.
+
+--what pool: the sweep kernels on the eager render_pool's own queries (its
+intersect and occluded calls, captured at 640x360, 2 spp) on the Cornell
+box with one sphere of 0 to 960 triangles (36 to 996 in all): 1 or 4 rays a
+thread, with and without the warp-voted reciprocal, each a CUDA graph of
+all the captured calls, each call held against the plain twin.
+
 --what wrappers: the whole e_step wrapper at phase 3's shape (CUDA events,
 three times 20 calls) and the mt_sweep wrapper on the Cornell box and the
 996-triangle scene, through the public entry points that DIR's checkout
@@ -53,7 +65,8 @@ import numpy as np
 import torch
 
 ap = argparse.ArgumentParser()
-ap.add_argument("--what", choices=("before", "after", "wrappers"),
+ap.add_argument("--what", choices=("before", "after", "wrappers", "sort",
+                                   "pool"),
                 required=True)
 ap.add_argument("--root", required=True)
 ap.add_argument("--out", default=None)
@@ -524,7 +537,7 @@ def em_after(dev):
 def forced(src, rays, defer):
     """The sweep with every scene on mt_sweep_kernel<rays, defer>."""
     return cut(src, "  int rays;\n  kernel_for(T, &rays);",
-               "  return (int)cudaGetLastError();\n}\n\n// Registers", f"""
+               "  return (int)cudaGetLastError();\n}\n", f"""
   const int blocks = (n + THREADS * {rays} - 1) / (THREADS * {rays});
   mt_sweep_kernel<{rays}, {defer}><<<blocks, THREADS, shared_bytes(T),
                                     (cudaStream_t)stream>>>(
@@ -571,6 +584,145 @@ def sweep_after(dev):
             print(f"  equal to the twin: {eq}", flush=True)
 
 
+def bits_equal(a, b):
+    """Equal bit for bit, NaN included."""
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def sort_ab(dev):
+    src = open(os.path.join(CSRC, "em_suffstats.cu")).read()
+    # The keys kernel writes int16 keys, and em_sort_launch stops before
+    # the scatter (the counts, leaf_start and tile_off stay the kernels').
+    src = sub(src, "int* __restrict__ key, int* __restrict__ hist,",
+              "short* __restrict__ key, int* __restrict__ hist,")
+    src = sub(src, "key[i] = ok ? (int)l : n_leaves;",
+              "key[i] = (short)(ok ? (int)l : n_leaves);")
+    src = sub(src, "S, n_leaves, key, hist,",
+              "S, n_leaves, (short*)key, hist,")
+    src = cut(src, "  if (n_chunks > 0) {\n    const int smem =",
+              "  return (int)err;\n}\n\n// The statistics", "")
+    fn = build("em_torch_sort", src)[0].em_sort_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p] * 8
+    fn.restype = ctypes.c_int
+
+    def e_step_torch_sort(sdmm, prep, pos, d, w, leaf, L):
+        s, i32 = pos.shape[0], torch.int32
+        key = torch.empty(s, dtype=torch.int16, device=dev)
+        hist = torch.empty(-(-s // ems.SORT_CHUNK) * L, dtype=i32, device=dev)
+        rows = torch.empty((s, 8), device=dev)
+        count = torch.empty(L, dtype=i32, device=dev)
+        ls = torch.empty(L + 1, dtype=i32, device=dev)
+        toff = torch.empty(L + 1, dtype=i32, device=dev)
+        _build.check(fn(
+            pos.data_ptr(), d.data_ptr(), w.data_ptr(), leaf.data_ptr(),
+            leaf.element_size(), s, L, ems.TILE, key.data_ptr(),
+            hist.data_ptr(), rows.data_ptr(), count.data_ptr(),
+            ls.data_ptr(), toff.data_ptr(), 0,
+            torch.cuda.current_stream(dev).cuda_stream), "em_sort")
+        order = torch.sort(key, stable=True).indices.to(i32)
+        return (*ems.suffstats(rows, order, ls, toff,
+                               ems.pack_params(sdmm, prep), L), count)
+
+    sdmm, prep, pos, d, w, leaf, L = em_inputs(dev)
+    sd, pr, p, dd, ww, lf, LL = trainer_batches(dev)[1]
+    cases = (("phase 3", (sdmm, prep, pos, d, w, leaf, L), 20),
+             ("trainer call 1", (sd, pr, p, dd, ww, lf, LL), 20))
+    designs = (("counting sort", ems.e_step),
+               ("torch.sort int16", e_step_torch_sort))
+    for name, args, reps in cases:
+        a, b = (f(*args) for _, f in designs)
+        again = designs[0][1](*args)
+        torch.cuda.synchronize()
+        record(f"{name}: the two designs bit-equal (NaN payloads too)",
+               all(bits_equal(x, y) for x, y in zip(a, b)))
+        record(f"{name}: the counting sort bit-equal across two calls",
+               all(bits_equal(x, y) for x, y in zip(a, again)))
+        record(f"{name}: NaN in each output of the counting sort",
+               [int(torch.isnan(x).sum()) if x.is_floating_point() else 0
+                for x in a])
+        record(f"{name}: outputs torch.equal, ignoring NaN",
+               [bool(torch.equal(x.nan_to_num(0.0), y.nan_to_num(0.0)))
+                for x, y in zip(a, b)])
+        times = {k: [] for k, _ in designs}
+        for turn in range(8):
+            first = turn % 4 in (0, 3)  # ABBA ABBA
+            for k, f in (designs if first else designs[::-1]):
+                times[k].append([cs.time_ms(lambda: f(*args), reps=reps)
+                                 for _ in range(3)])
+        for k, v in times.items():
+            flat = [x for turn in v for x in turn]
+            record(f"{name}: e_step wrapper ms, {k} (8 turns of 3)", v)
+            record(f"{name}: {k} mean / min / max ms",
+                   [sum(flat) / len(flat), min(flat), max(flat)])
+        diffs = [sum(x) / 3 - sum(y) / 3 for x, y in
+                 zip(times["torch.sort int16"], times["counting sort"])]
+        record(f"{name}: torch.sort minus counting sort, per turn ms", diffs)
+
+
+def pool_sweep(dev):
+    """The sweep variants on render_pool's captured queries."""
+    from sdmm_tpu_torch.render import intersect as tisect
+    from sdmm_tpu_torch.render.wavefront import render_pool
+
+    src = open(os.path.join(CSRC, "mt_sweep.cu")).read()
+    variants = [(f"{r} rays a thread, vote {defer}", forced(src, r, defer))
+                for r, defer in ((1, "false"), (4, "false"), (1, "true"),
+                                 (4, "true"))]
+    libs = build_all([(f"mt_pool_{j}", s, False)
+                      for j, (_, s) in enumerate(variants)])
+    for sph in (None, (3, 8), (4, 12), (6, 12), (8, 16), (12, 24), (16, 32)):
+        spheres = [] if sph is None else [([0.0, 1.0, 0.3], 0.35, *sph)]
+        scene, cfg = cs.cornell_box(640, 360, dev, spheres=spheres)
+        tris = (scene.tri_v0, scene.tri_e1, scene.tri_e2)
+        T = tris[0].shape[0]
+        calls, real = [], tisect.mt_sweep
+
+        def spy(ro, rd, tm, *a):
+            calls.append((ro.clone(), rd.clone(), tm.clone()))
+            return real(ro, rd, tm, *a)
+
+        tisect.mt_sweep = spy
+        try:
+            render_pool(scene, torch.Generator(device=dev).manual_seed(13),
+                        n_lanes=1 << 18, spp=2, width=640, height=360,
+                        max_depth=10, rr_depth=10, bsdf_types=cfg.bsdf_types,
+                        device=dev)
+        finally:
+            tisect.mt_sweep = real
+        queries = sum(c[0].shape[0] for c in calls)
+        wants = [isweep.mt_sweep_plain(*c, *tris) for c in calls]
+        outs = []
+        for c in calls:
+            n = c[0].shape[0]
+            outs.append((torch.empty(n, device=dev),
+                         torch.empty(n, dtype=torch.int32, device=dev),
+                         torch.empty(n, device=dev),
+                         torch.empty(n, device=dev)))
+        res = {"calls": len(calls), "queries": queries}
+        for (vname, _), (lib, _) in zip(variants, libs):
+            fn = lib.mt_sweep_launch
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 \
+                + [ctypes.c_void_p]
+
+            def run():
+                st = torch.cuda.current_stream().cuda_stream
+                for (ro, rd, tm), (t, tri, u, v) in zip(calls, outs):
+                    fn(ro.data_ptr(), rd.data_ptr(), tm.data_ptr(),
+                       tris[0].data_ptr(), tris[1].data_ptr(),
+                       tris[2].data_ptr(), t.data_ptr(), tri.data_ptr(),
+                       u.data_ptr(), v.data_ptr(), ro.shape[0], T, st)
+            run()
+            torch.cuda.synchronize()
+            eq = all(torch.equal(a, w[k]) for o, w in zip(outs, wants)
+                     for a, k in zip(o, ("t", "tri", "u", "v")))
+            res[vname] = {"ms": [cs.time_ms(run, reps=1, graph=True)
+                                 for _ in range(2)], "equal": eq}
+        record(f"render_pool queries, {T} triangles", res)
+
+
 def wrappers(dev):
     sdmm, prep, pos, d, w, leaf, L = em_inputs(dev)
     record("phase 3 e_step wrapper ms (events)", [cs.time_ms(
@@ -590,6 +742,10 @@ def main():
     record("card", cs.nvidia_smi_line())
     if ARGS.what == "wrappers":
         wrappers(dev)
+    elif ARGS.what == "sort":
+        sort_ab(dev)
+    elif ARGS.what == "pool":
+        pool_sweep(dev)
     elif ARGS.what == "before":
         em_before(dev)
         sweep_before(dev)

@@ -24,7 +24,10 @@
 //     em_scatter_kernel stages a chunk's keys and walks them in order with
 //     one warp, the lanes of one key (__match_any_sync) taking consecutive
 //     places after that key's counter. An invalid sample takes its key and
-//     nothing else: no row, no place, no posterior.
+//     nothing else: no row, no place, no posterior. Past MAX_SHARED_HIST
+//     leaves the counters live in global memory. The sort measured faster
+//     than a stable torch.sort of int16 keys in the same pipeline
+//     (scripts/em_sweep_variants.py --what sort).
 //  2. em_plan_kernel, one block: exclusive scans of the leaf counts (each
 //     leaf's first place in the order) and of its tile counts
 //     ceil(count / tile) (each leaf's first tile).

@@ -35,8 +35,10 @@
 //    rays share each staged row. On a few large triangles some lane of a
 //    warp passes the pre-test on most triangles (u >= 0 and v >= 0 on 99.3%
 //    of warp-triangle pairs on the Cornell box), so there each thread sweeps
-//    one ray with no vote. The threshold and the ray counts were measured
-//    on chip_smoke.py phase 7's four scenes (scripts/em_sweep_variants.py).
+//    one ray with no vote. The threshold was set on the eager render_pool's
+//    own queries over the Cornell box with one sphere, 36 to 996 triangles
+//    (scripts/em_sweep_variants.py --what pool): the voted kernel loses at
+//    36 and 68 triangles and wins from 108 on, by more as triangles shrink.
 //
 // Bound: 61 FP32 operations per ray and triangle (the cross products, the
 // determinant and its reciprocal, u, v, t, the six tests and the update),
@@ -205,6 +207,14 @@ extern "C" int mt_sweep_launch(const float* ro, const float* rd,
     mt_sweep_kernel<1, false><<<blocks, THREADS, shared_bytes(T), st>>>(
         ro, rd, t_max, v0, e1, e2, t, tri, u, v, n, T);
   return (int)cudaGetLastError();
+}
+
+// The rays a thread of the kernel a scene of T triangles takes: 4 for the
+// warp-voted kernel, 1 for the other.
+extern "C" int mt_sweep_rays(int T) {
+  int rays;
+  kernel_for(T, &rays);
+  return rays;
 }
 
 // Registers, local (spilled) bytes, static shared bytes and resident blocks

@@ -5,7 +5,9 @@
 ``mt_sweep`` launches ``csrc/mt_sweep.cu`` for tensors on the card and runs
 ``mt_sweep_plain`` for tensors on the CPU. The kernel reads the scene's
 [T, 3] triangle arrays as they lie (the reference's transposed, padded copy
-was a TPU layout), stages them once a block and sweeps two rays a thread.
+was a TPU layout) and stages them once a block. Below ``DEFER_FROM``
+triangles a thread sweeps one ray; from it on four, with the reciprocal
+behind an exact pre-test and a warp vote (``rays_per_thread``).
 Both return the hit record of ``render/intersect.py``: t (INF on a miss),
 tri (int32, -1 on a miss), u, v (0 on a miss), valid.
 """
@@ -20,6 +22,7 @@ from . import _build
 from .bounce import EPS, INF
 
 CHUNK = 128  # triangles per [N, CHUNK] block of the plain sweep
+DEFER_FROM = 100  # triangles from which the kernel votes (the .cu's)
 
 
 def _mt_chunk(ro, rd, v0, e1, e2, t_max):
@@ -107,6 +110,15 @@ def mt_sweep(ro, rd, t_max, v0, e1, e2):
 
 
 mt_sweep.launches = 0
+
+
+def rays_per_thread(n_tris: int) -> int:
+    """Rays a thread of the sweep kernel that a scene of ``n_tris``
+    triangles takes: 4 for the warp-voted kernel, 1 for the other."""
+    fn = _build.load("mt_sweep").mt_sweep_rays
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(n_tris)
 
 
 def kernel_info(n_tris: int) -> dict[str, dict[str, int]]:

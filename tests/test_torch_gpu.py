@@ -31,8 +31,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_parity import (  # noqa: E402
-    doubled_spheres, lane_wave, make_box, make_glossy_box, make_sphere_box,
-    make_tiled_box, path_wave, random_rays, rays_at,
+    doubled_spheres, grazing_rays, lane_wave, make_box, make_glossy_box,
+    make_sphere_box, make_tiled_box, path_wave, random_rays, rays_at,
 )
 
 from sdmm_tpu_torch.guiding import init as init_mod  # noqa: E402
@@ -187,8 +187,10 @@ def test_em_suffstats_kernel_matches_twin(cuda, L, S):
 
 def _em_case(cuda, case):
     """E-step inputs: leaves of 0, 1, TILE and TILE + 1 samples (and
-    2 TILE + 5), int32 leaf ids; or the trainer's replica layout, int64
-    leaf ids with most rows w = -1 (rows past the filled replicas)."""
+    2 TILE + 5), int32 leaf ids; 16,384 leaves, past the 12,288 whose
+    counters the sort keeps in shared memory, some invalid rows; or the
+    trainer's replica layout, int64 leaf ids with most rows w = -1 (rows
+    past the filled replicas)."""
     L, tile = 6, ems.TILE
     rs = np.random.RandomState(8)
     if case == "sizes":
@@ -196,6 +198,13 @@ def _em_case(cuda, case):
                                                        2 * tile + 5, 0]))
         leaf = leaf.astype(np.int32)
         w = (rs.rand(leaf.size) * 2.0).astype(np.float32)
+    elif case == "many leaves":
+        L = 16_384
+        leaf = rs.randint(0, L - 8, size=300_000).astype(np.int32)
+        leaf[::7] = 5  # several tiles
+        w = (rs.rand(leaf.size) * 2.0).astype(np.float32)
+        w[1::211] = -1.0
+        leaf[2::307] = L  # out of range
     else:
         L, n, filled = 64, 1 << 17, 20_000
         leaf = rs.randint(0, L - 4, size=n).astype(np.int64)  # 4 empty
@@ -211,7 +220,7 @@ def _em_case(cuda, case):
                 rs.rand(n, 3).astype(np.float32), d, w, leaf)), L)
 
 
-@pytest.mark.parametrize("case", ["sizes", "replicas"])
+@pytest.mark.parametrize("case", ["sizes", "many leaves", "replicas"])
 def test_e_step_pipeline_on_edge_layouts(cuda, case):
     """The kernels' packed rows, sort and work list equal their twin's; the
     statistics match a float64 evaluation of the twin (tolerances of the
@@ -617,8 +626,22 @@ def test_mt_sweep_on_scene_sizes(cuda, n_tris, n):
         assert bool(want["valid"].any()) and not bool(want["valid"].all())
 
 
-def test_mt_sweep_keeps_the_lower_index_on_duplicated_triangles(cuda):
-    scene, _ = make_box(tscene, tshapes, 16, 16).build(device=cuda)
+def _sweep_scene(cuda, which):
+    """The 12-triangle box, below the sweep's DEFER_FROM (one ray a thread),
+    or the 116-triangle tiled box, above it (four rays a thread, the
+    warp-voted reciprocal)."""
+    make = make_box if which == "box" else make_tiled_box
+    scene, _ = make(tscene, tshapes, 16, 16).build(device=cuda)
+    n_tris = scene.tri_v0.shape[0]
+    voted = n_tris >= intersect_sweep.DEFER_FROM
+    assert voted == (which == "tiled box")
+    assert intersect_sweep.rays_per_thread(n_tris) == (4 if voted else 1)
+    return scene
+
+
+@pytest.mark.parametrize("which", ["box", "tiled box"])
+def test_mt_sweep_keeps_the_lower_index_on_duplicated_triangles(cuda, which):
+    scene = _sweep_scene(cuda, which)
     tris = tuple(torch.cat([a, a]).contiguous() for a in (
         scene.tri_v0, scene.tri_e1, scene.tri_e2))
     ro, rd, tm = _rays(cuda, scene, 8_192, 25)
@@ -628,42 +651,21 @@ def test_mt_sweep_keeps_the_lower_index_on_duplicated_triangles(cuda):
     assert bool((want["tri"][hit] < scene.tri_v0.shape[0]).all())
 
 
-def test_mt_sweep_on_grazing_rays(cuda):
+@pytest.mark.parametrize("which", ["box", "tiled box"])
+def test_mt_sweep_on_grazing_rays(cuda, which):
     """Rays toward points on the triangles' edges (u = 0, v = 0, u + v = 1
-    up to rounding), and rays almost in the plane of the box's axis-aligned
-    walls, with |det| from 0.5e-12 to 2e-12 on both sides of the 1e-12
-    test."""
-    scene, _ = make_box(tscene, tshapes, 16, 16).build(device=cuda)
-    v0, e1, e2 = (a.cpu().numpy().astype(np.float64) for a in (
-        scene.tri_v0, scene.tri_e1, scene.tri_e2))
-    rs = np.random.RandomState(26)
-    n = 8_192
-    k = rs.randint(0, v0.shape[0], n)
-    a = rs.rand(n)[:, None]
-    edge = rs.randint(0, 3, n)[:, None]
-    p = v0[k] + np.where(edge == 0, a * e2[k], np.where(
-        edge == 1, a * e1[k], a * e1[k] + (1 - a) * e2[k]))
-    o = rs.uniform(-1.0, 1.0, (n, 3)) + np.array([0.0, 1.0, 0.0])
-    d = p - o
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    # In-plane rays: the wall's normal axis gets the component that puts
-    # det = dn * (e1 x e2)[axis] at c * 1e-12.
-    nrm = np.cross(e1[k], e2[k])
-    axis = np.abs(nrm).argmax(-1)
-    flat = np.isclose(np.abs(nrm).max(-1), np.linalg.norm(nrm, axis=-1))
-    half = (np.arange(n) % 2 == 0) & flat
-    c = rs.uniform(0.5, 2.0, n) * np.where(rs.rand(n) < 0.5, -1.0, 1.0)
-    dn = -c * 1e-12 / nrm[np.arange(n), axis]
-    d[half] = rs.randn(int(half.sum()), 3)
-    d[half, axis[half]] = 0.0
-    d[half] /= np.linalg.norm(d[half], axis=-1, keepdims=True)
-    d[half, axis[half]] = dn[half]
-    ro, rd = (torch.as_tensor(x.astype(np.float32), device=cuda)
-              for x in (o, d))
-    tm = torch.full((n,), intersect_sweep.INF, device=cuda)
-    want = _sweep_equal(ro, rd, tm, (scene.tri_v0, scene.tri_e1,
-                                     scene.tri_e2))
-    assert bool(want["valid"].any())
+    up to rounding), and rays almost in the plane of the axis-aligned
+    triangles, with |det| from 0.5e-12 to 2e-12 on both sides of the 1e-12
+    test (torch_parity.grazing_rays). On the tiled box the voted kernel
+    runs, and most of its triangles are small panels that no other lane of
+    a warp comes near, so a grazing lane's own pre-test decides the vote."""
+    scene = _sweep_scene(cuda, which)
+    tris = (scene.tri_v0, scene.tri_e1, scene.tri_e2)
+    ro, rd = (torch.as_tensor(x, device=cuda) for x in grazing_rays(
+        *(a.cpu().numpy().astype(np.float64) for a in tris), 8_189, 26))
+    tm = torch.full((ro.shape[0],), intersect_sweep.INF, device=cuda)
+    want = _sweep_equal(ro, rd, tm, tris)
+    assert float(want["valid"].float().mean()) > 0.3
 
 
 def _clusters(cuda, tris, t_c):

@@ -38,7 +38,8 @@ from jax.experimental import pallas as pl
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_parity import (  # noqa: E402
-    make_box, make_sphere_box, random_rays, to_np,
+    defer_pretest, grazing_rays, make_box, make_sphere_box, make_tiled_box,
+    random_rays, to_np,
 )
 
 from sdmm_tpu.ops import intersect_pallas  # noqa: E402
@@ -120,6 +121,30 @@ def test_dense_twin_matches_reference(with_sphere, monkeypatch):
     miss = ~to_np(got["valid"])
     assert (to_np(got["t"])[miss] == intersect_sweep.INF).all()
     assert not to_np(got["u"])[miss].any() and not to_np(got["v"])[miss].any()
+
+
+@pytest.mark.parametrize("make", [make_box, make_tiled_box],
+                         ids=["box", "tiled box"])
+def test_deferred_reciprocal_pretest_passes_every_hit(make):
+    """The warp-voted sweep kernel skips a triangle's reciprocal when no lane
+    of the warp passes its pre-test (torch_parity.defer_pretest, the
+    kernel's float32 operations in its order). On rays that graze the
+    triangles' edges, with the limit of every other hitting ray just above
+    its hit's t, the pre-test passes every pair that the twin accepts, the
+    pairs at u = 0 and at u + v = 1 among them."""
+    ts = make(tscene, tshapes, 16, 16).build(device="cpu")[0]
+    tris = (ts.tri_v0, ts.tri_e1, ts.tri_e2)
+    ro, rd = (torch.as_tensor(x) for x in grazing_rays(
+        *(to_np(a).astype(np.float64) for a in tris), 4_096, 27))
+    inf = torch.full((ro.shape[0],), intersect_sweep.INF)
+    best = intersect_sweep.mt_sweep_plain(ro, rd, inf, *tris)
+    tight = best["valid"] & (torch.arange(ro.shape[0]) % 2 == 1)
+    lim = torch.where(tight, torch.nextafter(best["t"], inf), inf)
+    _, u, v, hit = intersect_sweep._mt_chunk(ro, rd, *tris, lim)
+    pre = defer_pretest(ro, rd, lim, *tris)
+    assert not bool((hit & ~pre).any())
+    assert bool(hit[tight, best["tri"][tight].long()].all())
+    assert bool((hit & (u == 0)).any()) and bool((hit & (u + v == 1)).any())
 
 
 def _sphere_scene():

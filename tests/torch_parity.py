@@ -171,6 +171,63 @@ def rays_at(tris, n, seed):
     return o.astype(np.float32), d.astype(np.float32)
 
 
+def grazing_rays(v0, e1, e2, n, seed):
+    """n rays as float32 numpy (ro, rd) that graze the triangles v0, e1, e2
+    (float64 numpy [T, 3]): rays from uniform points of [-1, 1]^3 + (0, 1,
+    0) toward points on random triangles' edges (u = 0, v = 0 or u + v = 1
+    up to rounding); and, on even rays whose triangle is axis-aligned,
+    rays almost in its plane, with det = dn * (e1 x e2)[axis] at 0.5e-12
+    to 2e-12 on both sides of the sweep's 1e-12 test."""
+    rs = np.random.RandomState(seed)
+    k = rs.randint(0, v0.shape[0], n)
+    a = rs.rand(n)[:, None]
+    edge = rs.randint(0, 3, n)[:, None]
+    p = v0[k] + np.where(edge == 0, a * e2[k], np.where(
+        edge == 1, a * e1[k], a * e1[k] + (1 - a) * e2[k]))
+    o = rs.uniform(-1.0, 1.0, (n, 3)) + np.array([0.0, 1.0, 0.0])
+    d = p - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    nrm = np.cross(e1[k], e2[k])
+    axis = np.abs(nrm).argmax(-1)
+    flat = np.isclose(np.abs(nrm).max(-1), np.linalg.norm(nrm, axis=-1))
+    half = (np.arange(n) % 2 == 0) & flat
+    c = rs.uniform(0.5, 2.0, n) * np.where(rs.rand(n) < 0.5, -1.0, 1.0)
+    dn = -c * 1e-12 / nrm[np.arange(n), axis]
+    d[half] = rs.randn(int(half.sum()), 3)
+    d[half, axis[half]] = 0.0
+    d[half] /= np.linalg.norm(d[half], axis=-1, keepdims=True)
+    d[half, axis[half]] = dn[half]
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def defer_pretest(ro, rd, lim, v0, e1, e2):
+    """Plain model of csrc/mt_sweep.cu's pre-test of the warp-voted kernel
+    (mt_pair<true>), in its order of float32 operations, for rays ro, rd
+    [N, 3] with limits lim [N] against triangles [T, 3]: bool [N, T], True
+    where the pair may hit. The kernel's proof says it is True on every
+    pair that the final test accepts."""
+    rdx, rdy, rdz = (rd[:, i:i + 1] for i in range(3))
+    e1x, e1y, e1z = (e1[None, :, i] for i in range(3))
+    e2x, e2y, e2z = (e2[None, :, i] for i in range(3))
+    px = rdy * e2z - rdz * e2y
+    py = rdz * e2x - rdx * e2z
+    pz = rdx * e2y - rdy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    tx, ty, tz = (ro[:, i:i + 1] - v0[None, :, i] for i in range(3))
+    u = tx * px + ty * py + tz * pz
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = rdx * qx + rdy * qy + rdz * qz
+    t = e2x * qx + e2y * qy + e2z * qz
+    a = det.abs()
+    neg = det < 0.0
+    us, vs, ts = (torch.where(neg, -x, x) for x in (u, v, t))
+    slack = -(a * 2.0 ** -100)
+    return ((a > 1e-12) & (us >= slack) & (vs >= slack) & (ts > 0.0)
+            & (us + vs <= a * 1.0001) & (ts <= lim[:, None] * a * 1.0001))
+
+
 def _slabs(lo, hi, o, inv):
     """The kernel's slab test of boxes lo, hi [..., 3, M] for rays o, inv
     [..., 3, 1] in float32: (entry, exit) [..., M]."""
