@@ -85,6 +85,25 @@ Phases (any failure raises and the script exits non-zero):
      guided pool, guided_sample's launches read around it): the guided
      image mean within 5% of the path row's, the valid-conditional share
      of the frozen tail > 0.5.
+  8. the port's own entry point. The Cornell box (cornell.xml: every
+     toWorld and the camera a 17-digit matrix, hdrfilm 640x360, the
+     independent sampler at 64 spp, maxDepth 10, the area emitter on the
+     light) and the large scene (large.xml: the box plus an obj shape,
+     spheres.obj, the 32 spheres of large_spheres with per-corner 17-digit
+     v and vn) are written to a temporary directory, loaded by load_scene
+     (the OBJ through the native parser) and built on the card; every
+     SceneData field must equal the programmatic scene's (36 and 127,012
+     triangles). Then cli.main renders cornell.xml with --integrator sdmm
+     and gt at 64 spp and large.xml with gt at 4 spp, every kernel's
+     launches read around each call: each EXR must hold the rendered film
+     bit for bit, stats.json the trainer's keys (sdmm) or the path schema,
+     the sdmm image mean be within 5% of the gt image's, the checkpoint
+     load, and guided_sample, the E-step, trace, shade and mt_sweep launch
+     in the sdmm run, step in the Cornell gt run, clas_cull in the large
+     one. Last, python -m sdmm_tpu_torch render (gt, 4 spp) and compare (the
+     two Cornell images) each run once as a subprocess. One line prints the
+     load and parse seconds, each call's wall seconds and launches, and
+     the card's name and power limit.
 Phases 5 and 6 also read mt_sweep's launches: the training iterations and
 the eager render_pool intersect through it, and its launch count is the sum
 of both. guided_sample's launch count is the sum of phases 5 and 7.
@@ -458,6 +477,52 @@ def phase_em(dev):
             "library_ms": None}
 
 
+def compose(translate, scale, rx=0.0, ry=0.0):
+    """translate @ rotate_y(ry) @ rotate_x(rx) @ scale, angles in degrees."""
+    m = np.eye(4)
+    m[:3, :3] = np.diag(scale)
+    a = np.deg2rad(rx)
+    rxm = np.eye(4)
+    rxm[1:3, 1:3] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+    a = np.deg2rad(ry)
+    rym = np.eye(4)
+    rym[0, 0] = rym[2, 2] = np.cos(a)
+    rym[0, 2] = np.sin(a)
+    rym[2, 0] = -np.sin(a)
+    out = np.eye(4)
+    out[:3, 3] = translate
+    return out @ rym @ rxm @ m
+
+
+# The Cornell box: its BSDFs (name, albedo), its rectangles (toWorld, BSDF
+# name, emissive), its two blocks and its camera.
+CORNELL_BSDFS = (("white", [0.725, 0.71, 0.68]), ("red", [0.63, 0.065, 0.05]),
+                 ("green", [0.14, 0.45, 0.091]), ("black", [0.0, 0.0, 0.0]))
+CORNELL_RADIANCE = [20.0, 20.0, 20.0]
+
+
+def cornell_rects():
+    return ((compose([0, 0, 0], [1, 1, 1], rx=-90), "white", False),
+            (compose([0, 2, 0], [1, 1, 1], rx=90), "white", False),
+            (compose([0, 1, -1], [1, 1, 1]), "white", False),
+            (compose([-1, 1, 0], [1, 1, 1], ry=90), "red", False),
+            (compose([1, 1, 0], [1, 1, 1], ry=-90), "green", False),
+            (compose([0, 1.98, 0], [0.3, 0.3, 1], rx=90), "black", True))
+
+
+def cornell_blocks():
+    return (compose([-0.33, 0.6, -0.3], [0.28, 0.6, 0.28], ry=18),
+            compose([0.35, 0.3, 0.3], [0.28, 0.3, 0.28], ry=-17))
+
+
+def cornell_camera():
+    cam = np.eye(4)
+    cam[:3, 3] = [0.0, 1.0, 4.0]
+    cam[0, 0] = -1.0
+    cam[2, 2] = -1.0
+    return cam
+
+
 def cornell_box(width, height, dev, extra_bsdfs=False, spheres=()):
     """The closed box of tests/test_render.py with its ceiling light, plus
     the two classic Cornell blocks, all diffuse. ``extra_bsdfs`` adds a
@@ -470,39 +535,15 @@ def cornell_box(width, height, dev, extra_bsdfs=False, spheres=()):
         SceneBuilder,
     )
 
-    def compose(translate, scale, rx=0.0, ry=0.0):
-        m = np.eye(4)
-        m[:3, :3] = np.diag(scale)
-        a = np.deg2rad(rx)
-        rxm = np.eye(4)
-        rxm[1:3, 1:3] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
-        a = np.deg2rad(ry)
-        rym = np.eye(4)
-        rym[0, 0] = rym[2, 2] = np.cos(a)
-        rym[0, 2] = np.sin(a)
-        rym[2, 0] = -np.sin(a)
-        out = np.eye(4)
-        out[:3, 3] = translate
-        return out @ rym @ rxm @ m
-
     b = SceneBuilder()
-    white = b.add_bsdf(BSDF_DIFFUSE, albedo=[0.725, 0.71, 0.68])
-    red = b.add_bsdf(BSDF_DIFFUSE, albedo=[0.63, 0.065, 0.05])
-    green = b.add_bsdf(BSDF_DIFFUSE, albedo=[0.14, 0.45, 0.091])
-    black = b.add_bsdf(BSDF_DIFFUSE, albedo=[0.0, 0.0, 0.0])
-    em = b.add_emitter([20.0, 20.0, 20.0])
-    for tw, bs, e in (
-            (compose([0, 0, 0], [1, 1, 1], rx=-90), white, -1),
-            (compose([0, 2, 0], [1, 1, 1], rx=90), white, -1),
-            (compose([0, 1, -1], [1, 1, 1]), white, -1),
-            (compose([-1, 1, 0], [1, 1, 1], ry=90), red, -1),
-            (compose([1, 1, 0], [1, 1, 1], ry=-90), green, -1),
-            (compose([0, 1.98, 0], [0.3, 0.3, 1], rx=90), black, em)):
-        b.add_shape(shapes.make_rectangle(np.asarray(tw)), bs, e)
-    b.add_shape(shapes.make_cube(compose([-0.33, 0.6, -0.3],
-                                         [0.28, 0.6, 0.28], ry=18)), white)
-    b.add_shape(shapes.make_cube(compose([0.35, 0.3, 0.3],
-                                         [0.28, 0.3, 0.28], ry=-17)), white)
+    ids = {name: b.add_bsdf(BSDF_DIFFUSE, albedo=albedo)
+           for name, albedo in CORNELL_BSDFS}
+    em = b.add_emitter(CORNELL_RADIANCE)
+    for tw, name, emissive in cornell_rects():
+        b.add_shape(shapes.make_rectangle(tw), ids[name],
+                    em if emissive else -1)
+    for tw in cornell_blocks():
+        b.add_shape(shapes.make_cube(tw), ids["white"])
     if extra_bsdfs:
         cond = b.add_bsdf(BSDF_CONDUCTOR, specular=[0.9, 0.9, 0.9], eta=0.2,
                           k=[3.9, 2.4, 2.1])
@@ -518,11 +559,7 @@ def cornell_box(width, height, dev, extra_bsdfs=False, spheres=()):
         for c, r, n_theta, n_phi in spheres:
             b.add_shape(shapes.make_sphere(c, r, n_theta=n_theta,
                                            n_phi=n_phi), grey)
-    cam = np.eye(4)
-    cam[:3, 3] = [0.0, 1.0, 4.0]
-    cam[0, 0] = -1.0
-    cam[2, 2] = -1.0
-    b.set_sensor(cam, fov_deg=40.0, width=width, height=height)
+    b.set_sensor(cornell_camera(), fov_deg=40.0, width=width, height=height)
     b.max_depth = 10
     b.rr_depth = 10
     return b.build(device=dev)
@@ -1391,6 +1428,263 @@ def phase_large_path(dev, scene, cfg, smi, width=640, height=360):
     return ccull.cull.launches, n_gs
 
 
+def _digits(values):
+    """``values`` at 17 significant digits, enough to read back exactly."""
+    return " ".join("%.17g" % x
+                    for x in np.asarray(values, np.float64).ravel())
+
+
+def write_cornell_xml(path, width, height, spp, obj=None):
+    """cornell_box(width, height) as a scene file, each toWorld and the
+    camera a 17-digit <matrix>, so that the loaded triangles equal the
+    programmatic ones; ``obj`` adds a grey diffuse OBJ shape (the spheres of
+    cornell_box's ``spheres``)."""
+    parts = [
+        '<scene version="0.6.0">',
+        '  <integrator type="volpath"><integer name="maxDepth" value="10"/>'
+        '</integrator>',
+        '  <sensor type="perspective"><float name="fov" value="40"/>',
+        f'    <transform name="toWorld"><matrix value="'
+        f'{_digits(cornell_camera())}"/></transform>',
+        '    <sampler type="independent"><integer name="sampleCount" '
+        f'value="{spp}"/></sampler>',
+        f'    <film type="hdrfilm"><integer name="width" value="{width}"/>'
+        f'<integer name="height" value="{height}"/><rfilter type="box"/>'
+        '</film>',
+        '  </sensor>']
+    for name, albedo in CORNELL_BSDFS:
+        parts.append(f'  <bsdf type="diffuse" id="{name}"><rgb '
+                     f'name="reflectance" value="{_digits(albedo)}"/></bsdf>')
+    shapes = [("rectangle", tw, name, emissive)
+              for tw, name, emissive in cornell_rects()]
+    shapes += [("cube", tw, "white", False) for tw in cornell_blocks()]
+    for kind, tw, name, emissive in shapes:
+        light = (f'<emitter type="area"><rgb name="radiance" value="'
+                 f'{_digits(CORNELL_RADIANCE)}"/></emitter>'
+                 if emissive else "")
+        parts.append(f'  <shape type="{kind}"><transform name="toWorld">'
+                     f'<matrix value="{_digits(tw)}"/></transform>'
+                     f'<ref id="{name}"/>{light}</shape>')
+    if obj:
+        parts.append(f'  <shape type="obj"><string name="filename" '
+                     f'value="{obj}"/><bsdf type="diffuse"><rgb '
+                     f'name="reflectance" value="0.5, 0.5, 0.5"/></bsdf>'
+                     '</shape>')
+    parts.append("</scene>\n")
+    with open(path, "w") as f:
+        f.write("\n".join(parts))
+
+
+def write_spheres_obj(path, spheres):
+    """The triangles of make_sphere for each of ``spheres`` as an OBJ with
+    per-corner 17-digit v and vn lines; returns the triangle count."""
+    from sdmm_tpu_torch.scene import shapes
+
+    soups = [shapes.make_sphere(c, r, n_theta=nt, n_phi=npp).concat()
+             for c, r, nt, npp in spheres]
+    v = np.concatenate([s[0] for s in soups]).reshape(-1, 3)
+    n = np.concatenate([s[1] for s in soups]).reshape(-1, 3)
+    fmt = "%.17g %.17g %.17g"
+    lines = ["v " + fmt % tuple(p) for p in v]
+    lines += ["vn " + fmt % tuple(p) for p in n]
+    lines += ["f %d//%d %d//%d %d//%d" % (a, a, b, b, c, c)
+              for a, b, c in np.arange(1, len(v) + 1).reshape(-1, 3)]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return len(v) // 3
+
+
+def _counts():
+    """Every kernel's launch counter, by name."""
+    from sdmm_tpu_torch.ops import bounce as bo
+    from sdmm_tpu_torch.ops import clas_cull as ccull
+    from sdmm_tpu_torch.ops import em_suffstats as ems
+    from sdmm_tpu_torch.ops import guided_sample as gso
+    from sdmm_tpu_torch.ops import guided_step as gst
+    from sdmm_tpu_torch.ops import intersect_sweep as isweep
+
+    return {"guided_sample": gso.guided_sample, "em_suffstats": ems.suffstats,
+            "trace": gst.trace, "shade": gst.shade, "step": bo.step,
+            "bounce": bo.bounce, "mt_sweep": isweep.mt_sweep,
+            "clas_cull": ccull.cull}
+
+
+def _same_scene(name, got, want):
+    """Check every SceneData field and the render config equal."""
+    (gs, gc), (ws, wc) = got, want
+    for field in gs._fields:
+        a, b = getattr(gs, field), getattr(ws, field)
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and torch.equal(a, b), f"{name}: SceneData.{field} differs "
+              "from the programmatic scene's")
+    check((gc.width, gc.height, gc.max_depth, gc.rr_depth, gc.fov_axis,
+           gc.bsdf_types) == (wc.width, wc.height, wc.max_depth, wc.rr_depth,
+                              wc.fov_axis, wc.bsdf_types),
+          f"{name}: render config differs")
+
+
+TRAINER_STATS = {"iteration", "spp", "total_spp", "elapsed_seconds",
+                 "rendering_seconds", "training_seconds", "mean_path_length",
+                 "samples_count", "max_depth", "leaf_nodes_count",
+                 "optimized_nodes_count", "active_nodes_count"}
+
+
+def phase_entry_point(dev, smi, width=640, height=360):
+    """The port's own entry point on the card: the Cornell box and the
+    large scene as scene files (the spheres as an OBJ), loaded and checked
+    against the programmatic scenes, then rendered through cli.main with
+    every kernel's launches read around each call, once through
+    python -m sdmm_tpu_torch, and the two Cornell images compared through
+    python -m sdmm_tpu_torch compare."""
+    import tempfile
+
+    from sdmm_tpu_torch import cli, native
+    from sdmm_tpu_torch.guiding import io as gio
+    from sdmm_tpu_torch.scene.xml_loader import load_scene
+    from sdmm_tpu_torch.utils.exr import read_exr
+
+    report = {"card": smi, "seconds": {}, "launches": {}}
+    sec = report["seconds"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cornell = os.path.join(tmp, "cornell.xml")
+        large_xml = os.path.join(tmp, "large.xml")
+        write_cornell_xml(cornell, width, height, 64)
+        write_cornell_xml(large_xml, width, height, 64, obj="spheres.obj")
+        t0 = time.time()
+        n_obj = write_spheres_obj(os.path.join(tmp, "spheres.obj"),
+                                  large_spheres())
+        sec["obj_write"] = time.time() - t0
+
+        parsed = []
+        real_obj_load = native.obj_load
+
+        def counted(path):
+            parsed.append(path)
+            return real_obj_load(path)
+
+        native.obj_load = counted
+        try:
+            t0 = time.time()
+            b_cornell = load_scene(cornell)
+            sec["xml_parse_cornell"] = time.time() - t0
+            t0 = time.time()
+            b_large = load_scene(large_xml)
+            sec["xml_and_obj_parse_large"] = time.time() - t0
+            t0 = time.time()
+            real_obj_load(os.path.join(tmp, "spheres.obj"))
+            sec["obj_parse"] = time.time() - t0
+        finally:
+            native.obj_load = real_obj_load
+        check(len(parsed) == 1, "large.xml: the native OBJ parser did not "
+              "run")
+        t0 = time.time()
+        loaded = b_cornell.build(device="cuda")
+        torch.cuda.synchronize()
+        sec["build_cornell"] = time.time() - t0
+        t0 = time.time()
+        loaded_large = b_large.build(device="cuda")
+        torch.cuda.synchronize()
+        sec["build_large"] = time.time() - t0
+        check(loaded[0].tri_v0.shape[0] == 36, "cornell.xml: triangle count")
+        check(loaded_large[0].tri_v0.shape[0] == 127_012 == 36 + n_obj,
+              "large.xml: triangle count")
+        _same_scene("cornell.xml", loaded, cornell_box(width, height, dev))
+        _same_scene("large.xml", loaded_large,
+                    cornell_box(width, height, dev, spheres=large_spheres()))
+        check((b_cornell.sample_count, b_cornell.seed, b_cornell.sampler,
+               b_cornell.rfilter) == (64, 1234, "independent", "box"),
+              "cornell.xml: sampler settings")
+        print(f"entry point: cornell.xml and large.xml load into the "
+              f"programmatic scenes, 36 and {36 + n_obj} triangles, the "
+              "OBJ through the native parser", flush=True)
+
+        counters = _counts()
+        runs = (("sdmm", cornell, ["--integrator", "sdmm", "--spp", "64"]),
+                ("gt", cornell, ["--integrator", "gt", "--spp", "64"]),
+                ("large_gt", large_xml, ["--integrator", "gt", "--spp",
+                                         "4"]))
+        images = {}
+        for name, xml, args in runs:
+            out = os.path.join(tmp, name, "image.exr")
+            npy = os.path.join(tmp, name, "film.npy")
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            check(cli.main(["render", xml, "-o", out, "--npy", npy, *args])
+                  is None, f"cli {name}: non-zero return")
+            torch.cuda.synchronize()
+            sec[f"cli_{name}"] = time.time() - t0
+            report["launches"][name] = {k: fn.launches
+                                        for k, fn in counters.items()}
+            img = read_exr(out)
+            film = np.load(npy)
+            check(img.shape == (height, width, 3)
+                  and np.isfinite(img).all(),
+                  f"cli {name}: image not finite or misshapen")
+            check(img.tobytes() == film.astype(np.float32).tobytes(),
+                  f"cli {name}: the EXR does not hold the rendered image")
+            images[name] = (out, film)
+            stats = json.load(open(os.path.join(tmp, name, "stats.json")))
+            if name == "sdmm":
+                check(isinstance(stats, list) and len(stats) == 16
+                      and all(TRAINER_STATS <= set(st) for st in stats)
+                      and {"mean_pixel_variance", "ttuv"} <= set(stats[-1]),
+                      "cli sdmm: stats.json lacks the trainer's keys")
+                ckpt = os.path.join(tmp, name, "checkpoints",
+                                    "model_00016.asdmm")
+                tree, sdmm, init, meta = gio.load_checkpoint(ckpt, device=dev)
+                check(meta["iteration"] == 16 and bool(init.any())
+                      and bool(torch.isfinite(sdmm.weight).all()),
+                      "cli sdmm: checkpoint")
+            else:
+                check(set(stats) == {"integrator", "spp", "seconds", "mean"}
+                      and stats["integrator"] == "gt",
+                      f"cli {name}: stats.json")
+            print(f"entry point: cli {name}: {sec[f'cli_{name}']:.3f} s, "
+                  f"image mean {film.mean():.5f}, launches "
+                  f"{report['launches'][name]}", flush=True)
+
+        m_sdmm = float(images["sdmm"][1].mean())
+        m_gt = float(images["gt"][1].mean())
+        rel = abs(m_sdmm - m_gt) / m_gt
+        report["sdmm_vs_gt_rel"] = rel
+        check(rel < 0.05, f"cli: the sdmm image mean {m_sdmm:.5f} is not "
+              f"within 5% of the gt image mean {m_gt:.5f}")
+        la = report["launches"]
+        for run, kernel in (("sdmm", "guided_sample"),
+                            ("sdmm", "em_suffstats"), ("sdmm", "trace"),
+                            ("sdmm", "shade"), ("sdmm", "mt_sweep"),
+                            ("gt", "step"), ("large_gt", "clas_cull")):
+            check(la[run][kernel] > 0,
+                  f"cli {run}: {kernel} was not launched")
+
+        env = dict(os.environ)
+        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+        sub_out = os.path.join(tmp, "sub", "image.exr")
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "sdmm_tpu_torch", "render", cornell, "-o",
+             sub_out, "--integrator", "gt", "--spp", "4"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        sec["python_m_render"] = time.time() - t0
+        check(res.returncode == 0 and os.path.exists(sub_out),
+              f"python -m sdmm_tpu_torch render failed: {res.stderr[-2000:]}")
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "sdmm_tpu_torch", "compare",
+             images["sdmm"][0], images["gt"][0]],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        sec["python_m_compare"] = time.time() - t0
+        check(res.returncode == 0, "python -m sdmm_tpu_torch compare "
+              f"failed: {res.stderr[-2000:]}")
+        metrics = json.loads(res.stdout)
+        check(set(metrics) == {"l1", "l2", "mrse", "mrse01", "mape", "smape",
+                               "ssim"}, "compare: metric keys")
+        report["compare"] = metrics
+    print("entry point:", json.dumps(report), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1438,6 +1732,7 @@ def main():
     print(f"guided_sample launches: {launches['guided_sample']} in phase 5,"
           f" {n_gs} in phase 7", flush=True)
     launches["guided_sample"] += n_gs
+    phase_entry_point(dev, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

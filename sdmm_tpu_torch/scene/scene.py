@@ -19,7 +19,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.aabb import AABB
 from ..core.device import resolve_device
+from ..core.spectrum import luminance
 from .shapes import TriSoup
 
 BSDF_DIFFUSE = 0
@@ -75,12 +77,6 @@ _INT_FIELDS = ("tri_bsdf", "tri_emitter", "bsdf_type", "em_tri_idx",
                "clas_ids")
 
 
-def luminance(rgb):
-    """Relative luminance of linear RGB (the reference's getLuminance)."""
-    return rgb[..., 0] * 0.212671 + rgb[..., 1] * 0.715160 \
-        + rgb[..., 2] * 0.072169
-
-
 def scene_from_numpy(arrays: dict, device="cuda") -> SceneData:
     """SceneData on ``device`` from a dict of arrays keyed by field name
     (float32/int32). The ``PORT_FIELDS`` are derived from the clusters and
@@ -131,8 +127,13 @@ class SceneBuilder:
     fov_axis: str = "x"
     width: int = 256
     height: int = 256
+    sample_count: int = 16
+    seed: int = 1234
+    sampler: str = "independent"
+    rfilter: str = "box"
     max_depth: int = 10
     rr_depth: int = 10
+    integrator: dict = field(default_factory=dict)
 
     def add_bsdf(self, btype: int, name: str | None = None, **params) -> int:
         if btype not in SUPPORTED_BSDFS:
@@ -209,8 +210,8 @@ class SceneBuilder:
         else:
             areas = pdf = cdf = np.zeros(0)
         if len(verts):
-            pts = verts.reshape(-1, 3)
-            aabb_lo, aabb_hi = pts.min(axis=0), pts.max(axis=0)
+            box = AABB.empty().expand(verts)
+            aabb_lo, aabb_hi = box.lo, box.hi
         else:
             aabb_lo, aabb_hi = np.zeros(3), np.ones(3)
         if not self.bsdfs:

@@ -1,9 +1,11 @@
 """Host-side shape → triangle-soup generation (port of
-sdmm_tpu/scene/shapes.py: ``TriSoup``, ``make_rectangle``, ``make_cube``,
-``make_sphere``).
+sdmm_tpu/scene/shapes.py: ``TriSoup``, the rectangle, cube, sphere, disk
+and cylinder, indexed meshes and the OBJ loader).
 
 Unit-shape conventions match Mitsuba 0.6 (rectangle: [-1,1]^2 in the
-xy-plane, +z normal; cube: [-1,1]^3). Pure numpy.
+xy-plane, +z normal; cube: [-1,1]^3; disk: the unit disk at z = 0). Pure
+numpy. The port's soups carry no vertex colours: they feed only the
+mesh-attribute textures, which are not ported.
 """
 
 from __future__ import annotations
@@ -52,6 +54,20 @@ class TriSoup:
             return np.zeros((0, 3, 3)), np.zeros((0, 3, 3)), np.zeros((0, 3, 2))
         return (np.concatenate(self.verts), np.concatenate(self.normals),
                 np.concatenate(self.uvs))
+
+    def transformed(self, to_world: np.ndarray) -> "TriSoup":
+        """A copy with ``to_world`` applied: an instance is flattened into
+        transformed triangle copies at build time."""
+        v, n, uv = self.concat()
+        out = TriSoup()
+        if len(v):
+            out.add(
+                _transform_points(to_world, v.reshape(-1, 3))
+                .reshape(-1, 3, 3),
+                _transform_normals(to_world, n.reshape(-1, 3))
+                .reshape(-1, 3, 3),
+                uv)
+        return out
 
 
 def make_rectangle(to_world: np.ndarray, flip_normals: bool = False) -> TriSoup:
@@ -133,4 +149,209 @@ def make_sphere(center: np.ndarray, radius: float,
         verts = verts[:, ::-1, :]
     soup = TriSoup()
     soup.add(verts, normals)
+    return soup
+
+
+def make_disk(to_world: np.ndarray, n_phi: int = 64,
+              flip_normals: bool = False) -> TriSoup:
+    """Unit disk in the z=0 plane, a triangle fan with smooth +z
+    normals."""
+    phi = np.linspace(0.0, 2 * np.pi, n_phi + 1)
+    rim = np.stack([np.cos(phi), np.sin(phi), np.zeros_like(phi)], axis=-1)
+    verts, uvs = [], []
+    center = np.zeros(3)
+    for j in range(n_phi):
+        tri = np.asarray([center, rim[j], rim[j + 1]])
+        verts.append(tri)
+        uvs.append(0.5 * (tri[:, :2] + 1.0))
+    verts = np.asarray(verts)
+    uvs = np.asarray(uvs)
+    normals = np.broadcast_to(np.array([0.0, 0.0, 1.0]), verts.shape).copy()
+    verts_w = _transform_points(
+        to_world, verts.reshape(-1, 3)).reshape(-1, 3, 3)
+    normals_w = _transform_normals(
+        to_world, normals.reshape(-1, 3)).reshape(-1, 3, 3)
+    if flip_normals:
+        normals_w = -normals_w
+        verts_w = verts_w[:, ::-1, :]
+        uvs = uvs[:, ::-1, :]
+    soup = TriSoup()
+    soup.add(verts_w, normals_w, uvs)
+    return soup
+
+
+def make_cylinder(p0: np.ndarray, p1: np.ndarray, radius: float,
+                  to_world: np.ndarray | None = None, n_phi: int = 32,
+                  flip_normals: bool = False) -> TriSoup:
+    """Open cylinder from p0 to p1 (no end caps, as Mitsuba's), with
+    smooth radial normals."""
+    p0 = np.asarray(p0, dtype=np.float64)
+    p1 = np.asarray(p1, dtype=np.float64)
+    axis = p1 - p0
+    length = np.linalg.norm(axis)
+    z = axis / max(length, 1e-12)
+    a = (np.array([1.0, 0.0, 0.0]) if abs(z[0]) < 0.9
+         else np.array([0.0, 1.0, 0.0]))
+    x = np.cross(z, a)
+    x /= np.linalg.norm(x)
+    y = np.cross(z, x)
+    phi = np.linspace(0.0, 2 * np.pi, n_phi + 1)
+    ring_n = np.outer(np.cos(phi), x) + np.outer(np.sin(phi), y)
+    lo = p0 + radius * ring_n
+    hi = p1 + radius * ring_n
+    verts, normals, uvs = [], [], []
+    for j in range(n_phi):
+        quad_v = [lo[j], hi[j], hi[j + 1], lo[j + 1]]
+        quad_n = [ring_n[j], ring_n[j], ring_n[j + 1], ring_n[j + 1]]
+        u0, u1 = phi[j] / (2 * np.pi), phi[j + 1] / (2 * np.pi)
+        quad_uv = [[u0, 0], [u0, 1], [u1, 1], [u1, 0]]
+        for idx in ([0, 1, 2], [0, 2, 3]):
+            verts.append([quad_v[i] for i in idx])
+            normals.append([quad_n[i] for i in idx])
+            uvs.append([quad_uv[i] for i in idx])
+    verts = np.asarray(verts)
+    normals = np.asarray(normals)
+    uvs = np.asarray(uvs, dtype=np.float64)
+    if to_world is not None:
+        verts = _transform_points(
+            to_world, verts.reshape(-1, 3)).reshape(-1, 3, 3)
+        normals = _transform_normals(
+            to_world, normals.reshape(-1, 3)).reshape(-1, 3, 3)
+    if flip_normals:
+        normals = -normals
+        verts = verts[:, ::-1, :]
+        uvs = uvs[:, ::-1, :]
+    soup = TriSoup()
+    soup.add(verts, normals, uvs)
+    return soup
+
+
+def mesh_to_soup(mesh: dict, to_world: np.ndarray | None = None,
+                 flip_normals: bool = False) -> TriSoup:
+    """Indexed mesh dict (positions, normals, uv, faces) → triangle soup;
+    zero-area triangles are dropped."""
+    v = mesh["positions"]
+    faces = mesh["faces"]
+    vn = None if mesh.get("face_normals") else mesh.get("normals")
+    vt = mesh.get("uv")
+    tri_v = v[faces]
+    tri_n = vn[faces] if vn is not None else None
+    tri_uv = vt[faces] if vt is not None else None
+    if to_world is not None:
+        tri_v = _transform_points(
+            to_world, tri_v.reshape(-1, 3)).reshape(-1, 3, 3)
+        if tri_n is not None:
+            tri_n = _transform_normals(
+                to_world, tri_n.reshape(-1, 3)).reshape(-1, 3, 3)
+    e1 = tri_v[:, 1] - tri_v[:, 0]
+    e2 = tri_v[:, 2] - tri_v[:, 0]
+    keep = np.linalg.norm(np.cross(e1, e2), axis=-1) > 1e-16
+    tri_v = tri_v[keep]
+    tri_n = tri_n[keep] if tri_n is not None else None
+    tri_uv = tri_uv[keep] if tri_uv is not None else None
+    if flip_normals:
+        tri_v = tri_v[:, ::-1, :]
+        if tri_n is not None:
+            tri_n = -tri_n[:, ::-1, :]
+        if tri_uv is not None:
+            tri_uv = tri_uv[:, ::-1, :]
+    soup = TriSoup()
+    if len(tri_v):
+        soup.add(tri_v, tri_n, tri_uv)
+    return soup
+
+
+def check_lfs_stub(path: str) -> None:
+    """Raise a clear error for a git-lfs pointer stub in place of the
+    asset."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(40)
+    except OSError:
+        return
+    if head.startswith(b"version https://git-lfs"):
+        raise ValueError(f"{path}: git-lfs pointer stub, not the actual "
+                         "asset")
+
+
+def load_obj(path: str, to_world: np.ndarray | None = None,
+             flip_normals: bool = False, face_normals: bool = False,
+             native: bool = True) -> TriSoup:
+    """OBJ loader (v/vn/vt/f, polygons fan-triangulated). The native
+    parser (``native.obj_load``) runs unless ``native`` is False; this
+    module's Python parser is its plain twin."""
+    check_lfs_stub(path)
+    if native:
+        from ..native import obj_load
+
+        v_t, n_t, uv_t = obj_load(path)
+        if face_normals and len(v_t):
+            e1 = v_t[:, 1] - v_t[:, 0]
+            e2 = v_t[:, 2] - v_t[:, 0]
+            fn = np.cross(e1, e2)
+            fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True),
+                             1e-20)
+            n_t = np.repeat(fn[:, None, :], 3, axis=1)
+        if to_world is not None and len(v_t):
+            v_t = _transform_points(
+                to_world, v_t.reshape(-1, 3)).reshape(-1, 3, 3)
+            n_t = _transform_normals(
+                to_world, n_t.reshape(-1, 3)).reshape(-1, 3, 3)
+        if flip_normals and len(v_t):
+            v_t = v_t[:, ::-1]
+            n_t = -n_t[:, ::-1]
+            uv_t = uv_t[:, ::-1]
+        soup = TriSoup()
+        if len(v_t):
+            soup.add(v_t, n_t, uv_t)
+        return soup
+
+    vs, vns, vts, faces = [], [], [], []
+    with open(path, "r", errors="replace") as f:
+        for line in f:
+            if line.startswith("v "):
+                vs.append([float(x) for x in line.split()[1:4]])
+            elif line.startswith("vn "):
+                vns.append([float(x) for x in line.split()[1:4]])
+            elif line.startswith("vt "):
+                vts.append([float(x) for x in line.split()[1:3]])
+            elif line.startswith("f "):
+                idx = []
+                for tok in line.split()[1:]:
+                    parts = tok.split("/")
+                    vi = int(parts[0])
+                    ti = int(parts[1]) if len(parts) > 1 and parts[1] else 0
+                    ni = int(parts[2]) if len(parts) > 2 and parts[2] else 0
+                    idx.append((vi, ti, ni))
+                faces.append(idx)
+    v = np.asarray(vs, dtype=np.float64)
+    vn = np.asarray(vns, dtype=np.float64) if vns else None
+    vt = np.asarray(vts, dtype=np.float64) if vts else None
+
+    def res(i, n):
+        return i - 1 if i > 0 else n + i
+
+    soup = TriSoup()
+    for face in faces:
+        for k in range(1, len(face) - 1):
+            ids = [face[0], face[k], face[k + 1]]
+            pv = np.array([v[res(i, len(v))] for i, _, _ in ids])
+            pn = pt = None
+            if vn is not None and not face_normals and \
+                    all(ni != 0 for _, _, ni in ids):
+                pn = np.array([vn[res(ni, len(vn))] for _, _, ni in ids])
+            if vt is not None and all(ti != 0 for _, ti, _ in ids):
+                pt = np.array([vt[res(ti, len(vt))] for _, ti, _ in ids])
+            if to_world is not None:
+                pv = _transform_points(to_world, pv)
+                if pn is not None:
+                    pn = _transform_normals(to_world, pn)
+            if flip_normals:
+                pv = pv[::-1]
+                if pn is not None:
+                    pn = -pn[::-1]
+                if pt is not None:
+                    pt = pt[::-1]
+            soup.add(pv[None], None if pn is None else pn[None],
+                     None if pt is None else pt[None])
     return soup

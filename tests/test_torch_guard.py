@@ -242,3 +242,55 @@ def test_chip_smoke_alone_fails(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def _xml(tmp_path, body=""):
+    path = tmp_path / "scene.xml"
+    path.write_text(
+        '<scene version="0.6.0"><sensor type="perspective"><film '
+        'type="hdrfilm"><integer name="width" value="8"/><integer '
+        'name="height" value="6"/></film></sensor><shape type="cube">'
+        '<transform name="toWorld"><translate z="-4"/></transform></shape>'
+        f'{body}</scene>')
+    return str(path)
+
+
+def test_cli_and_loader_default_to_the_card(no_gpu, tmp_path):
+    from sdmm_tpu_torch import cli
+    from sdmm_tpu_torch.scene import xml_loader as txml
+
+    xml = _xml(tmp_path)
+    out = str(tmp_path / "out.exr")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["render", xml, "-o", out, "--spp", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        txml.load_scene(xml).build()
+    assert not os.path.exists(out)
+    scene, _ = txml.load_scene(xml).build(device="cpu")
+    assert scene.tri_v0.device.type == "cpu"
+    cli.main(["render", xml, "-o", out, "--spp", "1", "--device", "cpu"])
+    assert os.path.exists(out)
+
+
+@pytest.mark.parametrize("cxx", [["/nonexistent/g++"], ["false"]],
+                         ids=["missing", "failing"])
+def test_native_obj_parser_raises_when_its_build_fails(cxx, tmp_path,
+                                                       monkeypatch):
+    """A failed build of native/mesh_loader.cpp raises; the Python parser
+    runs only when the caller asks for it."""
+    from sdmm_tpu_torch import native
+    from sdmm_tpu_torch.scene import xml_loader as txml
+
+    (tmp_path / "m.obj").write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
+    xml = _xml(tmp_path, '<shape type="obj"><string name="filename" '
+                         'value="m.obj"/></shape>')
+    monkeypatch.setattr(native, "CXX", cxx)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    with pytest.raises(RuntimeError, match="mesh_loader.cpp"):
+        tshapes.load_obj(str(tmp_path / "m.obj"))
+    with pytest.raises(RuntimeError, match="mesh_loader.cpp"):
+        txml.load_scene(xml)
+    assert len(tshapes.load_obj(str(tmp_path / "m.obj"),
+                                native=False).concat()[0]) == 1
+    assert not any((tmp_path / "build").glob("*.so"))
