@@ -104,6 +104,30 @@ Phases (any failure raises and the script exits non-zero):
      two Cornell images) each run once as a subprocess. One line prints the
      load and parse seconds, each call's wall seconds and launches, and
      the card's name and power limit.
+  9. materials and lights on the card. write_features_xml writes scene A,
+     features.xml (640x360, depth 10: the Cornell rectangles and blocks, a
+     small panel and a default sphere, 4,006 triangles, so that every
+     eager ray goes through clas_cull; every BSDF type a scene file names,
+     4-6, 8-15 and 17, with the blendbsdf, mask, coating and roughcoating
+     containers; a PNG bitmap, written with zlib here, and every
+     procedural texture; the ceiling light and an EXR env map), and scene
+     B, features_lit.xml (A with bump maps from a PNG height map on the
+     sphere and the floor, a point, a spot and a directional light, and
+     sunsky in place of the env map), to a temporary directory. Both are
+     loaded and built on the card and must fail fused_supported and
+     guided_fused_supported. cli.main renders A with sdmm and gt at 64 spp
+     and B with gt at 16 spp, every kernel's launches read around each
+     call: the path row takes the eager pool, the frozen tail never the
+     fused guided pool; trace, shade, step and bounce launch 0 times,
+     guided_sample, the E-step and clas_cull launch in the sdmm call, and
+     clas_cull's closest-hit and any-hit forms in both gt calls. A's sdmm
+     image mean must be within 5% of its gt mean, every image finite, and
+     B's gt render at 64x36, 16 spp, on the card agree with the same
+     render on the CPU (a process of its own, started at the phase's top
+     so that it overlaps the card's renders) within 4 standard errors of
+     the means, from the films' sqr and weight. One "features:" JSON line
+     prints the load and build seconds, each call's wall and launches and
+     the card's name and power limit.
 Phases 5 and 6 also read mt_sweep's launches: the training iterations and
 the eager render_pool intersect through it, and its launch count is the sum
 of both. guided_sample's launch count is the sum of phases 5 and 7.
@@ -1685,6 +1709,380 @@ def phase_entry_point(dev, smi, width=640, height=360):
     print("entry point:", json.dumps(report), flush=True)
 
 
+def write_png(path, image):
+    """An 8-bit grey or RGB PNG of ``image`` ([H, W] or [H, W, 3] uint8),
+    written with zlib alone; row y takes filter type y % 5, so that a
+    reader meets all five."""
+    import struct
+    import zlib
+
+    img = np.asarray(image, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, ch = img.shape
+    raw = img.reshape(h, w * ch).astype(np.int32)
+    out = bytearray()
+    prev = np.zeros(w * ch, np.int32)
+    for y in range(h):
+        f = y % 5
+        row = raw[y]
+        a = np.concatenate([np.zeros(ch, np.int32), row[:-ch]])
+        c = np.concatenate([np.zeros(ch, np.int32), prev[:-ch]])
+        p = a + prev - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, prev, c))
+        pred = (0, a, prev, (a + prev) >> 1, paeth)[f]
+        out += bytes([f]) + ((row - pred) & 0xFF).astype(np.uint8).tobytes()
+        prev = row
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                             2 if ch == 3 else 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(bytes(out)))
+                + chunk(b"IEND", b""))
+
+
+def write_features_xml(dirname, width, height, spp, lit=False,
+                       sphere=True):
+    """Phase 9's scenes as files in ``dirname``: the Cornell rectangles and
+    blocks, a small panel and one sphere (``sphere=False``: a cube in its
+    place), every
+    BSDF type a scene file can name among them (4-6, 8-15 and 17; null is
+    built only for a medium's shape): roughdiffuse with a PNG bitmap,
+    roughplastic with a scaled checkerboard, a blend of plastic with a grid
+    texture and ward, a mask over phong with vertex colours, a coating over
+    diffuse with a wireframe, a roughcoating over roughconductor, a blend
+    of thindielectric and hk, difftrans on the panel, roughdielectric with
+    a curvature texture (baked to vertex colours) on the sphere; the
+    ceiling light and an env map (an EXR with a bright patch). ``lit``
+    writes
+    features_lit.xml: bump maps from a PNG height map on the sphere (whose
+    uv are zero, as make_sphere's) and on the floor, a point, a spot and a
+    directional light, and sunsky in place of the env map; else
+    features.xml. Returns the scene file's path."""
+    from sdmm_tpu_torch.utils.exr import write_exr
+
+    yy, xx = np.mgrid[0:64, 0:64]
+    tex = np.stack([(xx * 4) % 256, (yy * 4) % 256,
+                    ((xx // 8 + yy // 8) % 2) * 200 + 30], -1)
+    write_png(os.path.join(dirname, "albedo.png"), tex)
+    write_png(os.path.join(dirname, "height.png"),
+              (127 + 120 * np.sin(xx / 3.0) * np.cos(yy / 5.0)).astype(
+                  np.uint8))
+    env = np.full((64, 128, 3), 0.2, np.float32)
+    env[:, :, 2] += np.linspace(0.0, 0.6, 64)[:, None]
+    env[12:20, 40:56] = [40.0, 36.0, 30.0]
+    write_exr(os.path.join(dirname, "env.exr"), env)
+
+    def mat(tw):
+        return f'<transform name="toWorld"><matrix value="{_digits(tw)}"/>' \
+            '</transform>'
+
+    bump = ('<bsdf type="bumpmap"><texture type="bitmap"><string '
+            'name="filename" value="height.png"/></texture><float '
+            'name="scale" value="0.05"/>{}</bsdf>')
+    floor = ('<bsdf type="roughdiffuse"><float name="alpha" value="0.4"/>'
+             '<texture type="bitmap" name="reflectance"><string '
+             'name="filename" value="albedo.png"/></texture></bsdf>')
+    sph = ('<bsdf type="roughdielectric"><float name="alpha" value="0.2"/>'
+           '<texture type="curvature" name="specularTransmittance"><float '
+           'name="scale" value="0.2"/></texture></bsdf>')
+    rects = cornell_rects()
+    bsdfs = [
+        bump.format(floor) if lit else floor,
+        '<bsdf type="roughplastic"><float name="alpha" value="0.25"/>'
+        '<texture type="scale" name="diffuseReflectance"><float name="scale" '
+        'value="0.8"/><texture type="checkerboard"><float name="uscale" '
+        'value="4"/><float name="vscale" value="4"/></texture></texture>'
+        '</bsdf>',
+        '<bsdf type="blendbsdf"><float name="weight" value="0.4"/><bsdf '
+        'type="plastic"><texture type="gridtexture" '
+        'name="diffuseReflectance"><float name="lineWidth" value="0.05"/>'
+        '</texture></bsdf><bsdf type="ward"><float name="alphaU" '
+        'value="0.15"/><float name="alphaV" value="0.4"/></bsdf></bsdf>',
+        '<bsdf type="mask"><rgb name="opacity" value="0.85"/><bsdf '
+        'type="phong"><float name="exponent" value="40"/><texture '
+        'type="vertexcolors" name="diffuseReflectance"/></bsdf></bsdf>',
+        '<bsdf type="coating"><float name="thickness" value="0.5"/><rgb '
+        'name="sigmaA" value="0.1, 0.05, 0.2"/><bsdf type="diffuse">'
+        '<texture type="wireframe" name="reflectance"><rgb '
+        'name="interiorColor" value="0.14, 0.45, 0.091"/></texture></bsdf>'
+        '</bsdf>',
+        '<bsdf type="diffuse"><rgb name="reflectance" value="0"/></bsdf>',
+    ]
+    parts = [
+        '<scene version="0.6.0">',
+        '  <integrator type="volpath"><integer name="maxDepth" value="10"/>'
+        '</integrator>',
+        '  <sensor type="perspective"><float name="fov" value="40"/>',
+        f'    {mat(cornell_camera())}',
+        '    <sampler type="independent"><integer name="sampleCount" '
+        f'value="{spp}"/></sampler>',
+        f'    <film type="hdrfilm"><integer name="width" value="{width}"/>'
+        f'<integer name="height" value="{height}"/></film>',
+        '  </sensor>']
+    for (tw, _, emissive), bsdf in zip(rects, bsdfs):
+        light = (f'<emitter type="area"><rgb name="radiance" value="'
+                 f'{_digits(CORNELL_RADIANCE)}"/></emitter>'
+                 if emissive else "")
+        parts.append(f'  <shape type="rectangle">{mat(tw)}{bsdf}{light}'
+                     '</shape>')
+    tall, short = cornell_blocks()
+    parts.append(
+        f'  <shape type="cube">{mat(tall)}<bsdf type="roughcoating"><float '
+        'name="alpha" value="0.15"/><bsdf type="roughconductor"><string '
+        'name="material" value="Au"/><float name="alpha" value="0.3"/>'
+        '</bsdf></bsdf></shape>')
+    parts.append(
+        f'  <shape type="cube">{mat(short)}<bsdf type="blendbsdf"><float '
+        'name="weight" value="0.5"/><bsdf type="thindielectric"/><bsdf '
+        'type="hk"><rgb name="sigmaS" value="1.5, 1.0, 0.7"/><rgb '
+        'name="sigmaA" value="0.05, 0.1, 0.2"/><float name="thickness" '
+        'value="0.5"/></bsdf></bsdf></shape>')
+    # A small panel across the back left corner.
+    parts.append(
+        '  <shape type="rectangle">'
+        f'{mat(compose([-0.55, 0.45, -0.55], [0.3, 0.3, 1.0], ry=45))}'
+        '<bsdf type="difftrans"><rgb name="transmittance" value="0.6, 0.5, '
+        '0.4"/></bsdf></shape>')
+    sph_bsdf = bump.format(sph) if lit else sph
+    if sphere:
+        parts.append('  <shape type="sphere"><point name="center" x="0.3" '
+                     'y="1.2" z="0.2"/><float name="radius" value="0.25"/>'
+                     f'{sph_bsdf}</shape>')
+    else:
+        parts.append(f'  <shape type="cube">'
+                     f'{mat(compose([0.3, 1.2, 0.2], [0.2] * 3, ry=30))}'
+                     f'{sph_bsdf}</shape>')
+    if lit:
+        parts += [
+            '  <emitter type="point"><point name="position" x="-0.5" '
+            'y="1.6" z="0.5"/><rgb name="intensity" value="1.5"/>'
+            '</emitter>',
+            '  <emitter type="spot"><transform name="toWorld"><lookat '
+            'origin="0.6, 1.8, 0.8" target="0, 0, 0"/></transform><rgb '
+            'name="intensity" value="4"/><float name="cutoffAngle" '
+            'value="30"/></emitter>',
+            '  <emitter type="directional"><vector name="direction" x="-0.2" '
+            'y="-1" z="-0.3"/><rgb name="irradiance" value="0.8"/>'
+            '</emitter>',
+            '  <emitter type="sunsky"><integer name="resolution" value="64"/>'
+            '<float name="sunScale" value="0.05"/><float name="scale" '
+            'value="0.5"/></emitter>']
+    else:
+        parts.append('  <emitter type="envmap"><string name="filename" '
+                     'value="env.exr"/><float name="scale" value="1.5"/>'
+                     '</emitter>')
+    parts.append("</scene>\n")
+    path = os.path.join(dirname, "features_lit.xml" if lit
+                        else "features.xml")
+    with open(path, "w") as f:
+        f.write("\n".join(parts))
+    return path
+
+
+# Phase 9's CPU render, run as a process of its own: cli.main on the CPU
+# with render_wavefront's result (the film's raw, sqr and weight columns and
+# the pool) saved beside the image; six of the host's threads.
+CPU_RENDER = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+torch.set_num_threads(6)
+from sdmm_tpu_torch import cli
+from sdmm_tpu_torch.render import wavefront as wf
+real, film = wf.render_wavefront, {{}}
+def recording(*a, **k):
+    film.update(real(*a, **k))
+    return film
+wf.render_wavefront = recording
+cli.main(["render", {xml!r}, "-o", {npy!r}, *{args!r}, "--device", "cpu"])
+np.savez({film!r}, **{{k: film[k] for k in ("raw", "sqr", "weight",
+                                           "pool")}})
+"""
+
+
+def _film_mean(res):
+    """A render_wavefront result's image mean and its standard error, from
+    the film's sqr and weight columns."""
+    w = np.maximum(res["weight"], 1.0)[..., None]
+    mean = res["raw"] / w
+    var = np.maximum(res["sqr"] / w - mean * mean, 0.0) / w
+    return float(mean.mean()), float(np.sqrt(var.mean() / mean.size))
+
+
+def phase_features(dev, smi, width=640, height=360, spp_b=16):
+    """Phase 9: materials and lights on the card. Scene A (features.xml:
+    every BSDF type a scene file names, bitmap and procedural textures, the
+    ceiling light and an EXR env map) and scene B (features_lit.xml: A with
+    bump maps, point, spot and directional lights, sunsky) are written to a
+    temporary directory, loaded and built on the card; both must fail both
+    fused gates. cli.main renders A with sdmm and gt at 64 spp and B with gt
+    at ``spp_b``, every kernel's launches read around each call: the path
+    row must take the eager pool, the frozen tail no fused guided pool;
+    trace, shade, step and bounce must not launch, guided_sample, the
+    E-step and clas_cull must in the sdmm call, and clas_cull's closest-hit
+    and any-hit forms in both gt calls. A's sdmm image mean must lie within
+    5% of its gt mean, every image be finite, and B's gt render at 64x36,
+    16 spp, on the card and on the CPU agree in mean within 4 standard
+    errors."""
+    import tempfile
+
+    from sdmm_tpu_torch import cli
+    from sdmm_tpu_torch.guiding import trainer as tr
+    from sdmm_tpu_torch.ops import clas_cull as ccull
+    from sdmm_tpu_torch.render import wavefront as wf
+    from sdmm_tpu_torch.render.guided import guided_fused_supported
+    from sdmm_tpu_torch.scene.xml_loader import load_scene
+
+    report = {"card": smi, "seconds": {}, "launches": {}, "pool": {}}
+    sec = report["seconds"]
+    renders = []
+    real_rw, real_any, real_fused = (wf.render_wavefront, ccull.any_hit,
+                                     tr.render_pool_guided_fused)
+    any_hits = [0]
+
+    def recording_rw(*a, **k):
+        renders.append(real_rw(*a, **k))
+        return renders[-1]
+
+    def counting_any(ro, *a, **k):
+        any_hits[0] += int(ro.device.type == "cuda" and ro.shape[0] > 0)
+        return real_any(ro, *a, **k)
+
+    def no_fused(*a, **k):
+        raise AssertionError("the frozen tail took the fused guided pool")
+
+    wf.render_wavefront, ccull.any_hit = recording_rw, counting_any
+    tr.render_pool_guided_fused = no_fused
+    cpu_run = None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = {"A": write_features_xml(tmp, width, height, 64),
+                     "B": write_features_xml(tmp, width, height, spp_b,
+                                             lit=True)}
+            # B's small render on the CPU runs in a process of its own
+            # while the card renders.
+            small = ["--width", "64", "--height", "36", "--spp", "16",
+                     "--integrator", "gt"]
+            cpu_film = os.path.join(tmp, "small_cpu.npz")
+            cpu_run = subprocess.Popen(
+                [sys.executable, "-c", CPU_RENDER.format(
+                    root=ROOT, xml=paths["B"], film=cpu_film,
+                    npy=os.path.join(tmp, "small_cpu.npy"), args=small)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            t_cpu = time.time()
+            for name, path in paths.items():
+                t0 = time.time()
+                builder = load_scene(path)
+                sec[f"load_{name}"] = time.time() - t0
+                t0 = time.time()
+                scene, cfg = builder.build(device=dev)
+                torch.cuda.synchronize()
+                sec[f"build_{name}"] = time.time() - t0
+                gs = tr.SDMMTrainer(scene, cfg, tr.TrainerConfig(),
+                                    device=dev).guide_state()
+                check(scene.tri_v0.shape[0] > 1024, f"scene {name}: "
+                      "triangle count at or below the dense sweep's")
+                check(not wf.fused_supported(scene, cfg)
+                      and not guided_fused_supported(scene, cfg, gs),
+                      f"scene {name}: a fused gate takes it")
+                print(f"features: scene {name} {scene.tri_v0.shape[0]} "
+                      f"triangles, BSDF types {cfg.bsdf_types}, bump "
+                      f"{cfg.has_bump}, {scene.pt_pos.shape[0]} delta "
+                      f"lights, env map {tuple(scene.env_map.shape)}; both "
+                      "fused gates refuse it", flush=True)
+
+            counters = _counts()
+            runs = (("sdmm_A", "A", ["--integrator", "sdmm", "--spp", "64"]),
+                    ("gt_A", "A", ["--integrator", "gt", "--spp", "64"]),
+                    ("gt_B", "B", ["--integrator", "gt", "--spp",
+                                   str(spp_b)]))
+            means = {}
+            for name, scene_name, args in runs:
+                out = os.path.join(tmp, name, "image.npy")
+                for fn in counters.values():
+                    fn.launches = 0
+                any_hits[0] = 0
+                del renders[:]
+                torch.cuda.synchronize()
+                t0 = time.time()
+                check(cli.main(["render", paths[scene_name], "-o", out,
+                                *args]) is None,
+                      f"cli {name}: non-zero return")
+                torch.cuda.synchronize()
+                sec[f"cli_{name}"] = time.time() - t0
+                la = {k: fn.launches for k, fn in counters.items()}
+                la["clas_cull_any_hit"] = any_hits[0]
+                report["launches"][name] = la
+                img = np.load(out)
+                check(img.shape == (height, width, 3)
+                      and np.isfinite(img).all(),
+                      f"cli {name}: image not finite or misshapen")
+                means[name] = float(img.mean())
+                for k in ("trace", "shade", "step", "bounce"):
+                    check(la[k] == 0, f"cli {name}: {k} was launched")
+                need = (("guided_sample", "em_suffstats", "clas_cull")
+                        if name.startswith("sdmm") else ("clas_cull",))
+                for k in need:
+                    check(la[k] > 0, f"cli {name}: {k} was not launched")
+                if name.startswith("gt"):
+                    report["pool"][name] = [r["pool"] for r in renders]
+                    check(report["pool"][name] == ["eager"],
+                          f"cli {name}: the path row took "
+                          f"{report['pool'][name]}")
+                    check(0 < la["clas_cull_any_hit"] < la["clas_cull"],
+                          f"cli {name}: clas_cull's closest-hit and any-hit "
+                          "forms did not both launch")
+                print(f"features: cli {name}: {sec[f'cli_{name}']:.3f} s, "
+                      f"image mean {means[name]:.5f}, launches {la}",
+                      flush=True)
+            rel = abs(means["sdmm_A"] - means["gt_A"]) / means["gt_A"]
+            report["sdmm_vs_gt_rel"] = rel
+            check(rel < 0.05, f"scene A: the sdmm image mean "
+                  f"{means['sdmm_A']:.5f} is not within 5% of the gt mean "
+                  f"{means['gt_A']:.5f}")
+
+            del renders[:]
+            t0 = time.time()
+            cli.main(["render", paths["B"], "-o",
+                      os.path.join(tmp, "small_cuda.npy"), *small])
+            sec["cli_gt_B_64x36_cuda"] = time.time() - t0
+            out, err = cpu_run.communicate(timeout=600)
+            sec["cli_gt_B_64x36_cpu_process"] = time.time() - t_cpu
+            check(cpu_run.returncode == 0, "scene B at 64x36 on the CPU: "
+                  f"the render failed: {err[-2000:]}")
+            films = {"cuda": renders[0], "cpu": dict(np.load(cpu_film))}
+            stats = {}
+            for where, film in films.items():
+                check(str(film["pool"]) == "eager"
+                      and (film["weight"] == 16).all()
+                      and np.isfinite(film["raw"]).all(),
+                      f"scene B at 64x36 on {where}: film")
+                stats[where] = _film_mean(film)
+            (m_c, se_c), (m_h, se_h) = stats["cuda"], stats["cpu"]
+            z = abs(m_c - m_h) / np.hypot(se_c, se_h)
+            report["card_vs_cpu"] = {"card": stats["cuda"],
+                                     "cpu": stats["cpu"], "z": z}
+            check(z < 4.0, f"scene B at 64x36: the card's mean {m_c:.5f} "
+                  f"and the CPU's {m_h:.5f} differ by {z:.2f} standard "
+                  "errors")
+    finally:
+        wf.render_wavefront, ccull.any_hit = real_rw, real_any
+        tr.render_pool_guided_fused = real_fused
+        if cpu_run is not None and cpu_run.poll() is None:
+            cpu_run.kill()
+            cpu_run.wait()
+    print("features:", json.dumps(report), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1733,6 +2131,7 @@ def main():
           f" {n_gs} in phase 7", flush=True)
     launches["guided_sample"] += n_gs
     phase_entry_point(dev, smi)
+    phase_features(dev, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -11,6 +11,9 @@ spent. ``render_pool_guided`` is the eager pool: guided sampling
 kernel for tensors on the card and its plain twin on the CPU, on the packed
 float32 leaf table of ``ops.guided_sample.pack_sample_table``, built once
 per render.
+The eager pool shades every ported BSDF type, reads the scene's textures
+and its environment (a constant or an env map); like the reference's, it
+applies no bump map, and without NEE the delta lights add nothing.
 ``render_pool_guided_fused`` is the frozen-model pool on the fused
 ``ops.guided_step`` kernels (trace + shade). NEE is compiled out (MIS weight
 1 on emitter hits), as in the reference package's guided path.
@@ -352,15 +355,21 @@ def _finalize_collect(samp, path_rad, cursor, S: int) -> dict:
 
 def guided_fused_supported(scene, cfg, gs: GuideState) -> bool:
     """Whether ``render_pool_guided_fused`` can render ``scene``: in-kernel
-    BSDF types only, a triangle table within MAX_TRIS and a pixel index
-    that fits the meta word. The port's scenes hold no textures, media,
-    point lights or environment maps, and its guide state no learned BSDF,
-    so the reference gate's other terms hold by construction."""
+    BSDF types only, no bump map, a triangle table within MAX_TRIS, no env
+    map, no delta light, no texture and a pixel index that fits the meta
+    word (the terms of ``render.wavefront.fused_supported`` but NEE's). The
+    port's guide state holds no learned BSDF and its scenes no media, the
+    reference gate's other terms."""
     return bool(
         gs.kernel_table is not None
         and len(cfg.bsdf_types) > 0
         and all(t in bo.SUPPORTED_TYPES for t in cfg.bsdf_types)
+        and not cfg.has_bump
         and scene.tri_v0.shape[0] <= bo.MAX_TRIS
+        and scene.env_pdf.shape[0] <= 1
+        and scene.pt_pos.shape[0] == 0
+        and scene.textures.shape[1] <= 1
+        and scene.proc_tex.shape[0] == 0
         and cfg.width * cfg.height <= bo._PIX_MASK
     )
 

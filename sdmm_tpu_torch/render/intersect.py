@@ -1,5 +1,6 @@
 """Ray–scene intersection (port of sdmm_tpu/render/intersect.py
-``intersect``, ``occluded`` and ``surface_interaction``).
+``intersect``, ``occluded``, ``surface_interaction`` and
+``apply_bumpmap``).
 
 The route depends on the triangle count alone:
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.spectrum import luminance
 from ..ops import clas_cull
 from ..ops.intersect_sweep import INF, mt_sweep
 
@@ -41,7 +43,10 @@ def occluded(scene, ro: torch.Tensor, rd: torch.Tensor,
 
 
 def surface_interaction(scene, ro, rd, hit):
-    """Hit-point attributes (position, normals, uv, ids) from intersect()."""
+    """Hit-point attributes (position, normals, uv, ids) from intersect().
+    Where the scene has mesh-attribute tables, ``uv`` widens to [N, 6]:
+    (u, v, the interpolated vertex colour, the distance to the nearest
+    edge line), which the procedural textures read."""
     tri = hit["tri"].clamp_min(0).long()
     t_safe = torch.where(hit["valid"], hit["t"], 0.0)
     p = ro + t_safe[:, None] * rd
@@ -55,6 +60,23 @@ def surface_interaction(scene, ro, rd, hit):
     uv_flat = scene.tri_uv.reshape(-1, 6)[tri]
     uv = (uv_flat[:, 0:2] * (1.0 - u - v) + uv_flat[:, 2:4] * u
           + uv_flat[:, 4:6] * v)
+    if scene.tri_vc.shape[0] > 0 or scene.tri_eh.shape[0] > 0:
+        u1, v1 = hit["u"], hit["v"]
+        b0 = 1.0 - u1 - v1
+        if scene.tri_vc.shape[0] > 0:
+            vc_flat = scene.tri_vc[tri]
+            vc = (vc_flat[:, 0:3] * b0[:, None] + vc_flat[:, 3:6] * u1[:, None]
+                  + vc_flat[:, 6:9] * v1[:, None])
+        else:
+            vc = torch.zeros(uv.shape[:-1] + (3,), device=uv.device)
+        if scene.tri_eh.shape[0] > 0:
+            # The distance to the nearest edge line, min_i bary_i · h_i.
+            eh = scene.tri_eh[tri]
+            ed = torch.minimum(torch.minimum(b0 * eh[:, 0], u1 * eh[:, 1]),
+                               v1 * eh[:, 2])
+        else:
+            ed = torch.zeros(uv.shape[:-1], device=uv.device)
+        uv = torch.cat([uv, vc, ed[:, None]], dim=-1)
     emitter = scene.tri_emitter[tri]
     return {
         "p": p, "ng": ng, "ns": ns, "uv": uv, "tri": tri,
@@ -62,3 +84,67 @@ def surface_interaction(scene, ro, rd, hit):
         "emitter": torch.where(hit["valid"], emitter, -1),
         "valid": hit["valid"], "t": hit["t"],
     }
+
+
+def apply_bumpmap(scene, it: dict) -> torch.Tensor:
+    """Shading normals perturbed by the BSDF's bump or normal map; returns
+    the new ns [N, 3]. ``bsdf_bump`` >= 0 names a height texture, whose uv
+    gradient (central differences one texel apart) offsets the tangent
+    frame of the triangle's uv parameterization; <= -2 names a tangent-space
+    normal texture -(id + 2) (rgb → 2c − 1). Rays without either keep
+    their normals."""
+    from ..bsdf.bsdf import sample_texture
+
+    bsdf = it["bsdf"].long()
+    raw = scene.bsdf_bump[bsdf]
+    scale = scene.bsdf_bump_scale[bsdf]
+    is_normalmap = raw <= -2
+    tid = torch.where(is_normalmap, -raw - 2, raw).clamp_min(0)
+    eps = 1.0 / scene.textures.shape[1]
+    uv = it["uv"][:, 0:2]
+
+    def h(uv_):
+        return luminance(sample_texture(scene.textures, tid, uv_))
+
+    du = torch.zeros_like(uv)
+    du[:, 0] = eps
+    dv = torch.zeros_like(uv)
+    dv[:, 1] = eps
+    gu = (h(uv + du) - h(uv - du)) / (2.0 * eps)
+    gv = (h(uv + dv) - h(uv - dv)) / (2.0 * eps)
+
+    # Tangents from the triangle's uv parameterization.
+    tri = it["tri"].long()
+    e1 = scene.tri_e1[tri]
+    e2 = scene.tri_e2[tri]
+    uv_flat = scene.tri_uv.reshape(-1, 6)[tri]
+    duv1 = uv_flat[:, 2:4] - uv_flat[:, 0:2]
+    duv2 = uv_flat[:, 4:6] - uv_flat[:, 0:2]
+    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    det_ok = det.abs() > 1e-12
+    inv_det = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0),
+                          0.0)[:, None]
+    dpdu = (duv2[:, 1:2] * e1 - duv1[:, 1:2] * e2) * inv_det
+    dpdv = (-duv2[:, 0:1] * e1 + duv1[:, 0:1] * e2) * inv_det
+
+    ns = it["ns"]
+    n_new = torch.linalg.cross(dpdu + (scale * gu)[:, None] * ns,
+                               dpdv + (scale * gv)[:, None] * ns)
+    n_new = n_new * torch.sign((n_new * ns).sum(-1, keepdim=True))
+    n_norm = torch.linalg.vector_norm(n_new, dim=-1, keepdim=True)
+    ok = (raw >= 0) & det_ok & (n_norm[..., 0] > 1e-12)
+    out = torch.where(ok[:, None], n_new / n_norm.clamp_min(1e-20), ns)
+
+    # Normal map: the texture is the tangent-space normal, rotated into the
+    # (dpdu⊥, ·, ns) frame.
+    n_tan = 2.0 * sample_texture(scene.textures, tid, uv) - 1.0
+    tang = dpdu - ns * (dpdu * ns).sum(-1, keepdim=True)
+    t_norm = torch.linalg.vector_norm(tang, dim=-1, keepdim=True)
+    tang = tang / t_norm.clamp_min(1e-20)
+    bit = torch.linalg.cross(ns, tang)
+    n_nm = (tang * n_tan[..., 0:1] + bit * n_tan[..., 1:2]
+            + ns * n_tan[..., 2:3].clamp_min(1e-3))
+    n_nm = n_nm / torch.linalg.vector_norm(n_nm, dim=-1,
+                                           keepdim=True).clamp_min(1e-20)
+    ok_nm = is_normalmap & (t_norm[..., 0] > 1e-12)
+    return torch.where(ok_nm[:, None], n_nm, out)

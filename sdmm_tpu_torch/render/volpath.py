@@ -7,7 +7,8 @@ from __future__ import annotations
 import torch
 
 from ..core.frame import coordinate_system
-from ..scene.scene import BSDF_DIELECTRIC
+from ..scene.scene import (BSDF_DIELECTRIC, BSDF_HK, BSDF_NULL,
+                           BSDF_ROUGHDIELECTRIC)
 
 RAY_EPS = 1e-4  # spawn offset along the geometric normal
 
@@ -21,9 +22,12 @@ def mi_weight(pdf_a, pdf_b):
 
 def shading_frame(params: dict, ns: torch.Tensor, wi_world: torch.Tensor):
     """Local frame; flips the normal to wi's side for reflective models
-    (implicit two-sided) and keeps the true normal for dielectrics."""
+    (implicit two-sided) and keeps the true normal for the transmissive
+    ones (dielectric, roughdielectric, null, hk)."""
     cos_i = (ns * wi_world).sum(-1)
-    transmissive = params["type"] == BSDF_DIELECTRIC
+    t = params["type"]
+    transmissive = ((t == BSDF_DIELECTRIC) | (t == BSDF_ROUGHDIELECTRIC)
+                    | (t == BSDF_NULL) | (t == BSDF_HK))
     flip = (cos_i < 0.0) & ~transmissive
     n = torch.where(flip[..., None], -ns, ns)
     s, t = coordinate_system(n)

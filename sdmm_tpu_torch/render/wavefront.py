@@ -25,10 +25,11 @@ from ..core.device import resolve_device
 from ..core.frame import to_local, to_world
 from ..ops import bounce as bo
 from ..scene import emitters
-from ..scene.scene import scene_to
+from ..scene.scene import BSDF_NULL, scene_to
 from ..scene.sensor import generate_rays
 from .guided import INNER
-from .intersect import intersect, occluded, surface_interaction
+from .intersect import (apply_bumpmap, intersect, occluded,
+                        surface_interaction)
 from .volpath import RAY_EPS, mi_weight, shading_frame
 
 # f32 state rows of the fused pools' [16, N] lane state.
@@ -74,13 +75,13 @@ def render_pool(
     device: str | torch.device = "cuda",
 ):
     """Render width×height at ``spp`` with a regenerating lane pool and
-    NEE (``nee``); uniforms come from ``generator`` (on ``device``).
+    NEE (``nee``: area triangles, delta lights and the env map, each with
+    the reference's MIS weights); uniforms come from ``generator`` (on
+    ``device``). ``has_bump`` applies the scene's bump and normal maps.
 
     Returns dict(image, sqr [n_pix, 3], weight [n_pix], n_vertices, steps,
     pool="eager"). ``n_vertices`` counts the alive lanes that hit a
     surface, before the back-face cull."""
-    if has_bump:
-        raise NotImplementedError("bump maps are not ported")
     if has_sss:
         raise NotImplementedError("subsurface scattering is not ported")
     if n_lanes <= 0:
@@ -92,6 +93,7 @@ def render_pool(
     total = n_pix * spp
     N = n_lanes
     pdf_over_area = emitters.tri_pdf_over_area(scene)
+    has_env_nee = nee and scene.env_pdf.shape[0] > 1
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -145,6 +147,8 @@ def render_pool(
         # --- One bounce ---
         hit = intersect(scene, ro, rd)
         it = surface_interaction(scene, ro, rd, hit)
+        if has_bump:
+            it["ns"] = apply_bumpmap(scene, it)
         le = emitters.eval_emitter(scene, it, -rd)
         w_hit = torch.ones(N, device=dev)
         if nee:
@@ -152,10 +156,16 @@ def render_pool(
                                               rd, hit["t"])
             w_hit = torch.where(prev_delta, 1.0, mi_weight(ppdf, pdf_nee))
         li = li + torch.where(alive[:, None], thr * le * w_hit[:, None], 0.0)
-        # Escaped rays: the constant environment, MIS weight 1.
+        # Escaped rays: the environment, weighted against the env map's
+        # NEE (weight 1 for a constant environment).
+        w_env = torch.ones(N, device=dev)
+        if has_env_nee:
+            pdf_env = emitters.pdf_env_dir(scene, rd) * scene.env_select_prob
+            w_env = torch.where(prev_delta, 1.0, mi_weight(ppdf, pdf_env))
         escaped = alive & ~hit["valid"]
-        li = li + torch.where(escaped[:, None],
-                              thr * emitters.env_eval(scene, rd), 0.0)
+        li = li + torch.where(
+            escaped[:, None],
+            thr * emitters.env_eval(scene, rd) * w_env[:, None], 0.0)
         on_surface = alive & hit["valid"]
         n_vert = n_vert + on_surface.sum()
 
@@ -164,7 +174,12 @@ def render_pool(
         s_ax, t_ax, n_ax = shading_frame(params, it["ns"], -rd)
         wi_local = to_local(s_ax, t_ax, n_ax, -rd)
         wi_dot_geo = (it["ng"] * -rd).sum(-1)
-        on_surface = on_surface & ~(wi_dot_geo * wi_local[..., 2] < 0.0)
+        # Null boundaries and masks stay out of the back-face cull.
+        cullable = params["type"] != BSDF_NULL
+        if "is_mask" in params:
+            cullable = cullable & ~params["is_mask"]
+        on_surface = on_surface & ~(cullable
+                                    & (wi_dot_geo * wi_local[..., 2] < 0.0))
 
         if nee:
             ls = emitters.sample_direct(scene, it["p"], u1n, u2n)
@@ -187,8 +202,8 @@ def render_pool(
                                   types=bsdf_types)
         wo_world = to_world(s_ax, t_ax, n_ax, bs["wo"])
         wo_dot_geo = (it["ng"] * wo_world).sum(-1)
-        good = (bs["weight"] > 0.0).any(-1) & ~(wo_dot_geo * bs["wo"][..., 2]
-                                                <= 0.0)
+        good = (bs["weight"] > 0.0).any(-1) & (
+            bs["pass"] | ~(wo_dot_geo * bs["wo"][..., 2] <= 0.0))
 
         depth = depth0 + 1
         survive = on_surface & good & (depth < max_depth)
@@ -226,17 +241,22 @@ def render_pool(
 
 def fused_supported(scene, cfg, nee: bool = True) -> bool:
     """Whether the fused pools can render ``scene``: NEE on, in-kernel BSDF
-    types only, a triangle table within MAX_TRIS, 1 to MAX_EMITTERS
-    emissive triangles and a pixel index that fits the meta word. The
-    port's scenes hold no textures, media, bump maps, point lights or
-    environment maps, so the reference gate's other terms hold by
-    construction."""
+    types only, no bump map, a triangle table within MAX_TRIS, 1 to
+    MAX_EMITTERS emissive triangles, no env map, no delta light, no texture
+    and a pixel index that fits the meta word. The kernels read none of the
+    textures; the reference's gate lets procedural ones through, this one
+    does not (ROADMAP §C)."""
     return bool(
         nee
         and len(cfg.bsdf_types) > 0
         and all(t in bo.SUPPORTED_TYPES for t in cfg.bsdf_types)
+        and not cfg.has_bump
         and scene.tri_v0.shape[0] <= bo.MAX_TRIS
         and 1 <= scene.em_tri_idx.shape[0] <= bo.MAX_EMITTERS
+        and scene.env_pdf.shape[0] <= 1
+        and scene.pt_pos.shape[0] == 0
+        and scene.textures.shape[1] <= 1
+        and scene.proc_tex.shape[0] == 0
         and cfg.width * cfg.height <= _PIX_MASK
     )
 
@@ -435,8 +455,10 @@ def render_wavefront(scene, cfg, spp: int = 16, seed: int = 1234,
                      device: str | torch.device = "cuda"):
     """Render ``scene`` at ``cfg``'s size and depth: on the card, a
     ``fused_supported`` scene takes ``render_pool_fused_sorted2`` at
-    ``spp`` >= 4 and ``render_pool_fused_striped`` below; every other scene,
-    and every CPU render, the eager ``render_pool``.
+    ``spp`` >= 4 and ``render_pool_fused_striped`` below; every other scene
+    (textures, bump maps, delta lights, env maps, BSDFs the kernels lack),
+    and every CPU render, the eager ``render_pool``, with the scene's bump
+    maps where ``cfg.has_bump``.
 
     Returns dict(image [H, W, 3] (the mean), sqr [H, W, 3], weight [H, W],
     raw [H, W, 3] (the sum), as numpy; n_vertices, steps, and pool, the
@@ -458,7 +480,7 @@ def render_wavefront(scene, cfg, spp: int = 16, seed: int = 1234,
             n_lanes=min(n_lanes, w * h * spp), spp=spp, width=w, height=h,
             max_depth=cfg.max_depth, rr_depth=cfg.rr_depth, nee=nee,
             bsdf_types=cfg.bsdf_types or None, fov_axis=cfg.fov_axis,
-            device=dev)
+            has_bump=cfg.has_bump, device=dev)
     image, weight = out["image"], out["weight"]
     return {
         "image": (image / weight.clamp_min(1.0)[:, None]).reshape(h, w, 3)

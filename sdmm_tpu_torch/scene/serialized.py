@@ -163,7 +163,14 @@ def load_ply(path: str) -> dict:
         uv = np.stack([col("u"), col("v")], axis=-1)
     elif "s" in names:
         uv = np.stack([col("s"), col("t")], axis=-1)
+    colors = None
+    if "red" in names:
+        colors = np.stack([col("red"), col("green"), col("blue")], axis=-1)
+        # uchar channels come in 0..255; float channels are 0..1.
+        ctype = dict((n, t) for t, n in vert_props).get("red", "float")
+        if ctype in ("uchar", "uint8", "char"):
+            colors = colors / 255.0
     return {
         "positions": positions, "normals": normals, "uv": uv,
-        "faces": faces, "face_normals": normals is None,
+        "colors": colors, "faces": faces, "face_normals": normals is None,
     }

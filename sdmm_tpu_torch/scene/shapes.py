@@ -1,11 +1,11 @@
 """Host-side shape → triangle-soup generation (port of
 sdmm_tpu/scene/shapes.py: ``TriSoup``, the rectangle, cube, sphere, disk
-and cylinder, indexed meshes and the OBJ loader).
+and cylinder, indexed meshes, the OBJ loader and the curvature bake).
 
 Unit-shape conventions match Mitsuba 0.6 (rectangle: [-1,1]^2 in the
 xy-plane, +z normal; cube: [-1,1]^3; disk: the unit disk at z = 0). Pure
-numpy. The port's soups carry no vertex colours: they feed only the
-mesh-attribute textures, which are not ported.
+numpy. A soup may carry per-corner colours, which feed the mesh-attribute
+textures (vertexcolors, and curvature baked to colours).
 """
 
 from __future__ import annotations
@@ -26,15 +26,19 @@ def _transform_normals(m: np.ndarray, ns: np.ndarray) -> np.ndarray:
 
 class TriSoup:
     """Accumulates triangles: vertices [T,3,3], shading normals [T,3,3],
-    texture coordinates [T,3,2]."""
+    texture coordinates [T,3,2], per-corner colours [T,3,3] (zero unless
+    ``has_colors``)."""
 
     def __init__(self):
         self.verts: list[np.ndarray] = []
         self.normals: list[np.ndarray] = []
         self.uvs: list[np.ndarray] = []
+        self.colors: list[np.ndarray] = []
+        self.has_colors = False
 
     def add(self, verts: np.ndarray, normals: np.ndarray | None = None,
-            uvs: np.ndarray | None = None):
+            uvs: np.ndarray | None = None,
+            colors: np.ndarray | None = None):
         verts = np.asarray(verts, dtype=np.float64).reshape(-1, 3, 3)
         if normals is None:
             e1 = verts[:, 1] - verts[:, 0]
@@ -44,21 +48,30 @@ class TriSoup:
             normals = np.repeat(n[:, None, :], 3, axis=1)
         if uvs is None:
             uvs = np.zeros((len(verts), 3, 2))
+        if colors is None:
+            colors = np.zeros((len(verts), 3, 3))
+        else:
+            self.has_colors = True
         self.verts.append(verts)
         self.normals.append(
             np.asarray(normals, dtype=np.float64).reshape(-1, 3, 3))
         self.uvs.append(np.asarray(uvs, dtype=np.float64).reshape(-1, 3, 2))
+        self.colors.append(
+            np.asarray(colors, dtype=np.float64).reshape(-1, 3, 3))
 
-    def concat(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def concat(self) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                              np.ndarray]:
+        """(vertices, normals, uvs, colours) of every triangle."""
         if not self.verts:
-            return np.zeros((0, 3, 3)), np.zeros((0, 3, 3)), np.zeros((0, 3, 2))
+            return (np.zeros((0, 3, 3)), np.zeros((0, 3, 3)),
+                    np.zeros((0, 3, 2)), np.zeros((0, 3, 3)))
         return (np.concatenate(self.verts), np.concatenate(self.normals),
-                np.concatenate(self.uvs))
+                np.concatenate(self.uvs), np.concatenate(self.colors))
 
     def transformed(self, to_world: np.ndarray) -> "TriSoup":
         """A copy with ``to_world`` applied: an instance is flattened into
         transformed triangle copies at build time."""
-        v, n, uv = self.concat()
+        v, n, uv, vc = self.concat()
         out = TriSoup()
         if len(v):
             out.add(
@@ -66,7 +79,7 @@ class TriSoup:
                 .reshape(-1, 3, 3),
                 _transform_normals(to_world, n.reshape(-1, 3))
                 .reshape(-1, 3, 3),
-                uv)
+                uv, vc if self.has_colors else None)
         return out
 
 
@@ -228,15 +241,17 @@ def make_cylinder(p0: np.ndarray, p1: np.ndarray, radius: float,
 
 def mesh_to_soup(mesh: dict, to_world: np.ndarray | None = None,
                  flip_normals: bool = False) -> TriSoup:
-    """Indexed mesh dict (positions, normals, uv, faces) → triangle soup;
-    zero-area triangles are dropped."""
+    """Indexed mesh dict (positions, normals, uv, colors, faces) → triangle
+    soup; zero-area triangles are dropped."""
     v = mesh["positions"]
     faces = mesh["faces"]
     vn = None if mesh.get("face_normals") else mesh.get("normals")
     vt = mesh.get("uv")
+    vc = mesh.get("colors")
     tri_v = v[faces]
     tri_n = vn[faces] if vn is not None else None
     tri_uv = vt[faces] if vt is not None else None
+    tri_c = vc[faces] if vc is not None else None
     if to_world is not None:
         tri_v = _transform_points(
             to_world, tri_v.reshape(-1, 3)).reshape(-1, 3, 3)
@@ -249,16 +264,87 @@ def mesh_to_soup(mesh: dict, to_world: np.ndarray | None = None,
     tri_v = tri_v[keep]
     tri_n = tri_n[keep] if tri_n is not None else None
     tri_uv = tri_uv[keep] if tri_uv is not None else None
+    tri_c = tri_c[keep] if tri_c is not None else None
     if flip_normals:
         tri_v = tri_v[:, ::-1, :]
         if tri_n is not None:
             tri_n = -tri_n[:, ::-1, :]
         if tri_uv is not None:
             tri_uv = tri_uv[:, ::-1, :]
+        if tri_c is not None:
+            tri_c = tri_c[:, ::-1, :]
     soup = TriSoup()
     if len(tri_v):
-        soup.add(tri_v, tri_n, tri_uv)
+        soup.add(tri_v, tri_n, tri_uv, tri_c)
     return soup
+
+
+def vertex_curvature(mesh: dict, kind: str = "gaussian") -> np.ndarray:
+    """Discrete per-vertex curvature of an indexed mesh: ``gaussian`` the
+    angle defect (2π − Σ incident angles) / (A/3), ``mean`` the cotangent
+    Laplacian |Δp| / (2·A/3), signed by the mean normal."""
+    v = np.asarray(mesh["positions"], dtype=np.float64)
+    f = np.asarray(mesh["faces"], dtype=np.int64)
+    nv = len(v)
+    p0, p1, p2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+    fn = np.cross(p1 - p0, p2 - p0)
+    area = np.maximum(0.5 * np.linalg.norm(fn, axis=-1), 1e-20)
+    varea = np.zeros(nv)
+    vnorm = np.zeros((nv, 3))
+    for i in range(3):
+        np.add.at(varea, f[:, i], area / 3.0)
+        np.add.at(vnorm, f[:, i], fn)
+    vnorm /= np.maximum(np.linalg.norm(vnorm, axis=-1, keepdims=True), 1e-20)
+
+    if kind == "gaussian":
+        defect = np.full(nv, 2.0 * np.pi)
+        for i in range(3):
+            a = v[f[:, i]]
+            e1 = v[f[:, (i + 1) % 3]] - a
+            e2 = v[f[:, (i + 2) % 3]] - a
+            cosang = np.sum(e1 * e2, -1) / np.maximum(
+                np.linalg.norm(e1, axis=-1) * np.linalg.norm(e2, axis=-1),
+                1e-20)
+            np.add.at(defect, f[:, i], -np.arccos(np.clip(cosang, -1, 1)))
+        return defect / np.maximum(varea, 1e-20)
+
+    # Mean curvature normal: Δp_i = Σ_j (cot α_ij + cot β_ij)(p_j − p_i)/2.
+    lap = np.zeros((nv, 3))
+    for i in range(3):
+        ia, ib, ic = f[:, i], f[:, (i + 1) % 3], f[:, (i + 2) % 3]
+        e1 = v[ia] - v[ic]
+        e2 = v[ib] - v[ic]
+        cot = np.sum(e1 * e2, -1) / np.maximum(
+            np.linalg.norm(np.cross(e1, e2), axis=-1), 1e-20)
+        w = 0.5 * cot
+        np.add.at(lap, ia, w[:, None] * (v[ib] - v[ia]))
+        np.add.at(lap, ib, w[:, None] * (v[ia] - v[ib]))
+    h = np.linalg.norm(lap, axis=-1) / np.maximum(2.0 * varea, 1e-20)
+    sign = np.where(np.sum(lap * vnorm, -1) < 0.0, 1.0, -1.0)
+    return sign * h
+
+
+def bake_curvature(soup: TriSoup, kind: str = "gaussian",
+                   scale: float = 1.0) -> TriSoup:
+    """The curvature texture's colour ramp (positive → red, negative →
+    blue) baked into per-corner colours; coincident corners are welded to
+    recover the mesh's connectivity."""
+    v, n, uv, _ = soup.concat()
+    if not len(v):
+        return soup
+    flat = v.reshape(-1, 3)
+    ext = float(np.max(np.ptp(flat, axis=0))) or 1.0
+    key = np.round(flat / (1e-6 * ext)).astype(np.int64)
+    _, first, inv = np.unique(key, axis=0, return_index=True,
+                              return_inverse=True)
+    mesh = {"positions": flat[first], "faces": inv.reshape(-1, 3)}
+    vals = vertex_curvature(mesh, kind)
+    r = np.clip(vals * scale, 0.0, 1.0)
+    b = np.clip(-vals * scale, 0.0, 1.0)
+    cols = np.stack([r, np.zeros_like(r), b], axis=-1)
+    out = TriSoup()
+    out.add(v, n, uv, cols[inv.reshape(-1, 3)])
+    return out
 
 
 def check_lfs_stub(path: str) -> None:

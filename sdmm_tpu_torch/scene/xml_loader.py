@@ -4,18 +4,27 @@ what the port renders).
 It reads the same files the same way: ``<default>``, ``$var`` substitution
 (``-D`` overrides take precedence) and ``<include>``; ``<ref>`` and
 ``twosided``; the perspective sensor with its film, sampler and rfilter;
-the integrator's properties; the diffuse, conductor, roughconductor and
-dielectric BSDFs; area emitters and a constant environment; the rectangle,
-cube, sphere, disk, cylinder, obj, serialized, ply, shapegroup and instance
-shapes. Every feature the port cannot render yet raises
-``NotImplementedError`` at load time, naming its ROADMAP item; a shape type
-the loader does not know is skipped, as the reference skips it.
+the integrator's properties; every BSDF but irawan, with the bumpmap,
+normalmap, blendbsdf, mixturebsdf, mask, coating and roughcoating
+wrappers; bitmap textures (PNG decoded by ``utils/png.py``), ``scale`` and
+the procedural textures (checkerboard, gridtexture, wireframe,
+vertexcolors, curvature baked to vertex colours); area, constant, point,
+spot, directional, collimated, envmap (an EXR through ``utils/exr.py``),
+sky, sun and sunsky emitters; the rectangle, cube, sphere, disk, cylinder,
+obj, serialized, ply, shapegroup and instance shapes. Every feature the
+port cannot render yet raises ``NotImplementedError`` at load time, naming
+its ROADMAP item; a shape type the loader does not know is skipped, as the
+reference skips it. A bitmap or env map whose file is missing or a git-lfs
+stub becomes the reference's placeholder (a 4×4 mid-grey texture, a
+constant environment of the map's scale), with a warning; a file that is
+there but cannot be decoded raises.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import warnings
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -23,7 +32,11 @@ import numpy as np
 from ..core.spectrum import interpolated_spectrum_to_rgb
 from . import shapes as shp
 from .scene import (
-    BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_ROUGHCONDUCTOR,
+    BSDF_BLEND, BSDF_COATING, BSDF_CONDUCTOR, BSDF_DIELECTRIC,
+    BSDF_DIFFTRANS, BSDF_DIFFUSE, BSDF_HK, BSDF_MASK, BSDF_PHONG,
+    BSDF_PLASTIC, BSDF_ROUGHCONDUCTOR, BSDF_ROUGHDIELECTRIC,
+    BSDF_ROUGHDIFFUSE, BSDF_ROUGHPLASTIC, BSDF_THINDIELECTRIC, BSDF_WARD,
+    PROC_CHECKERBOARD, PROC_GRID, PROC_MESHATTR, PROC_WIREFRAME,
     SceneBuilder,
 )
 
@@ -42,20 +55,8 @@ DIELECTRIC_IOR = {
 
 # What the reference builds and the port does not render yet, by the
 # ROADMAP item that ports it.
-UNPORTED_BSDFS = {
-    name: "A9" for name in (
-        "bumpmap", "normalmap", "blendbsdf", "mixturebsdf", "mask",
-        "coating", "roughcoating", "roughdiffuse", "difftrans",
-        "roughdielectric", "thindielectric", "phong", "ward", "plastic",
-        "roughplastic", "irawan", "hk")
-}
-UNPORTED_EMITTERS = {
-    name: "A8b" for name in ("point", "spot", "directional", "collimated",
-                             "envmap", "sky", "sun", "sunsky")
-}
+UNPORTED_BSDFS = {"irawan": "A9"}
 UNPORTED_SHAPES = {"hair": "A8b", "heightfield": "A8b"}
-TEXTURES = ("bitmap", "checkerboard", "gridtexture", "wireframe",
-            "vertexcolors", "curvature")
 
 
 def unported(what: str, item: str) -> NotImplementedError:
@@ -199,6 +200,9 @@ class XMLLoader:
         self.builder = SceneBuilder()
         self.base_dir = "."
         self.shapegroups: dict = {}
+        # Texture code → (curvature kind, scale): a shape whose BSDF has a
+        # curvature texture bakes it into vertex colours (_shape).
+        self.curvature_notes: dict = {}
 
     def load(self, path: str) -> SceneBuilder:
         self.base_dir = os.path.dirname(os.path.abspath(path))
@@ -240,14 +244,94 @@ class XMLLoader:
             elif tag == "shape":
                 self._shape(el, base_dir)
             elif tag == "emitter":
-                etype = el.get("type")
-                if etype == "constant":
-                    p = _props(el, self.variables)
-                    self.builder.env_radiance = np.asarray(
-                        p.get("radiance", np.ones(3))).reshape(3)
-                elif etype in UNPORTED_EMITTERS:
-                    raise unported(f"the {etype} emitter",
-                                    UNPORTED_EMITTERS[etype])
+                self._emitter(el)
+
+    def _point(self, el, name):
+        """The <point name=...> child of ``el``, or None."""
+        for sub in el:
+            if sub.tag == "point" and sub.get("name") == name:
+                return _xyz(sub, self.variables)
+        return None
+
+    def _emitter(self, el):
+        p = _props(el, self.variables)
+        etype = el.get("type")
+        b = self.builder
+        z_axis = np.array([0.0, 0.0, 1.0])
+        if etype == "constant":
+            b.env_radiance = np.asarray(p.get("radiance",
+                                              np.ones(3))).reshape(3)
+        elif etype == "point":
+            pos = self._point(el, "position")
+            pos = np.zeros(3) if pos is None else pos
+            if "toWorld" in p:
+                pos = p["toWorld"][:3, 3]
+            b.add_point_light(pos, np.asarray(
+                p.get("intensity", np.ones(3))).reshape(3))
+        elif etype in ("spot", "collimated"):
+            # From toWorld's origin along its +z axis.
+            m = p.get("toWorld", np.eye(4))
+            if etype == "spot":
+                cutoff = float(p.get("cutoffAngle", 20.0))
+                b.add_spot_light(m[:3, 3], m[:3, :3] @ z_axis, np.asarray(
+                    p.get("intensity", np.ones(3))).reshape(3), cutoff,
+                    float(p.get("beamWidth", cutoff * 0.75)))
+            else:
+                b.add_collimated_light(m[:3, 3], m[:3, :3] @ z_axis,
+                                       np.asarray(p.get(
+                                           "power", np.ones(3))).reshape(3))
+        elif etype == "directional":
+            d = None
+            for sub in el:
+                if sub.tag == "vector" and sub.get("name") == "direction":
+                    d = _xyz(sub, self.variables)
+            if d is None:
+                d = p.get("toWorld", np.eye(4))[:3, :3] @ z_axis
+            b.add_directional_light(d, np.asarray(
+                p.get("irradiance", np.ones(3))).reshape(3))
+        elif etype == "envmap":
+            from ..utils.exr import read_exr
+
+            scale = float(p.get("scale", 1.0))
+            b.env_radiance = np.full(3, scale)
+            path = _asset(self.base_dir, p.get("filename"), "env map",
+                          "a constant environment of its scale")
+            if path is not None:
+                b.env_map = np.asarray(read_exr(path)[..., :3], np.float32)
+                if "toWorld" in p:
+                    b.env_to_world = p["toWorld"][:3, :3]
+        elif etype in ("sky", "sun", "sunsky"):
+            from .sunsky import (compute_sun_coordinates, make_sunsky_envmap,
+                                 sun_coords_to_dir)
+
+            if "sunDirection" in p:
+                sd = np.asarray(p["sunDirection"],
+                                dtype=np.float64).reshape(-1)[:3]
+            else:
+                sd = sun_coords_to_dir(*compute_sun_coordinates(
+                    year=int(p.get("year", 2010)),
+                    month=int(p.get("month", 7)),
+                    day=int(p.get("day", 10)),
+                    hour=float(p.get("hour", 15.0)),
+                    minute=float(p.get("minute", 0.0)),
+                    second=float(p.get("second", 0.0)),
+                    timezone=float(p.get("timezone", 9.0)),
+                    latitude=float(p.get("latitude", 35.6894)),
+                    longitude=float(p.get("longitude", 139.6917))))
+            alb = np.asarray(p.get("albedo", 0.15),
+                             dtype=np.float64).reshape(-1)
+            alb = alb if alb.size == 3 else np.full(3, float(alb[0]))
+            b.env_map = make_sunsky_envmap(
+                sd, turbidity=float(p.get("turbidity", 3.0)),
+                resolution=int(p.get("resolution", 256)),
+                with_sky=etype in ("sky", "sunsky"),
+                with_sun=etype in ("sun", "sunsky"),
+                sun_scale=float(p.get("sunScale", 1.0)),
+                sky_scale=float(p.get("skyScale", 1.0)),
+                albedo=alb, stretch=float(p.get("stretch", 1.0)),
+                sun_radius_scale=float(p.get("sunRadiusScale", 1.0)),
+                extend=bool(p.get("extend", False)))
+            b.env_radiance = np.full(3, float(p.get("scale", 1.0)))
 
     def _sensor(self, el):
         p = _props(el, self.variables)
@@ -278,33 +362,85 @@ class XMLLoader:
             fov_deg=float(p.get("fov", 45.0)),
             width=width, height=height, fov_axis=p.get("fovAxis", "x"))
 
-    def _texture_builds(self, el) -> bool:
-        """Whether the reference would build a texture from ``el``'s first
-        ``<texture>`` child (an unknown kind builds none)."""
-        for sub in el:
-            if sub.tag == "texture":
-                ttype = sub.get("type")
-                if ttype == "scale":
-                    return self._texture_builds(sub)
-                return ttype in TEXTURES
-        return False
+    def _children(self, el, n: int) -> list[int]:
+        """The ids of ``el``'s first ``n`` nested BSDFs (a diffuse one if
+        there is none)."""
+        subs = [sub for sub in el if sub.tag == "bsdf"][:n]
+        kids = [self._bsdf(sub) for sub in subs]
+        return kids or [self.builder.add_bsdf(BSDF_DIFFUSE)]
 
     def _bsdf(self, el) -> int:
         btype = _subst(el.get("type"), self.variables)
         name = el.get("id")
-        if btype == "twosided":
-            # Reflective models are two-sided here: unwrap the child.
-            child = next(sub for sub in el if sub.tag == "bsdf")
-            idx = self._bsdf(child)
-            if name is not None:
-                self.builder.bsdf_ids[name] = idx
-            return idx
+        b = self.builder
         if btype in UNPORTED_BSDFS:
             raise unported(f"the {btype} BSDF", UNPORTED_BSDFS[btype])
-        if self._texture_builds(el):
-            raise unported("a textured BSDF", "A8b")
         p = _props(el, self.variables)
+        if btype in ("twosided", "bumpmap", "normalmap"):
+            # Wrappers flattened onto the child's row: reflective models
+            # are two-sided here; a bump map sets the child's bump columns,
+            # a normal map stores its texture as bump = -(id + 2).
+            child = next((sub for sub in el if sub.tag == "bsdf"), None)
+            idx = (self._bsdf(child) if child is not None
+                   else b.add_bsdf(BSDF_DIFFUSE))
+            if btype == "bumpmap":
+                tex_id = self._bsdf_texture(el)
+                if tex_id >= 0:
+                    b.bsdfs[idx]["bump"] = tex_id
+                    b.bsdfs[idx]["bump_scale"] = float(p.get("scale", 1.0))
+            elif btype == "normalmap":
+                tex_id = self._bsdf_texture(el, srgb=False)
+                if tex_id >= 0:
+                    b.bsdfs[idx]["bump"] = -(tex_id + 2)
+            if name is not None:
+                b.bsdf_ids[name] = idx
+            return idx
+        if btype == "blendbsdf":
+            kids = self._children(el, 2)
+            return b.add_bsdf(BSDF_BLEND, name=name, child0=kids[0],
+                              child1=kids[1] if len(kids) > 1 else kids[0],
+                              weight=float(p.get("weight", 0.5)))
+        if btype == "mixturebsdf":
+            # Two components map onto the blend container; with more, the
+            # two largest weights are kept and renormalized.
+            children = [sub for sub in el if sub.tag == "bsdf"]
+            weights = [float(x) for x in str(p.get("weights", "")).replace(
+                ",", " ").split()] or \
+                [1.0 / max(len(children), 1)] * len(children)
+            pairs = sorted(zip(weights, range(len(children))),
+                           reverse=True)[:2]
+            if len(pairs) == 1:
+                return self._bsdf(children[pairs[0][1]])
+            (w0, i0), (w1, i1) = pairs
+            c0 = self._bsdf(children[i0])
+            c1 = self._bsdf(children[i1])
+            return b.add_bsdf(BSDF_BLEND, name=name, child0=c0, child1=c1,
+                              weight=w1 / max(w0 + w1, 1e-9))
+        if btype in ("coating", "roughcoating"):
+            # The layer row: eta the IOR ratio, alpha the thickness,
+            # albedo sigmaA, specular the reflectance, alpha_v the GGX
+            # roughness of the boundary (0 = smooth).
+            c0 = self._children(el, 1)[0]
+            sa = np.asarray(p.get("sigmaA", np.zeros(3)),
+                            np.float64).reshape(-1)
+            return b.add_bsdf(
+                BSDF_COATING, name=name, child0=c0,
+                eta=_ior(p.get("intIOR", "bk7"), 1.5046)
+                / _ior(p.get("extIOR", "air"), 1.000277),
+                alpha=float(p.get("thickness", 1.0)),
+                alpha_v=(float(p.get("alpha", 0.1))
+                         if btype == "roughcoating" else 0.0),
+                albedo=sa if sa.size == 3 else np.full(3, float(sa[0])),
+                specular=p.get("specularReflectance", np.ones(3)))
+        if btype == "mask":
+            c0 = self._children(el, 1)[0]
+            op = np.broadcast_to(np.asarray(
+                p.get("opacity", np.full(3, 0.5))).reshape(-1), (3,))
+            return b.add_bsdf(BSDF_MASK, name=name, child0=c0, albedo=op)
         kwargs = {}
+        tex_id = self._bsdf_texture(el)
+        if tex_id != -1:  # a bitmap id, or -(idx + 2) for a procedural one
+            kwargs["tex"] = tex_id
         if btype in ("conductor", "roughconductor"):
             eta_k = CONDUCTOR_IOR.get(p.get("material", "Cu"),
                                       CONDUCTOR_IOR["Cu"])
@@ -314,22 +450,138 @@ class XMLLoader:
             kwargs["eta"] = float(np.mean(np.asarray(p.get("eta", eta_k[0]))))
             kwargs["k"] = np.asarray(p.get("k", eta_k[1]))
             kwargs["alpha"] = float(p.get("alpha", 0.1))
-        elif btype == "dielectric":
-            int_ior = p.get("intIOR", "bk7")
-            ext_ior = p.get("extIOR", "air")
-            int_v = (DIELECTRIC_IOR.get(int_ior, 1.5046)
-                     if isinstance(int_ior, str) else float(int_ior))
-            ext_v = (DIELECTRIC_IOR.get(ext_ior, 1.000277)
-                     if isinstance(ext_ior, str) else float(ext_ior))
-            code = BSDF_DIELECTRIC
-            kwargs["eta"] = int_v / ext_v
+        elif btype in ("dielectric", "roughdielectric", "thindielectric"):
+            code = {"roughdielectric": BSDF_ROUGHDIELECTRIC,
+                    "thindielectric": BSDF_THINDIELECTRIC}.get(
+                        btype, BSDF_DIELECTRIC)
+            kwargs["eta"] = (_ior(p.get("intIOR", "bk7"), 1.5046)
+                             / _ior(p.get("extIOR", "air"), 1.000277))
             kwargs["specular"] = p.get("specularReflectance", np.ones(3))
             kwargs["albedo"] = p.get("specularTransmittance", np.ones(3))
             kwargs["alpha"] = float(p.get("alpha", 0.1))
+        elif btype in ("phong", "ward"):
+            code = BSDF_PHONG if btype == "phong" else BSDF_WARD
+            kwargs["albedo"] = p.get("diffuseReflectance", np.full(3, 0.5))
+            kwargs["specular"] = p.get("specularReflectance",
+                                       np.full(3, 0.2))
+            if btype == "phong":
+                kwargs["exponent"] = float(p.get("exponent", 30.0))
+            else:
+                kwargs["alpha"] = float(p.get("alphaU", p.get("alpha", 0.1)))
+                kwargs["alpha_v"] = float(p.get("alphaV",
+                                                p.get("alpha", 0.1)))
+        elif btype in ("roughplastic", "plastic"):
+            code = (BSDF_ROUGHPLASTIC if btype == "roughplastic"
+                    else BSDF_PLASTIC)
+            kwargs["albedo"] = p.get("diffuseReflectance", np.full(3, 0.5))
+            kwargs["specular"] = p.get("specularReflectance", np.ones(3))
+            kwargs["eta"] = (_ior(p.get("intIOR", "polypropylene"), 1.49)
+                             / _ior(p.get("extIOR", "air"), 1.000277))
+            kwargs["alpha"] = float(p.get("alpha", 0.1))
+        elif btype == "roughdiffuse":
+            code = BSDF_ROUGHDIFFUSE
+            kwargs["albedo"] = p.get("reflectance", np.full(3, 0.5))
+            kwargs["alpha"] = float(p.get("alpha", 0.2))
+        elif btype == "difftrans":
+            code = BSDF_DIFFTRANS
+            kwargs["albedo"] = p.get("transmittance", np.full(3, 0.5))
+        elif btype == "hk":
+            # Hanrahan-Krueger slab from sigmaS/sigmaA or sigmaT + albedo;
+            # a nested hg phase sets g (carried in eta).
+            code = BSDF_HK
+
+            def rgb(v):
+                return np.broadcast_to(np.asarray(
+                    v, np.float64).reshape(-1), (3,)).astype(np.float64)
+
+            if "sigmaT" in p:
+                sig_t = rgb(p["sigmaT"])
+                sig_s = sig_t * rgb(p.get("albedo", 0.8))
+                sig_a = sig_t - sig_s
+            else:
+                sig_s = rgb(p.get("sigmaS", 2.0))
+                sig_a = rgb(p.get("sigmaA", 0.05))
+            g = 0.0
+            for sub in el:
+                if sub.tag == "phase" and sub.get("type") == "hg":
+                    g = float(_props(sub, self.variables).get("g", 0.0))
+            kwargs.update(albedo=sig_s, specular=sig_a,
+                          alpha=float(p.get("thickness", 1.0)), eta=g)
         else:  # diffuse, and any type Mitsuba's subset does not know
             code = BSDF_DIFFUSE
             kwargs["albedo"] = p.get("reflectance", np.full(3, 0.5))
-        return self.builder.add_bsdf(code, name=name, **kwargs)
+        return b.add_bsdf(code, name=name, **kwargs)
+
+    def _bsdf_texture(self, el, srgb: bool = True) -> int:
+        """The id of ``el``'s first nested <texture> (a bitmap id, or
+        -(idx + 2) for a procedural one), or -1. ``srgb=False`` keeps the
+        raw values (normal maps store vectors)."""
+        for sub in el:
+            if sub.tag == "texture":
+                return self._texture(sub, srgb=srgb)
+        return -1
+
+    def _texture(self, sub, srgb: bool = True, mul: float = 1.0) -> int:
+        """One <texture> → texture id: bitmap, scale (a factor on the
+        texture it wraps) and the procedural kinds, lowered to proc_tex
+        rows; an unknown kind builds none (-1)."""
+        ttype = sub.get("type")
+        tp = _props(sub, self.variables)
+        b = self.builder
+
+        def spec(name, default):
+            v = tp.get(name, None)
+            if v is None:
+                return np.full(3, default)
+            return np.broadcast_to(np.asarray(v, np.float64).reshape(-1),
+                                   (3,)).copy()
+
+        uvkw = dict(uscale=float(tp.get("uscale", 1.0)),
+                    vscale=float(tp.get("vscale", 1.0)),
+                    uoffset=float(tp.get("uoffset", 0.0)),
+                    voffset=float(tp.get("voffset", 0.0)))
+        if ttype == "bitmap":
+            from ..utils.png import load_bitmap
+
+            path = _asset(self.base_dir, tp.get("filename"), "bitmap",
+                          "a 4x4 mid-grey texture")
+            if path is None:
+                img = np.full((4, 4, 3), 0.5, np.float32)
+            else:
+                img = load_bitmap(path)
+                if srgb:
+                    img = img ** 2.2  # sRGB → linear (approximate)
+            return b.add_texture(img * mul)
+        if ttype == "scale":
+            s = float(tp.get("scale", tp.get("value", 1.0)))
+            for ssub in sub:
+                if ssub.tag == "texture":
+                    return self._texture(ssub, srgb=srgb, mul=mul * s)
+            return -1
+        if ttype == "checkerboard":
+            return b.add_proc_texture(
+                PROC_CHECKERBOARD, color0=spec("color0", 0.4) * mul,
+                color1=spec("color1", 0.2) * mul, **uvkw)
+        if ttype == "gridtexture":
+            return b.add_proc_texture(
+                PROC_GRID, color0=spec("color0", 0.2) * mul,
+                color1=spec("color1", 0.4) * mul,
+                line_width=float(tp.get("lineWidth", 0.01)), **uvkw)
+        if ttype == "wireframe":
+            return b.add_proc_texture(
+                PROC_WIREFRAME, color0=spec("edgeColor", 0.1) * mul,
+                color1=spec("interiorColor", 0.5) * mul,
+                line_width=float(tp.get("lineWidth", 0.0)),
+                step_width=min(max(float(tp.get("stepWidth", 0.5)), 0.0),
+                               1.0))
+        if ttype == "vertexcolors":
+            return b.add_proc_texture(PROC_MESHATTR)
+        if ttype == "curvature":
+            code = b.add_proc_texture(PROC_MESHATTR)
+            self.curvature_notes[code] = (tp.get("curvature", "gaussian"),
+                                          float(tp.get("scale", 1.0)))
+            return code
+        return -1
 
     def _shape(self, el, base_dir, collect: list | None = None):
         """Parse one <shape>. With ``collect`` set, members are gathered
@@ -420,6 +672,10 @@ class XMLLoader:
             soup = shp.mesh_to_soup(mesh, to_world, flip)
         else:
             return  # a shape type the loader does not know: skipped
+        code = self.builder.bsdfs[bsdf_idx]["tex"]
+        if code in self.curvature_notes:
+            kind, scale = self.curvature_notes[code]
+            soup = shp.bake_curvature(soup, kind=kind, scale=scale)
         if collect is not None:
             collect.append((soup, bsdf_idx, emitter_idx))
         else:
@@ -432,6 +688,31 @@ class XMLLoader:
             if not fname and sub.tag == "texture":
                 fname = _props(sub, self.variables).get("filename", "")
         return fname
+
+
+def _ior(v, default: float) -> float:
+    """An IOR given as a number or a material name."""
+    return DIELECTRIC_IOR.get(v, default) if isinstance(v, str) else float(v)
+
+
+def _asset(base_dir: str, fname: str | None, what: str, placeholder: str):
+    """The path of a texture or env-map file; None, with a warning, where
+    the file is missing or a git-lfs stub (the caller then uses its
+    placeholder)."""
+    path = os.path.join(base_dir, fname) if fname else None
+    reason = None
+    if path is None or not os.path.isfile(path):
+        reason = "is missing"
+    else:
+        try:
+            shp.check_lfs_stub(path)
+        except ValueError:
+            reason = "is a git-lfs stub"
+    if reason is None:
+        return path
+    warnings.warn(f"{what} file {path or '(none named)'} {reason}: using "
+                  f"{placeholder}", stacklevel=3)
+    return None
 
 
 def load_scene(path: str, overrides: dict | None = None) -> SceneBuilder:

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
+sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
 from torch_parity import make_box  # noqa: E402
 
 from sdmm_tpu_torch.guiding import em as tem  # noqa: E402
@@ -169,21 +170,26 @@ def test_intersect_kernels_take_cuda_tensors_alone(no_gpu, monkeypatch):
 
 
 def test_unported_path_options_raise():
+    """Subsurface scattering still raises; bump maps and point lights are
+    ported: has_bump renders on the CPU, and sample_direct takes a scene
+    with a point light."""
     scene, cfg = _scene()
-    for opt in ({"has_bump": True}, {"has_sss": True}):
-        with pytest.raises(NotImplementedError):
-            twf.render_pool(scene, torch.Generator(), 64, 1, 8, 8,
-                            device="cpu", **opt)
+    with pytest.raises(NotImplementedError):
+        twf.render_pool(scene, torch.Generator(), 64, 1, 8, 8,
+                        device="cpu", has_sss=True)
+    out = twf.render_pool(scene, torch.Generator().manual_seed(0), 64, 1, 8,
+                          8, device="cpu", has_bump=True)
+    assert (out["weight"] == 1).all() and torch.isfinite(out["image"]).all()
     from sdmm_tpu_torch.scene import emitters as temit
 
-    class WithPointLights(tuple):
-        def __getattr__(self, name):
-            return torch.zeros((1, 3)) if name == "pt_pos" else \
-                getattr(scene, name)
-
-    with pytest.raises(NotImplementedError):
-        temit.sample_direct(WithPointLights(), torch.zeros((4, 3)),
-                            torch.zeros(4), torch.zeros((4, 2)))
+    b = make_box(tscene, tshapes, 8, 8)
+    b.add_point_light([0.0, 1.5, 0.0], [5.0, 5.0, 5.0])
+    lit, _ = b.build(device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    rec = temit.sample_direct(lit, torch.rand((256, 3), generator=gen),
+                              torch.rand(256, generator=gen),
+                              torch.rand((256, 2), generator=gen))
+    assert rec["delta"].any() and (~rec["delta"]).any()
 
 
 @pytest.mark.parametrize("option", [
@@ -198,11 +204,16 @@ def test_unported_options_raise(option):
 
 
 def test_unported_scene_features_raise():
+    """Irawan still raises; a textured diffuse builds."""
     b = tscene.SceneBuilder()
-    with pytest.raises(NotImplementedError):
-        b.add_bsdf(5)  # roughplastic is not an in-kernel type
-    with pytest.raises(NotImplementedError):
-        b.add_bsdf(tscene.BSDF_DIFFUSE, tex=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        b.add_bsdf(tscene.BSDF_IRAWAN)
+    tex = b.add_texture(torch.rand((4, 4, 3)).numpy())
+    b.add_shape(tshapes.make_rectangle(torch.eye(4).numpy()),
+                b.add_bsdf(tscene.BSDF_DIFFUSE, tex=tex))
+    textured, _ = b.build(device="cpu")
+    assert textured.bsdf_tex.tolist() == [tex]
+    assert textured.textures.shape == (1, b.texture_res, b.texture_res, 3)
     scene, cfg = _scene()
     tr = ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(max_leaves=8),
                               device="cpu")
@@ -253,6 +264,74 @@ def _xml(tmp_path, body=""):
         '<transform name="toWorld"><translate z="-4"/></transform></shape>'
         f'{body}</scene>')
     return str(path)
+
+
+def test_textured_scene_needs_the_card_or_the_cpu(no_gpu, tmp_path,
+                                                  monkeypatch):
+    """A scene with plastic, a bitmap, a point light and an env map:
+    cli.main (gt and sdmm) on a machine without a card raises unless
+    --device cpu is given, and renders with it (torch.cuda.is_available
+    patched false, so the check holds on any machine)."""
+    import numpy as np
+
+    from chip_smoke import write_png
+    from sdmm_tpu_torch import cli
+    from sdmm_tpu_torch.utils.exr import write_exr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    write_png(tmp_path / "t.png", np.arange(48, dtype=np.uint8).reshape(
+        4, 4, 3) * 5)
+    write_exr(str(tmp_path / "e.exr"), np.ones((4, 8, 3), np.float32))
+    xml = _xml(tmp_path, '<shape type="rectangle"><bsdf type="plastic">'
+                         '<texture type="bitmap" name="diffuseReflectance">'
+                         '<string name="filename" value="t.png"/></texture>'
+                         '</bsdf></shape><emitter type="point"/><emitter '
+                         'type="envmap"><string name="filename" '
+                         'value="e.exr"/></emitter>')
+    for integ in ("gt", "sdmm"):
+        out = str(tmp_path / f"{integ}.npy")
+        args = ["render", xml, "-o", out, "--spp", "1", "--integrator",
+                integ]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(args)
+        assert not os.path.exists(out)
+        cli.main(args + ["--device", "cpu"])
+        assert np.isfinite(np.load(out)).all()
+
+
+def test_png_decoder_never_falls_back_to_the_placeholder(tmp_path):
+    """Only a missing file or a git-lfs stub gives the mid-grey
+    placeholder (with a warning); a PNG that is there is decoded, and a
+    file that is there but cannot be decoded raises."""
+    import warnings
+
+    import numpy as np
+
+    from chip_smoke import write_png
+    from sdmm_tpu_torch.scene import xml_loader as txml
+
+    img = (np.arange(75, dtype=np.uint8).reshape(5, 5, 3) * 3)
+    write_png(tmp_path / "ok.png", img)
+    (tmp_path / "stub.png").write_text(
+        "version https://git-lfs.github.com/spec/v1\noid sha256:00\n")
+    (tmp_path / "bad.png").write_bytes(b"\x89PNG\r\n\x1a\n" + b"\0" * 40)
+
+    def load(name):
+        xml = _xml(tmp_path, '<shape type="rectangle"><bsdf type="diffuse">'
+                             '<texture type="bitmap" name="reflectance">'
+                             f'<string name="filename" value="{name}"/>'
+                             '</texture></bsdf></shape>')
+        return txml.load_scene(xml).textures[0]
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tex = load("ok.png")
+    np.testing.assert_array_equal(tex, (img / np.float32(255.0)) ** 2.2)
+    for name in ("stub.png", "missing.png"):
+        with pytest.warns(UserWarning, match="mid-grey"):
+            np.testing.assert_array_equal(load(name), 0.5)
+    with pytest.raises(ValueError):
+        load("bad.png")
 
 
 def test_cli_and_loader_default_to_the_card(no_gpu, tmp_path):

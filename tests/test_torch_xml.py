@@ -1,10 +1,12 @@
 """Port parity of scene loading: the same scene file, loaded by
 sdmm_tpu.scene.xml_loader.load_scene and by sdmm_tpu_torch's, builds
 array-equal SceneData fields (every field the port has, the port's own
-derived fields aside) and equal builder settings (integrator, sample count,
-seed, sampler, rfilter) and render configs. One case a loader feature; the
-files are written to tmp_path. Features the port cannot render yet raise
-NotImplementedError at load time, naming their ROADMAP item."""
+derived fields aside: textures, env maps and delta lights included) and
+equal builder settings (integrator, sample count, seed, sampler, rfilter)
+and render configs. One case a loader feature; the files (PNG bitmaps, EXR
+env maps among them) are written to tmp_path. Features the port cannot
+render yet raise NotImplementedError at load time, naming their ROADMAP
+item."""
 
 import os
 import struct
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
+sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+from chip_smoke import write_png  # noqa: E402
 from torch_parity import jax_scene_arrays, to_np  # noqa: E402
 
 from sdmm_tpu.scene import xml_loader as jxml  # noqa: E402
@@ -214,11 +218,97 @@ CASES = {
   <emitter type="constant"><rgb name="radiance" value="0.3, 0.4, 0.5"/>
   </emitter>
   <shape type="rectangle"/>""")),
+    "bitmap texture": dict(files={"x.png": "rgb"}, xml=_scene("""
+  <shape type="rectangle"><bsdf type="diffuse"><texture type="bitmap"
+    name="reflectance"><string name="filename" value="x.png"/></texture>
+  </bsdf></shape>""")),
+    "scaled checkerboard": dict(xml=_scene("""
+  <shape type="rectangle"><bsdf type="diffuse"><texture type="scale">
+    <float name="scale" value="0.7"/><texture type="checkerboard">
+    <float name="uscale" value="3"/></texture></texture></bsdf></shape>
+  """)),
+    "bumpmap": dict(files={"h.png": "grey"}, xml=_scene("""
+  <shape type="rectangle"><bsdf type="bumpmap"><texture type="bitmap">
+    <string name="filename" value="h.png"/></texture><float name="scale"
+    value="0.3"/><bsdf type="roughplastic"/></bsdf></shape>
+  <shape type="cube"><transform name="toWorld"><scale value="0.2"/>
+    </transform><bsdf type="normalmap"><texture type="bitmap"><string
+    name="filename" value="h.png"/></texture><bsdf type="phong"/></bsdf>
+  </shape>""")),
+    "blendbsdf": dict(xml=_scene("""
+  <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
+    </transform><bsdf type="blendbsdf"><float name="weight" value="0.3"/>
+    <bsdf type="diffuse"><texture type="gridtexture" name="reflectance"/>
+    </bsdf><bsdf type="conductor"/></bsdf></shape>
+  <shape type="rectangle"><bsdf type="mixturebsdf"><string name="weights"
+    value="0.2, 0.5, 0.3"/><bsdf type="ward"/><bsdf type="roughdiffuse"/>
+    <bsdf type="difftrans"/></bsdf></shape>
+  <shape type="sphere"><float name="radius" value="0.2"/><bsdf type="mask">
+    <rgb name="opacity" value="0.6"/><bsdf type="hk"/></bsdf></shape>""")),
+    "coating": dict(xml=_scene("""
+  <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
+    </transform><bsdf type="coating"><bsdf type="diffuse"><texture
+    type="wireframe" name="reflectance"/></bsdf></bsdf></shape>
+  <shape type="sphere"><float name="radius" value="0.2"/><bsdf
+    type="roughcoating"><float name="alpha" value="0.2"/><bsdf
+    type="roughdielectric"><texture type="curvature"
+    name="specularTransmittance"/></bsdf></bsdf></shape>""")),
+    "roughplastic": dict(xml=_scene("""
+  <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
+    </transform><bsdf type="roughplastic"><float name="alpha" value="0.2"/>
+    <texture type="vertexcolors" name="diffuseReflectance"/></bsdf>
+  </shape>
+  <shape type="rectangle"><bsdf type="plastic"/></shape>
+  <shape type="rectangle"><transform name="toWorld"><translate z="-1"/>
+    </transform><bsdf type="thindielectric"/></shape>""")),
+    "point": dict(xml=_scene("""
+  <emitter type="point"><point name="position" x="0" y="1" z="0"/>
+    <rgb name="intensity" value="3"/></emitter>
+  <emitter type="collimated"><transform name="toWorld"><translate
+    y="1.5"/></transform></emitter>
+  <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
+    </transform></shape>""")),
+    "spot": dict(xml=_scene("""
+  <emitter type="spot"><transform name="toWorld"><lookat origin="0, 1.5, 0"
+    target="0, 0, 0" up="0, 0, 1"/></transform><float name="cutoffAngle" value="25"/>
+    </emitter>
+  <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
+    </transform></shape>""")),
+    "directional": dict(xml=_scene("""
+  <emitter type="directional"><vector name="direction" x="0.2" y="-1"
+    z="0.1"/><rgb name="irradiance" value="2"/></emitter>
+  <emitter type="directional"/>
+  <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
+    </transform></shape>""")),
+    "envmap": dict(files={"sky.exr": "exr"}, xml=_scene("""
+  <emitter type="envmap"><string name="filename" value="sky.exr"/>
+    <float name="scale" value="2"/><transform name="toWorld"><rotate
+    y="1" angle="30"/></transform></emitter>
+  <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
+    </transform></shape>""")),
+    "sunsky": dict(xml=_scene("""
+  <emitter type="sunsky"><integer name="resolution" value="32"/>
+    <float name="turbidity" value="4"/></emitter>
+  <emitter type="point"><point name="position" x="0" y="1" z="0"/>
+    </emitter>
+  <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
+    </transform></shape>""")),
 }
 
 
 def _write(tmp_path, case):
+    rs = np.random.RandomState(3)
     for name, text in case.get("files", {}).items():
+        if name.endswith(".png"):  # a bitmap of random texels
+            write_png(tmp_path / name, rs.randint(
+                0, 256, (12, 20, 3) if text == "rgb" else (9, 7)))
+            continue
+        if name.endswith(".exr"):
+            from sdmm_tpu_torch.utils.exr import write_exr
+
+            write_exr(str(tmp_path / name),
+                      rs.rand(16, 32, 3).astype(np.float32) * 4.0)
+            continue
         mode = "wb" if isinstance(text, bytes) else "w"
         with open(tmp_path / name, mode) as f:
             f.write(text)
@@ -289,23 +379,7 @@ def test_obj_python_parser_matches_native_and_reference(kw, tmp_path,
 
 
 UNPORTED = {
-    "bitmap texture": '<bsdf type="diffuse"><texture type="bitmap" '
-                      'name="reflectance"><string name="filename" '
-                      'value="x.png"/></texture></bsdf>',
-    "scaled checkerboard": '<bsdf type="diffuse"><texture type="scale">'
-                           '<texture type="checkerboard"/></texture></bsdf>',
-    "bumpmap": '<bsdf type="bumpmap"><bsdf type="diffuse"/></bsdf>',
-    "blendbsdf": '<bsdf type="blendbsdf"><bsdf type="diffuse"/>'
-                 '<bsdf type="conductor"/></bsdf>',
-    "coating": '<bsdf type="coating"><bsdf type="diffuse"/></bsdf>',
-    "roughplastic": '<bsdf type="roughplastic"/>',
-    "point": '<emitter type="point"><point name="position" x="0" y="1" '
-             'z="0"/></emitter>',
-    "spot": '<emitter type="spot"/>',
-    "directional": '<emitter type="directional"/>',
-    "envmap": '<emitter type="envmap"><string name="filename" '
-              'value="sky.exr"/></emitter>',
-    "sunsky": '<emitter type="sunsky"/>',
+    "irawan": '<bsdf type="irawan"/>',
     "medium": '<medium type="homogeneous" id="fog"><rgb name="sigmaT" '
               'value="0.1"/></medium>',
     "shape medium": '<shape type="cube"><medium type="homogeneous" '
