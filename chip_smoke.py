@@ -306,6 +306,82 @@ def mixture_state(L, seed, dev):
                                                     device=dev)
 
 
+class EmCensus:
+    """While active, wraps ops.em_suffstats.e_step: after every E-step on
+    the card it counts the non-finite stats_w entries (components) and the
+    leaves that hold one, and sorts the valid samples whose posterior is not
+    finite by cause, from the plain math: a non-finite position or
+    direction, a component pdf that overflows, or a posterior total so
+    small that its reciprocal overflows (the cause on the card: before the
+    kernel dropped such posteriors, 0 * inf put a NaN in every live
+    component of the sample's leaf). The kernel skips a component of
+    weight 0, and so does the count. It also counts the valid samples whose
+    tangent coordinates are not finite."""
+
+    KEYS = ("calls", "valid_samples", "nonfinite_posterior",
+            "cause_nonfinite_pos_dir", "cause_pdf_overflow",
+            "cause_total_underflow", "cause_other", "nonfinite_tangent",
+            "nan_stats_w", "leaves_lost")
+
+    def __init__(self):
+        self.totals = dict.fromkeys(self.KEYS, 0)
+
+    def __enter__(self):
+        from sdmm_tpu_torch.ops import em_suffstats as ems
+
+        self._ems, self._real = ems, ems.e_step
+
+        def counted(sdmm, prep, pos, d, weight, leaf, n_leaves, **kw):
+            out = self._real(sdmm, prep, pos, d, weight, leaf, n_leaves,
+                             **kw)
+            if pos.device.type == "cuda":
+                self._count(sdmm, prep, pos, d, weight, leaf, n_leaves,
+                            out[0])
+            return out
+
+        ems.e_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._ems.e_step = self._real
+
+    def _count(self, sdmm, prep, pos, d, weight, leaf, n_leaves, stats_w):
+        from sdmm_tpu_torch.guiding import mixture as mix
+
+        t = self.totals
+        t["calls"] += 1
+        bad_w = ~torch.isfinite(stats_w)
+        t["nan_stats_w"] += int(bad_w.sum())
+        t["leaves_lost"] += int(bad_w.any(-1).sum())
+        valid = torch.isfinite(weight) & (weight >= 0) & (leaf >= 0) \
+            & (leaf < n_leaves)
+        idx = torch.nonzero(valid).squeeze(1)
+        t["valid_samples"] += int(idx.numel())
+        for sl in range(0, idx.numel(), 1 << 18):
+            i = idx[sl:sl + (1 << 18)]
+            cl = leaf[i].long()
+            p, dd = pos[i], d[i]
+            pdf, _, t_abs = mix.posterior_and_log(
+                sdmm.weight[cl], sdmm.mean[cl], prep.inv_chol[cl],
+                prep.inv_det_chol[cl], prep.rot[cl], p, dd)
+            w = sdmm.weight[cl]
+            live = w != 0
+            total = torch.where(live, w * pdf, 0.0).sum(-1)
+            under = (total > 0) & torch.isfinite(total) \
+                & ~torch.isfinite(1.0 / total)
+            bad = ~torch.isfinite(total) | under
+            bad_in = ~(torch.isfinite(p).all(-1) & torch.isfinite(dd).all(-1))
+            over = (live & torch.isinf(pdf)).any(-1) & ~bad_in
+            t["nonfinite_posterior"] += int(bad.sum())
+            t["cause_nonfinite_pos_dir"] += int((bad & bad_in).sum())
+            t["cause_pdf_overflow"] += int((bad & over).sum())
+            t["cause_total_underflow"] += int((under & ~bad_in).sum())
+            t["cause_other"] += int((bad & ~bad_in & ~over & ~under).sum())
+            t["nonfinite_tangent"] += int(
+                (~torch.isfinite(t_abs[..., 3:]) & live[..., None])
+                .any(-1).any(-1).sum())
+
+
 def phase_guided(dev):
     from sdmm_tpu_torch.ops import guided_sample as gso
 
@@ -766,9 +842,11 @@ def phase_main_path(dev, width=640, height=360):
     isweep.mt_sweep.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    img, iters = tr.run(total_spp=64, on_iteration=on_iteration)
+    with EmCensus() as census:
+        img, iters = tr.run(total_spp=64, on_iteration=on_iteration)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    print(f"em census: phase 5: {json.dumps(census.totals)}", flush=True)
     launches = {"guided_sample": gso.guided_sample.launches,
                 "em_suffstats": ems.suffstats.launches,
                 "trace": gst.trace.launches, "shade": gst.shade.launches,
@@ -1420,10 +1498,12 @@ def phase_large_path(dev, scene, cfg, smi, width=640, height=360):
     gso.guided_sample.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    img, iters = tr.run(total_spp=32, on_iteration=on_iteration)
+    with EmCensus() as census:
+        img, iters = tr.run(total_spp=32, on_iteration=on_iteration)
     torch.cuda.synchronize()
     wall = time.time() - t0
     n_gs = gso.guided_sample.launches
+    print(f"em census: phase 7: {json.dumps(census.totals)}", flush=True)
     train = [s for s in tr.stats if s["optimized_nodes_count"] > 0]
     frozen = [s for s in tr.stats if s["optimized_nodes_count"] == 0]
     check(len(iters) == 5 and len(train) == 2,

@@ -6,8 +6,10 @@
     python -m sdmm_tpu_torch compare image.exr reference.exr
 
 Integrators: ``gt``/``volpath`` (path tracing with NEE) and ``path`` (no
-NEE) through ``render_wavefront``; ``sdmm``, the guided training render,
-through ``SDMMTrainer``. The others keep their place in the argument list and
+NEE) through ``render_wavefront``, or through the wave renderer
+``renderer.render`` for a scene with a medium or a sampler other than
+``independent`` or an rfilter other than ``box``; ``sdmm``, the guided
+training render, through ``SDMMTrainer``. The others keep their place in the argument list and
 raise ``NotImplementedError``, naming the ROADMAP item that ports them.
 Renders run on the card unless ``--device cpu`` is given. Stats go next to
 the output as stats.json; an sdmm render also writes its guiding model to
@@ -67,10 +69,6 @@ def cmd_render(args):
                         UNPORTED_INTEGRATORS[integrator])
     sampler = args.sampler or builder.sampler
     rfilter = args.rfilter or builder.rfilter
-    if integrator != "sdmm" and (sampler != "independent"
-                                 or rfilter != "box"):
-        raise unported(f"the {sampler} sampler with the {rfilter} rfilter "
-                        "(renderer.render)", "A9")
     scene, cfg = builder.build(device=device)
     if args.width:
         cfg.width = args.width
@@ -111,11 +109,18 @@ def cmd_render(args):
                     write_exr(os.path.join(out_dir, f"{name}{i:05d}.exr"),
                               (film / n).reshape(cfg.height, cfg.width, 3))
     else:
-        from .render.wavefront import render_wavefront
+        nee = integrator in ("gt", "volpath")
+        if not cfg.has_medium and sampler == "independent" \
+                and rfilter == "box":
+            from .render.wavefront import render_wavefront
 
-        res = render_wavefront(scene, cfg, spp=spp, seed=builder.seed,
-                               nee=integrator in ("gt", "volpath"),
-                               device=device)
+            res = render_wavefront(scene, cfg, spp=spp, seed=builder.seed,
+                                   nee=nee, device=device)
+        else:
+            from .render.renderer import render
+
+            res = render(scene, cfg, spp=spp, seed=builder.seed, nee=nee,
+                         sampler=sampler, rfilter=rfilter, device=device)
         image = res["image"]
         _write_stats(out_dir, {"integrator": integrator, "spp": spp,
                                "seconds": time.time() - t0,

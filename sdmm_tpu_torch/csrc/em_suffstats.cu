@@ -4,8 +4,10 @@
 // (pallas_call over _suffstats_kernel, reached from e_step_pallas) and its
 // glue sort_and_tile. Per sample: posteriors over the K = 16 components of
 // the sample's leaf (the 5-D tangent-space Gaussian pdf, arccos by the same
-// 7th-order minimax polynomial, the same posterior floor g < 1e-10 -> 0 and
-// the same inv_total guard). Per (leaf, component): 21 statistics, sum(g w),
+// 7th-order minimax polynomial and the same posterior floor g < 1e-10 -> 0;
+// a posterior that is not finite, or whose total's reciprocal is not, is
+// dropped as in the plain twin and the reference's XLA E-step, where the
+// reference's Pallas kernel lets a NaN through). Per (leaf, component): 21 statistics, sum(g w),
 // sum(g w t) (5) and the lower triangle of sum(g w t t^T) (15); per leaf the
 // valid samples' weight sum and count.
 //
@@ -322,25 +324,31 @@ em_tile_kernel(const float4* __restrict__ rows,
           const float pdf =
               valid ? INV_SQRT_TWO_PI_5 * expf(-0.5f * q) * p[31] * aos : 0.0f;
           post = p[0] * pdf;
-          t3v = valid ? t3 : 0.0f;
-          t4v = valid ? t4 : 0.0f;
+          // A non-finite tangent coordinate adds nothing, as in the twin.
+          t3v = (valid && isfinite(t3)) ? t3 : 0.0f;
+          t4v = (valid && isfinite(t4)) ? t4 : 0.0f;
         }
         total += post;
         s_gw[k * CH + tid] = post;
         s_t3[k * CH + tid] = t3v;
         s_t4[k * CH + tid] = t4v;
       }
-      const float inv_total =
-          (total > 0.0f && isfinite(total)) ? 1.0f / total : 0.0f;
+      // As the twin: 1 / total where that is finite, else 0 (a total
+      // below 1 / FLT_MAX would give inf, and 0 * inf a NaN posterior).
+      float inv_total = total > 0.0f ? 1.0f / total : 0.0f;
+      inv_total = isfinite(inv_total) ? inv_total : 0.0f;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
+        // A posterior below 1e-10 or not finite (an overflowed pdf gives
+        // inf * 0) is dropped, as the twin and the reference's XLA E-step
+        // drop it; the reference's Pallas kernel lets a NaN through.
         float g = s_gw[k * CH + tid] * inv_total;
-        g = g < 1e-10f ? 0.0f : g;
+        g = (g >= 1e-10f && isfinite(g)) ? g : 0.0f;
         s_gw[k * CH + tid] = sm.w * g;
       }
-      s_p[tid] = sm.px;
-      s_p[CH + tid] = sm.py;
-      s_p[2 * CH + tid] = sm.pz;
+      s_p[tid] = isfinite(sm.px) ? sm.px : 0.0f;
+      s_p[CH + tid] = isfinite(sm.py) ? sm.py : 0.0f;
+      s_p[2 * CH + tid] = isfinite(sm.pz) ? sm.pz : 0.0f;
     } else {
       // Past the run: slots that add nothing in pass 2.
 #pragma unroll

@@ -1,12 +1,15 @@
 """SDMM training loop: iterate render → collect → split → EM (port of
-sdmm_tpu/guiding/trainer.py for the pooled single-device path).
+sdmm_tpu/guiding/trainer.py for one device).
 
 Per iteration: render ``samples_per_iteration`` spp with guided sampling
 while recording training vertices, refit the spatial tree (split leaves at
 ≥ 4000 samples, ≤ 2048 leaves), add jittered cross-leaf replicas, then run
 batched stepwise EM over every trainable leaf. Training runs for the first
 ``train_fraction`` of the sample budget; the frozen-model tail renders on
-the same guided lane pool. Per-iteration images are combined by inverse
+the same guided lane pool. Training iterations with
+``pooled_training=False``, and every iteration of an image above 2^20
+pixels, take the scan tracer ``trace_wave_guided`` over fixed waves of
+camera rays instead. Per-iteration images are combined by inverse
 variance.
 """
 
@@ -20,11 +23,13 @@ import torch
 
 from ..core.device import resolve_device
 from ..ops import guided_sample as gso
+from ..render import film as film_mod
 from ..render.guided import (
     GuideState, guided_fused_supported, render_pool_guided,
-    render_pool_guided_fused,
+    render_pool_guided_fused, trace_wave_guided,
 )
 from ..scene.scene import scene_to
+from ..scene.sensor import generate_rays
 from ..utils.stats import trainer_counters
 from . import em as em_mod
 from . import init as init_mod
@@ -53,7 +58,8 @@ class TrainerConfig:
     optimize_async: bool = False  # double-buffered EM: not ported
     sample_capacity: int = 2_000_000  # training-vertex buffer cap per
     # iteration; overflow samples are dropped
-    pooled_training: bool = True  # the fixed-wave scan tracer is not ported
+    pooled_training: bool = True  # collect training vertices on the lane
+    # pool; False takes the fixed-wave scan tracer
     cond_floor_frac: float = 0.35  # spatial covariance inflation (fraction
     # of leaf extent, per axis) applied to the GUIDE STATE only; the EM
     # keeps fitting the sharp model
@@ -61,9 +67,11 @@ class TrainerConfig:
     # budget in chunks of this many spp per iteration
 
 
+SCAN_PIXELS = 1 << 20  # above it every iteration takes the scan tracer
+
 _UNPORTED = {
     "sample_product": False, "data_init": False, "reservoir_capacity": 0,
-    "optimize_async": False, "pooled_training": True,
+    "optimize_async": False,
 }
 
 
@@ -89,6 +97,11 @@ class SDMMTrainer:
             raise NotImplementedError(
                 f"guided sampling is specialised to K = {gso.K} components")
         self.scene = scene_to(scene, self.device)
+        if render_cfg.has_sss and not render_cfg.sss_baked:
+            from ..render.subsurface import bake_subsurface
+
+            self.scene = bake_subsurface(self.scene, render_cfg, seed=c.seed,
+                                         device=self.device)
         self.render_cfg = render_cfg
         self.counters = trainer_counters()
 
@@ -174,14 +187,14 @@ class SDMMTrainer:
         lane pool; returns (image, sqr, weight, sample batches). A frozen
         iteration (``collect=False``) on the card takes the fused trace +
         shade pool where the scene allows it, as the reference does on its
-        accelerator."""
+        accelerator. A training iteration with ``pooled_training=False``,
+        and any iteration above 2^20 pixels, takes the scan tracer."""
         rc, c = self.render_cfg, self.cfg
         spp = c.samples_per_iteration if spp is None else spp
         w, h = rc.width, rc.height
         n_pix = w * h
-        if n_pix > (1 << 20):
-            raise NotImplementedError(
-                "images above 2^20 pixels take the scan tracer, not ported")
+        if n_pix > SCAN_PIXELS or (collect and not c.pooled_training):
+            return self._render_scan(collect, spp)
         gs = self.guide_state()
         lanes = min(c.rays_per_wave * 2, n_pix * spp)
         if not collect and self.device.type == "cuda" and \
@@ -207,13 +220,58 @@ class SDMMTrainer:
             bsdf_fraction=c.bsdf_fraction,
             bsdf_types=rc.bsdf_types or None, fov_axis=rc.fov_axis,
             collect_cap=cap, saved_samples_per_path=c.saved_samples_per_path,
-            device=self.device,
+            has_medium=rc.has_medium, has_hetero=rc.has_hetero,
+            has_sss=rc.has_sss, device=self.device,
         )
         if not collect:
             return self._frozen_result(out, n_pix * spp)
         self._last_mean_path_length = float(out["n_vertices"]) / max(
             1, n_pix * spp)
         return out["image"], out["sqr"], out["weight"], [out["samples"]]
+
+    def _render_scan(self, collect: bool, spp: int):
+        """An iteration on the scan tracer: ``spp`` passes over the pixels
+        in waves of ``rays_per_wave`` camera rays; returns what
+        ``render_iteration`` does, one sample batch per wave."""
+        rc, c, dev = self.render_cfg, self.cfg, self.device
+        w, h = rc.width, rc.height
+        n_pix = w * h
+        gs = self.guide_state()
+        table = gso.pack_sample_table(gs.kernel_table)
+        gen = _seeded(dev, c.seed, self.iteration)
+        wave = min(c.rays_per_wave, n_pix)
+        n_waves = -(-n_pix // wave)
+        pix_all = torch.arange(n_waves * wave, device=dev) % n_pix
+        image = torch.zeros((n_pix, 3), device=dev)
+        sqr = torch.zeros((n_pix, 3), device=dev)
+        weight = torch.zeros(n_pix, device=dev)
+        batches = []
+        for _ in range(spp):
+            for wv in range(n_waves):
+                idx = pix_all[wv * wave:(wv + 1) * wave]
+                u = torch.rand((idx.shape[0], 2), generator=gen, device=dev)
+                ro, rd = generate_rays(
+                    self.scene, torch.stack([(idx % w).float() + u[:, 0],
+                                             (idx // w).float() + u[:, 1]],
+                                            -1), w, h, rc.fov_axis)
+                li, samples = trace_wave_guided(
+                    self.scene, gs, gen, ro, rd, max_depth=rc.max_depth,
+                    rr_depth=rc.rr_depth, bsdf_fraction=c.bsdf_fraction,
+                    bsdf_types=rc.bsdf_types or None,
+                    saved_samples_per_path=c.saved_samples_per_path,
+                    has_medium=rc.has_medium, has_hetero=rc.has_hetero,
+                    has_sss=rc.has_sss, sample_table=table)
+                image, sqr, weight = film_mod.splat(
+                    image, sqr, weight, idx, torch.nan_to_num(
+                        li, nan=0.0, posinf=0.0, neginf=0.0))
+                batches.append(samples)
+        if collect:
+            return image, sqr, weight, batches
+        out = {"n_vertices": sum(float(b["n_vertices"]) for b in batches),
+               "n_cond_ok": sum(float(b["n_cond_ok"]) for b in batches),
+               "n_cond_try": sum(float(b["n_cond_try"]) for b in batches),
+               "image": image, "sqr": sqr, "weight": weight}
+        return self._frozen_result(out, n_pix * spp)
 
     def _frozen_result(self, out, n_paths: int):
         """Counters of a frozen iteration; returns its render outputs."""

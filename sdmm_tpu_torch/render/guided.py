@@ -1,8 +1,8 @@
 """Guided path tracer with SDMM directional sampling and training-vertex
 collection: the regenerating lane pool (port of sdmm_tpu/render/guided.py
-``GuideState``, ``canonical``, ``render_pool_guided``,
-``_finalize_collect``, ``guided_fused_supported`` and
-``render_pool_guided_fused``, without media and learned-BSDF products).
+``GuideState``, ``canonical``, ``trace_wave_guided``,
+``render_pool_guided``, ``_finalize_collect``, ``guided_fused_supported``
+and ``render_pool_guided_fused``, without learned-BSDF products).
 
 Every pool step traces one bounce for all lanes; dead lanes restart on the
 next camera sample of a global counter until ``spp`` samples per pixel are
@@ -12,8 +12,18 @@ kernel for tensors on the card and its plain twin on the CPU, on the packed
 float32 leaf table of ``ops.guided_sample.pack_sample_table``, built once
 per render.
 The eager pool shades every ported BSDF type, reads the scene's textures
-and its environment (a constant or an env map); like the reference's, it
-applies no bump map, and without NEE the delta lights add nothing.
+and its environment (a constant or an env map), and carries each lane's
+medium: free flights against the surface hit, Henyey-Greenstein scatters
+that are never recorded for training, and medium switches at crossed
+boundaries. It adds the baked dipole exitance where the scene has
+subsurface instances, which the reference's guided pool omits (ROADMAP
+§C); like the reference's, it applies no bump map, and without NEE the
+delta lights add nothing.
+``trace_wave_guided`` is the scan tracer of a fixed wave of camera rays,
+one step per bounce, whose training vertices' incident radiance comes from
+a backward recursion over the steps; the trainer takes it for
+``pooled_training=False`` and above 2^20 pixels. It samples through the
+same kernel and carries media and the dipole exitance as the pool does.
 ``render_pool_guided_fused`` is the frozen-model pool on the fused
 ``ops.guided_step`` kernels (trace + shade). NEE is compiled out (MIS weight
 1 on emitter hits), as in the reference package's guided path.
@@ -36,6 +46,7 @@ from ..ops import guided_step as gst
 from ..scene import emitters
 from ..scene.scene import scene_to
 from ..scene.sensor import generate_rays
+from . import medium as med
 from .intersect import intersect, surface_interaction
 from .volpath import shading_frame
 
@@ -74,6 +85,183 @@ def canonical(gs: GuideState, p: torch.Tensor) -> torch.Tensor:
     return (p - gs.aabb_lo) * gs.inv_norm
 
 
+def trace_wave_guided(
+    scene,
+    gs: GuideState,
+    generator: torch.Generator,
+    ro: torch.Tensor,
+    rd: torch.Tensor,
+    max_depth: int = 10,
+    rr_depth: int = 10,
+    bsdf_fraction: float = 0.5,
+    bsdf_types: tuple | None = None,
+    saved_samples_per_path: int = 8,
+    has_medium: bool = False,
+    has_hetero: bool = False,
+    has_sss: bool = False,
+    sample_table: torch.Tensor | None = None,
+):
+    """Trace one guided wave for ``max_depth`` + 1 steps (the last only as
+    the radiance target of the last vertex; it never reaches the image).
+    ``sample_table`` is ``pack_sample_table(gs.kernel_table)``, packed here
+    when not given.
+
+    Returns (li [N, 3], samples): flat [(max_depth)·N] pos, dir, weight
+    (-1 where invalid), valid, terminal (the path's last valid vertex), and
+    n_cond_try, n_cond_ok, n_vertices. Each vertex's incident radiance is
+    I_d = le_{d+1} + w_{d+1}·I_{d+1} (the RR 1/q compensation left out, as
+    in the reference's scan); only a path's last
+    ``saved_samples_per_path`` valid vertices are kept."""
+    n = ro.shape[0]
+    dev = ro.device
+    if sample_table is None:
+        sample_table = gso.pack_sample_table(gs.kernel_table)
+    thr = torch.ones((n, 3), device=dev)
+    eta_sq = torch.ones(n, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    li = torch.zeros((n, 3), device=dev)
+    med_id = scene.ambient_med.to(torch.int32).expand(n).clone()
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    outs = {k: [] for k in ("le", "bweight", "pdf", "cacheable", "pos",
+                            "dir")}
+    for depth in range(max_depth + 1):
+        rnd = torch.rand((n, 14), generator=generator, device=dev)
+        u_sel, u1, u2, u0 = rnd[:, 0], rnd[:, 1], rnd[:, 2:4], rnd[:, 4]
+        ug, u_rr, u_m, u_ph = rnd[:, 5:8], rnd[:, 8], rnd[:, 9], rnd[:, 10:12]
+
+        hit = intersect(scene, ro, rd)
+        it = surface_interaction(scene, ro, rd, hit)
+        if has_medium:
+            ms = (med.sample_distance_hetero(scene, med_id, generator, ro,
+                                             rd, hit["t"]) if has_hetero
+                  else med.sample_distance(scene, med_id, u_m, hit["t"]))
+            scattered = active & ms["scattered"]
+            med_w = torch.where(active[:, None], ms["weight"], 1.0)
+            thr = thr * med_w
+        else:
+            scattered = torch.zeros(n, dtype=torch.bool, device=dev)
+            med_w = torch.ones((n, 3), device=dev)
+
+        in_depth = depth < max_depth
+        counts[2] += (active & in_depth).sum()
+        le_eff = emitters.eval_emitter(scene, it, -rd) + torch.where(
+            hit["valid"][:, None], 0.0, emitters.env_eval(scene, rd))
+        if has_sss:
+            from .subsurface import sss_lo_factor
+
+            le_eff = le_eff + sss_lo_factor(scene, it, -rd)
+        le_eff = torch.where(scattered[:, None], 0.0, le_eff)
+        if in_depth:
+            li = li + torch.where(active[:, None], thr * le_eff, 0.0)
+        le_out = torch.where(active[:, None], le_eff, 0.0)
+        active = active & (hit["valid"] | scattered)
+        on_surface = active & ~scattered
+
+        params = bsdf_mod.gather_params(scene, it["bsdf"], it["uv"],
+                                        types=bsdf_types)
+        s_ax, t_ax, n_ax = shading_frame(params, it["ns"], -rd)
+        wi_local = to_local(s_ax, t_ax, n_ax, -rd)
+        wi_dot_geo = (it["ng"] * -rd).sum(-1)
+        on_surface = on_surface & ~(wi_dot_geo * wi_local[..., 2] < 0.0)
+
+        c_pos = canonical(gs, it["p"])
+        leaf = stree.find_leaf(gs.tables, c_pos)
+        delta_only = bsdf_mod.is_delta_only(params)
+        bs = bsdf_mod.sample_full(params, wi_local, u0, u1, u2,
+                                  types=bsdf_types)
+        wo_bsdf_world = to_world(s_ax, t_ax, n_ax, bs["wo"])
+        d_guide, g_ok, pdf_g, pdf_b, guide_valid = gso.guided_sample(
+            sample_table, leaf, c_pos.contiguous(),
+            wo_bsdf_world.contiguous(), ug.contiguous())
+        guide_ok = guide_valid & ~delta_only
+        h = torch.where(guide_ok, bsdf_fraction, 1.0)
+        take_bsdf = (u_sel < h) | ~guide_ok
+        gmm_pdf = torch.where(guide_ok, torch.where(take_bsdf, pdf_b, pdf_g),
+                              0.0)
+        tb = take_bsdf[:, None]
+        wo_local = torch.where(tb, bs["wo"], to_local(s_ax, t_ax, n_ax,
+                                                      d_guide))
+        wo_world = torch.where(tb, wo_bsdf_world, d_guide)
+        sampled_delta = take_bsdf & bs["delta"]
+        f_eval, bsdf_pdf_eval = bsdf_mod.eval_pdf_full(
+            params, wi_local, wo_local, types=bsdf_types)
+        mis_pdf = h * bsdf_pdf_eval + (1.0 - h) * gmm_pdf
+        bweight = torch.where(
+            sampled_delta[:, None], bs["weight"] / h.clamp_min(1e-6)[:, None],
+            f_eval / mis_pdf.clamp_min(1e-20)[:, None])
+        ok_sample = torch.where(
+            sampled_delta, (bs["weight"] > 0.0).any(-1),
+            (mis_pdf > 0.0) & (f_eval > 0.0).any(-1) & (take_bsdf | g_ok))
+        wo_dot_geo = (it["ng"] * wo_world).sum(-1)
+        ok_sample = ok_sample & ~(wo_dot_geo * wo_local[..., 2] <= 0.0)
+        surf_cont = on_surface & ok_sample
+        active_next = surf_cont | scattered
+
+        cond_try = on_surface & gs.initialized[leaf.long()] & ~delta_only
+        counts[0] += cond_try.sum()
+        counts[1] += (cond_try & guide_valid).sum()
+        outs["pdf"].append(mis_pdf.clamp_min(PDF_CLAMP))
+        outs["cacheable"].append(surf_cont & ~sampled_delta)
+        outs["pos"].append(c_pos)
+
+        thr = thr * torch.where(surf_cont[:, None], bweight, 1.0)
+        thr = torch.where(active_next[:, None], thr, 0.0)
+        eta_sq = eta_sq * torch.where(surf_cont, bs["eta"] * bs["eta"], 1.0)
+        q = (thr.max(-1).values * eta_sq).clamp_max(0.95)
+        if depth + 1 >= rr_depth:
+            active_next = active_next & (u_rr < q)
+            thr = torch.where(active_next[:, None],
+                              thr / q.clamp_min(1e-6)[:, None], thr)
+
+        ro_next = it["p"] + it["ng"] * torch.where(
+            wo_dot_geo > 0, RAY_EPS, -RAY_EPS)[:, None]
+        if has_medium:
+            d_med, _ = med.hg_sample(scene.med_g[med_id.long()], rd, u_ph)
+            p_med = ro + ms["t"][:, None] * rd
+            med_id = med.update_medium(scene, med_id, hit["tri"], wi_dot_geo,
+                                       wo_dot_geo, surf_cont & active_next)
+            ro_next = torch.where(scattered[:, None], p_med, ro_next)
+            wo_world = torch.where(scattered[:, None], d_med, wo_world)
+        # The backward recursion sees the whole step's factor: the
+        # segment's medium weight times the bounce weight.
+        step_w = med_w * torch.where(surf_cont[:, None], bweight, 1.0)
+        outs["le"].append(med_w * le_out)
+        outs["bweight"].append(torch.where(active_next[:, None], step_w, 0.0))
+        outs["dir"].append(wo_world)
+        ro, rd, active = ro_next, wo_world, active_next
+
+    d_slots = max_depth
+    incident = [None] * d_slots
+    acc = torch.zeros((n, 3), device=dev)
+    for d in range(d_slots - 1, -1, -1):
+        acc = outs["le"][d + 1] + outs["bweight"][d + 1] * acc
+        incident[d] = acc
+    incident = torch.stack(incident)  # [D, N, 3]
+    pdf = torch.stack(outs["pdf"][:d_slots])
+    sample_weight = (incident / pdf[..., None]).mean(-1)
+    valid = torch.stack(outs["cacheable"][:d_slots]) \
+        & torch.isfinite(sample_weight) & (sample_weight >= 0.0)
+    rev_rank = valid.flip(0).long().cumsum(0).flip(0)
+    terminal = valid & (rev_rank == 1)
+    valid = valid & (rev_rank <= saved_samples_per_path)
+    pos = torch.stack(outs["pos"][:d_slots])
+    dirs = torch.stack(outs["dir"][:d_slots])
+    samples = {
+        "n_cond_try": counts[0], "n_cond_ok": counts[1],
+        "n_vertices": counts[2],
+        "pos": torch.nan_to_num(torch.where(valid[..., None], pos, 0.5),
+                                nan=0.5, posinf=0.5, neginf=0.5)
+        .reshape(-1, 3),
+        "dir": torch.where(valid[..., None], dirs,
+                           torch.tensor([0.0, 0.0, 1.0], device=dev))
+        .reshape(-1, 3),
+        "weight": torch.where(valid, sample_weight, -1.0).reshape(-1),
+        "valid": valid.reshape(-1),
+        "terminal": terminal.reshape(-1),
+    }
+    return li, samples
+
+
 def render_pool_guided(
     scene,
     gs: GuideState,
@@ -90,10 +278,14 @@ def render_pool_guided(
     collect_cap: int = 0,
     saved_samples_per_path: int = 8,
     has_medium: bool = False,
+    has_hetero: bool = False,
+    has_sss: bool = False,
     device: str | torch.device = "cuda",
 ):
     """Guided render of width×height at ``spp`` with a regenerating lane
-    pool; uniforms come from ``generator`` (on ``device``).
+    pool; uniforms come from ``generator`` (on ``device``). ``has_medium``
+    carries each lane's medium (``has_hetero``: delta tracking through
+    grid densities); ``has_sss`` adds the baked dipole exitance.
 
     Returns dict(image, sqr [n_pix, 3], weight [n_pix], n_vertices, steps,
     n_cond_try, n_cond_ok). With ``collect_cap`` > 0 it also records
@@ -107,8 +299,6 @@ def render_pool_guided(
     result gains ``samples`` (pos/dir/weight/valid/terminal, [collect_cap])
     and ``n_emitted``.
     """
-    if has_medium:
-        raise NotImplementedError("participating media are not ported")
     if n_lanes <= 0:
         raise ValueError("n_lanes must be positive")
     dev = resolve_device(device)
@@ -136,6 +326,7 @@ def render_pool_guided(
     depth0 = zeros(N, dtype=torch.int64)
     alive = zeros(N, dtype=torch.bool)
     exhausted = zeros(N, dtype=torch.bool)
+    med_id = zeros(N, dtype=torch.int32)
     n_vert = zeros(dtype=torch.int64)
     n_cond_try = zeros(dtype=torch.int64)
     n_cond_ok = zeros(dtype=torch.int64)
@@ -154,6 +345,8 @@ def render_pool_guided(
         rnd = torch.rand((N, 11), generator=generator, device=dev)
         u_regen, u_sel, u1 = rnd[:, 0:2], rnd[:, 2], rnd[:, 3]
         u2, u0, ug, u_rr = rnd[:, 4:6], rnd[:, 6], rnd[:, 7:10], rnd[:, 10]
+        if has_medium:
+            rnd_m = torch.rand((N, 3), generator=generator, device=dev)
 
         # --- Regenerate dead lanes from the global sample counter ---
         need = ~alive & ~exhausted
@@ -177,6 +370,8 @@ def render_pool_guided(
         eta2 = torch.where(start, 1.0, eta2)
         depth0 = torch.where(start, 0, depth0)
         alive = alive | start
+        if has_medium:
+            med_id = torch.where(start, scene.ambient_med, med_id)
         if collect:
             lt = torch.where(s1, 0.0, lt)
             path_id = torch.where(start, g, path_id)
@@ -185,14 +380,31 @@ def render_pool_guided(
         # --- One guided bounce ---
         hit = intersect(scene, ro, rd)
         it = surface_interaction(scene, ro, rd, hit)
+        if has_medium:
+            # A free flight against the surface hit; a lane that scatters
+            # bounces by the phase function and is never recorded.
+            ms = (med.sample_distance_hetero(scene, med_id, generator, ro,
+                                             rd, hit["t"]) if has_hetero
+                  else med.sample_distance(scene, med_id, rnd_m[:, 0],
+                                           hit["t"]))
+            scattered = alive & ms["scattered"]
+            thr = thr * torch.where(alive[:, None], ms["weight"], 1.0)
+        else:
+            scattered = torch.zeros(N, dtype=torch.bool, device=dev)
         in_img = depth0 < max_depth
         le = emitters.eval_emitter(scene, it, -rd)
         env = emitters.env_eval(scene, rd)
         le_eff0 = le + torch.where(hit["valid"][:, None], 0.0, env)
+        if has_sss:
+            from .subsurface import sss_lo_factor
+
+            le_eff0 = le_eff0 + sss_lo_factor(scene, it, -rd)
+        # A scatter comes before the surface: its emitter is not reached.
+        le_eff0 = torch.where(scattered[:, None], 0.0, le_eff0)
         li = li + torch.where((alive & in_img)[:, None], thr * le_eff0, 0.0)
         if collect:
             lt = lt + torch.where(alive[:, None], thr * le_eff0, 0.0)
-        on_surface = alive & hit["valid"]
+        on_surface = alive & hit["valid"] & ~scattered
         n_vert = n_vert + (alive & in_img).sum()
 
         params = bsdf_mod.gather_params(scene, it["bsdf"], it["uv"],
@@ -249,7 +461,7 @@ def render_pool_guided(
 
         depth = depth0 + 1
         surf_cont = on_surface & ok_sample
-        survive = surf_cont & (depth < max_depth + extra)
+        survive = (surf_cont | scattered) & (depth < max_depth + extra)
         cont = surf_cont & survive
         thr_next = thr * torch.where(cont[:, None], bweight, 1.0)
         eta_sq = eta2 * torch.where(cont, bs["eta"] * bs["eta"], 1.0)
@@ -283,8 +495,20 @@ def render_pool_guided(
                 0, torch.where(done, path_id, total),
                 torch.nan_to_num(lt, nan=0.0, posinf=0.0, neginf=0.0))
 
-        ro = it["p"] + it["ng"] * torch.where(
+        ro_next = it["p"] + it["ng"] * torch.where(
             wo_dot_geo > 0, RAY_EPS, -RAY_EPS)[:, None]
+        if has_medium:
+            # Henyey-Greenstein scatters (importance-sampled exactly: the
+            # albedo is in the free-flight weight) and medium switches at
+            # crossed boundaries.
+            d_med, _ = med.hg_sample(scene.med_g[med_id.long()], rd,
+                                     rnd_m[:, 1:3])
+            p_med = ro + ms["t"][:, None] * rd
+            med_id = med.update_medium(scene, med_id, hit["tri"], wi_dot_geo,
+                                       wo_dot_geo, surf_cont & survive)
+            ro_next = torch.where(scattered[:, None], p_med, ro_next)
+            wo_world = torch.where(scattered[:, None], d_med, wo_world)
+        ro = ro_next
         rd = wo_world
         thr = thr_next
         eta2 = eta_sq
@@ -356,15 +580,17 @@ def _finalize_collect(samp, path_rad, cursor, S: int) -> dict:
 def guided_fused_supported(scene, cfg, gs: GuideState) -> bool:
     """Whether ``render_pool_guided_fused`` can render ``scene``: in-kernel
     BSDF types only, no bump map, a triangle table within MAX_TRIS, no env
-    map, no delta light, no texture and a pixel index that fits the meta
-    word (the terms of ``render.wavefront.fused_supported`` but NEE's). The
-    port's guide state holds no learned BSDF and its scenes no media, the
-    reference gate's other terms."""
+    map, no delta light, no texture, no medium, no subsurface scattering
+    and a pixel index that fits the meta word (the terms of
+    ``render.wavefront.fused_supported`` but NEE's). The port's guide state
+    holds no learned BSDF, the reference gate's other term."""
     return bool(
         gs.kernel_table is not None
         and len(cfg.bsdf_types) > 0
         and all(t in bo.SUPPORTED_TYPES for t in cfg.bsdf_types)
         and not cfg.has_bump
+        and not cfg.has_medium
+        and not cfg.has_sss
         and scene.tri_v0.shape[0] <= bo.MAX_TRIS
         and scene.env_pdf.shape[0] <= 1
         and scene.pt_pos.shape[0] == 0

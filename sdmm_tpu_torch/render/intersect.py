@@ -83,6 +83,7 @@ def surface_interaction(scene, ro, rd, hit):
         "bsdf": scene.tri_bsdf[tri],
         "emitter": torch.where(hit["valid"], emitter, -1),
         "valid": hit["valid"], "t": hit["t"],
+        "u_bary": hit["u"], "v_bary": hit["v"],
     }
 
 

@@ -77,13 +77,13 @@ def render_pool(
     """Render width×height at ``spp`` with a regenerating lane pool and
     NEE (``nee``: area triangles, delta lights and the env map, each with
     the reference's MIS weights); uniforms come from ``generator`` (on
-    ``device``). ``has_bump`` applies the scene's bump and normal maps.
+    ``device``). ``has_bump`` applies the scene's bump and normal maps,
+    ``has_sss`` adds the baked dipole exitance (``scene.sss_M``) at every
+    hit.
 
     Returns dict(image, sqr [n_pix, 3], weight [n_pix], n_vertices, steps,
     pool="eager"). ``n_vertices`` counts the alive lanes that hit a
     surface, before the back-face cull."""
-    if has_sss:
-        raise NotImplementedError("subsurface scattering is not ported")
     if n_lanes <= 0:
         raise ValueError("n_lanes must be positive")
     dev = resolve_device(device)
@@ -168,6 +168,11 @@ def render_pool(
             thr * emitters.env_eval(scene, rd) * w_env[:, None], 0.0)
         on_surface = alive & hit["valid"]
         n_vert = n_vert + on_surface.sum()
+        if has_sss:
+            from .subsurface import sss_lo_factor
+
+            li = li + torch.where(alive[:, None],
+                                  thr * sss_lo_factor(scene, it, -rd), 0.0)
 
         params = bsdf_mod.gather_params(scene, it["bsdf"], it["uv"],
                                         types=bsdf_types)
@@ -241,7 +246,8 @@ def render_pool(
 
 def fused_supported(scene, cfg, nee: bool = True) -> bool:
     """Whether the fused pools can render ``scene``: NEE on, in-kernel BSDF
-    types only, no bump map, a triangle table within MAX_TRIS, 1 to
+    types only, no bump map, no medium, no subsurface scattering, a
+    triangle table within MAX_TRIS, 1 to
     MAX_EMITTERS emissive triangles, no env map, no delta light, no texture
     and a pixel index that fits the meta word. The kernels read none of the
     textures; the reference's gate lets procedural ones through, this one
@@ -251,6 +257,8 @@ def fused_supported(scene, cfg, nee: bool = True) -> bool:
         and len(cfg.bsdf_types) > 0
         and all(t in bo.SUPPORTED_TYPES for t in cfg.bsdf_types)
         and not cfg.has_bump
+        and not cfg.has_medium
+        and not cfg.has_sss
         and scene.tri_v0.shape[0] <= bo.MAX_TRIS
         and 1 <= scene.em_tri_idx.shape[0] <= bo.MAX_EMITTERS
         and scene.env_pdf.shape[0] <= 1
@@ -453,18 +461,28 @@ def render_pool_fused_striped(
 def render_wavefront(scene, cfg, spp: int = 16, seed: int = 1234,
                      n_lanes: int = 1 << 18, nee: bool = True,
                      device: str | torch.device = "cuda"):
-    """Render ``scene`` at ``cfg``'s size and depth: on the card, a
-    ``fused_supported`` scene takes ``render_pool_fused_sorted2`` at
-    ``spp`` >= 4 and ``render_pool_fused_striped`` below; every other scene
-    (textures, bump maps, delta lights, env maps, BSDFs the kernels lack),
-    and every CPU render, the eager ``render_pool``, with the scene's bump
-    maps where ``cfg.has_bump``.
+    """Render ``scene`` at ``cfg``'s size and depth: a scene with a medium
+    takes the wave renderer ``renderer.render`` (the pools carry no medium
+    state); on the card, a ``fused_supported`` scene takes
+    ``render_pool_fused_sorted2`` at ``spp`` >= 4 and
+    ``render_pool_fused_striped`` below; every other scene (textures, bump
+    maps, delta lights, env maps, BSDFs the kernels lack, subsurface
+    scattering, baked first), and every CPU render, the eager
+    ``render_pool``, with the scene's bump maps where ``cfg.has_bump``.
 
     Returns dict(image [H, W, 3] (the mean), sqr [H, W, 3], weight [H, W],
     raw [H, W, 3] (the sum), as numpy; n_vertices, steps, and pool, the
-    name of the pool that ran)."""
+    name of the pool that ran: "scan" for the wave renderer)."""
     dev = resolve_device(device)
     w, h = cfg.width, cfg.height
+    if cfg.has_medium:
+        from .renderer import render
+
+        return render(scene, cfg, spp=spp, seed=seed, nee=nee, device=dev)
+    if cfg.has_sss and not cfg.sss_baked:
+        from .subsurface import bake_subsurface
+
+        scene = bake_subsurface(scene, cfg, seed=seed, device=dev)
     if dev.type == "cuda" and fused_supported(scene, cfg, nee):
         kw = dict(spp=spp, width=w, height=h, max_depth=cfg.max_depth,
                   rr_depth=cfg.rr_depth, fov_axis=cfg.fov_axis,
@@ -480,7 +498,7 @@ def render_wavefront(scene, cfg, spp: int = 16, seed: int = 1234,
             n_lanes=min(n_lanes, w * h * spp), spp=spp, width=w, height=h,
             max_depth=cfg.max_depth, rr_depth=cfg.rr_depth, nee=nee,
             bsdf_types=cfg.bsdf_types or None, fov_axis=cfg.fov_axis,
-            has_bump=cfg.has_bump, device=dev)
+            has_bump=cfg.has_bump, has_sss=cfg.has_sss, device=dev)
     image, weight = out["image"], out["weight"]
     return {
         "image": (image / weight.clamp_min(1.0)[:, None]).reshape(h, w, 3)

@@ -1,6 +1,6 @@
 """Scene container: host-side builder → device SoA tensors (port of
-sdmm_tpu/scene/scene.py without media, subsurface, motion, the Irawan weave
-tables and the reference's BVH and kernel-layout copies).
+sdmm_tpu/scene/scene.py without motion, the Irawan weave tables and the
+reference's BVH and kernel-layout copies).
 
 ``SceneData`` keeps the triangle arrays with their mesh-attribute tables
 (vertex colours, edge heights), the BSDF table of every type but Irawan
@@ -8,7 +8,9 @@ with its texture, bump and container columns, the bitmap texture stack and
 the procedural texture rows, the emitter radiance table with the
 power-weighted emissive-triangle distribution, the environment (a constant
 or an equirect map with its NEE tables), the delta lights (point, spot,
-directional, collimated), the camera, the scene AABB (the guiding
+directional, collimated), the media table (homogeneous rows and grid
+densities, each triangle's interior and exterior medium), the dipole
+subsurface instances, the camera, the scene AABB (the guiding
 normalization domain) and the triangle clusters of the cluster-cull
 intersector (``render/clas.py``, ``ops/clas_cull.py``): the reference's
 arrays, plus two that only the port's kernel reads (``PORT_FIELDS``),
@@ -113,6 +115,21 @@ class SceneData(NamedTuple):
     pt_beam_cos: torch.Tensor  # [P]
     pt_cdf: torch.Tensor  # [P] selection CDF by power
     pt_select_prob: torch.Tensor  # [] NEE share routed to delta lights
+    # Media table, row 0 vacuum; rays carry a medium id that switches at
+    # the boundaries of a shape with an interior medium.
+    med_sigma_t: torch.Tensor  # [M, 3] extinction
+    med_albedo: torch.Tensor  # [M, 3] single-scattering albedo
+    med_g: torch.Tensor  # [M] Henyey-Greenstein anisotropy
+    tri_medium: torch.Tensor  # [T] int32 interior medium (0 = vacuum)
+    tri_medium_ext: torch.Tensor  # [T] int32 exterior medium
+    ambient_med: torch.Tensor  # [] int32 the camera's medium
+    # Heterogeneous rows: density grid (-1 = homogeneous), its bounds and
+    # the majorant density of delta tracking.
+    med_vol: torch.Tensor  # [M] int32 index into volumes
+    med_vol_lo: torch.Tensor  # [M, 3]
+    med_vol_inv_ext: torch.Tensor  # [M, 3]
+    med_majorant: torch.Tensor  # [M]
+    volumes: torch.Tensor  # [NV, R, R, R] density grids ([1,1,1,1] = none)
     cam_to_world: torch.Tensor  # [4, 4]
     cam_tan_half_fov: torch.Tensor  # []
     aabb_lo: torch.Tensor  # [3]
@@ -121,6 +138,12 @@ class SceneData(NamedTuple):
     clas_ids: torch.Tensor  # [C, Tc] int32 original tri ids (-1 pad)
     clas_woop: torch.Tensor  # [C, 12, Tc] Woop rows (ops/clas_cull)
     clas_aabb: torch.Tensor  # [8, Cp] padded AABB table (ops/clas_cull)
+    # Dipole subsurface scattering: the instance of each triangle, each
+    # instance's relative IOR and the baked per-corner exitance
+    # (render/subsurface.bake_subsurface fills sss_M).
+    tri_sss: torch.Tensor  # [T] int32 (-1 = none)
+    sss_eta: torch.Tensor  # [S]
+    sss_M: torch.Tensor  # [T, 3, 3]
     # The port's own: derived from the clusters above by scene_from_numpy.
     clas_tree: torch.Tensor  # [2P, 8] tree over the boxes (build_tree)
     clas_woop_slot: torch.Tensor  # [C, Tc, 12] Woop rows by slot (slot_rows)
@@ -132,7 +155,8 @@ PORT_FIELDS = ("clas_tree", "clas_woop_slot")
 
 _INT_FIELDS = ("tri_bsdf", "tri_emitter", "bsdf_type", "bsdf_tex",
                "bsdf_bump", "bsdf_child0", "bsdf_child1", "em_tri_idx",
-               "pt_kind", "clas_ids")
+               "pt_kind", "clas_ids", "tri_medium", "tri_medium_ext",
+               "ambient_med", "med_vol", "tri_sss")
 
 
 def scene_from_numpy(arrays: dict, device="cuda") -> SceneData:
@@ -172,6 +196,11 @@ class RenderConfig:
     fov_axis: str = "x"
     bsdf_types: tuple = ()  # BSDF type codes present in the scene
     has_bump: bool = False  # any bump or normal map
+    has_medium: bool = False  # any participating medium
+    has_hetero: bool = False  # any grid-density medium
+    has_sss: bool = False  # any dipole subsurface instance on a triangle
+    sss: tuple = ()  # the instances' dipole parameters
+    sss_baked: bool = False  # set by whoever keeps a baked scene
 
 
 @dataclass
@@ -187,6 +216,9 @@ class SceneBuilder:
     env_radiance: np.ndarray | None = None
     env_map: np.ndarray | None = None  # [He, We, 3]
     env_to_world: np.ndarray = field(default_factory=lambda: np.eye(3))
+    medium: dict | None = None  # scene-level {"sigma_t", "albedo", "g"}
+    subsurfaces: list = field(default_factory=list)  # dipole instances
+    media: list = field(default_factory=list)  # per-shape medium rows
     cam_to_world: np.ndarray = field(default_factory=lambda: np.eye(4))
     fov_deg: float = 45.0
     fov_axis: str = "x"
@@ -289,8 +321,49 @@ class SceneBuilder:
         d = np.asarray(direction, dtype=np.float64)
         self._add_light(3, origin, power, d / np.linalg.norm(d))
 
-    def add_shape(self, soup: TriSoup, bsdf: int, emitter: int = -1):
-        self.soups.append((soup, bsdf, emitter))
+    def add_medium(self, sigma_t, albedo=None, g: float = 0.0,
+                   density: np.ndarray | None = None, vol_lo=None,
+                   vol_hi=None) -> int:
+        """Register a medium; returns its table id (>= 1, row 0 is
+        vacuum). ``density`` ([D, H, W]) makes it heterogeneous:
+        sigma_t(x) = density(x)·sigma_t inside [vol_lo, vol_hi]."""
+        entry = {
+            "sigma_t": np.asarray(sigma_t, dtype=np.float64).reshape(3),
+            "albedo": np.asarray(albedo if albedo is not None
+                                 else np.ones(3), dtype=np.float64)
+            .reshape(3),
+            "g": float(g),
+        }
+        if density is not None:
+            entry["density"] = np.asarray(density, dtype=np.float32)
+            entry["vol_lo"] = np.asarray(
+                vol_lo if vol_lo is not None else np.zeros(3), np.float64)
+            entry["vol_hi"] = np.asarray(
+                vol_hi if vol_hi is not None else np.ones(3), np.float64)
+        self.media.append(entry)
+        return len(self.media)
+
+    def add_subsurface(self, sigma_s, sigma_a, g=0.0, eta: float = 1.3,
+                       irr_samples: int = 16, sample_multiplier: float = 1.0,
+                       quality: float = 0.2) -> int:
+        """Register a dipole subsurface instance; returns its id."""
+        self.subsurfaces.append({
+            "sigma_s": np.asarray(sigma_s, dtype=np.float64).reshape(3),
+            "sigma_a": np.asarray(sigma_a, dtype=np.float64).reshape(3),
+            "g": np.broadcast_to(np.asarray(g, dtype=np.float64),
+                                 (3,)).copy(),
+            "eta": float(eta),
+            "irr_samples": int(irr_samples),
+            "sample_multiplier": float(sample_multiplier),
+            "quality": float(quality),
+        })
+        return len(self.subsurfaces) - 1
+
+    def add_shape(self, soup: TriSoup, bsdf: int, emitter: int = -1,
+                  interior: int = 0, exterior: int = -1, sss: int = -1):
+        """``interior``/``exterior``: medium ids (exterior -1 takes the
+        scene-level medium at build); ``sss``: an add_subsurface id."""
+        self.soups.append((soup, bsdf, emitter, interior, exterior, sss))
 
     def set_sensor(self, to_world: np.ndarray, fov_deg: float, width: int,
                    height: int, fov_axis: str = "x"):
@@ -392,13 +465,65 @@ class SceneBuilder:
                  lw, pt["step_width"]]]))
         return np.stack(rows)
 
+    def _media_rows(self):
+        """The per-shape media, then the scene-level one (the ambient
+        medium, 0 = vacuum when there is none)."""
+        rows = list(self.media)
+        if self.medium is None:
+            return rows, 0
+        rows.append({
+            "sigma_t": np.asarray(self.medium.get("sigma_t", np.zeros(3)))
+            .reshape(3),
+            "albedo": np.asarray(self.medium.get("albedo", np.ones(3)))
+            .reshape(3),
+            "g": float(self.medium.get("g", 0.0))})
+        return rows, len(rows)
+
+    @staticmethod
+    def _media_arrays(rows, ambient) -> dict:
+        """The media table: row 0 vacuum, then ``rows``; each density grid
+        resampled (nearest) to a 64³ cube, so that a lookup is one
+        [NV, R, R, R] gather."""
+        rv = 64
+        vols, vol_id = [], []
+        for m in rows:
+            if "density" not in m:
+                vol_id.append(-1)
+                continue
+            g = m["density"]
+            idx = [np.clip(((np.arange(rv) + 0.5) * n / rv).astype(int), 0,
+                           n - 1) for n in g.shape]
+            vols.append(g[idx[0]][:, idx[1]][:, :, idx[2]])
+            vol_id.append(len(vols) - 1)
+        return dict(
+            med_sigma_t=np.concatenate([np.zeros((1, 3)), np.asarray(
+                [m["sigma_t"] for m in rows]).reshape(-1, 3)]),
+            med_albedo=np.concatenate([np.ones((1, 3)), np.asarray(
+                [m["albedo"] for m in rows]).reshape(-1, 3)]),
+            med_g=np.concatenate([[0.0], [m["g"] for m in rows]]),
+            ambient_med=ambient,
+            med_vol=[-1] + vol_id,
+            med_vol_lo=np.stack([np.zeros(3)] + [
+                m.get("vol_lo", np.zeros(3)) for m in rows]),
+            med_vol_inv_ext=np.stack([np.ones(3)] + [
+                1.0 / np.maximum(m.get("vol_hi", np.ones(3))
+                                 - m.get("vol_lo", np.zeros(3)), 1e-12)
+                for m in rows]),
+            med_majorant=[0.0] + [float(m["density"].max())
+                                  if "density" in m else 1.0 for m in rows],
+            volumes=(np.stack(vols) if vols
+                     else np.zeros((1, 1, 1, 1), np.float32)),
+        )
+
     def build(self, device="cuda") -> tuple[SceneData, RenderConfig]:
         # Imported here: render.clas reaches this module through ops.
         from ..render.clas import build_clusters
 
+        media_rows, ambient = self._media_rows()
         all_v, all_n, all_uv, all_vc, all_b, all_e = [], [], [], [], [], []
+        all_mi, all_me, all_sss = [], [], []
         any_colors = False
-        for soup, bsdf_i, emitter_i in self.soups:
+        for soup, bsdf_i, emitter_i, interior, exterior, sss_i in self.soups:
             v, n, uv, vc = soup.concat()
             all_v.append(v)
             all_n.append(n)
@@ -407,6 +532,10 @@ class SceneBuilder:
             any_colors = any_colors or soup.has_colors
             all_b.append(np.full(len(v), bsdf_i, dtype=np.int32))
             all_e.append(np.full(len(v), emitter_i, dtype=np.int32))
+            all_mi.append(np.full(len(v), interior, dtype=np.int32))
+            all_me.append(np.full(len(v), ambient if exterior < 0
+                                  else exterior, dtype=np.int32))
+            all_sss.append(np.full(len(v), sss_i, dtype=np.int32))
         verts = np.concatenate(all_v) if all_v else np.zeros((0, 3, 3))
         normals = np.concatenate(all_n) if all_n else np.zeros((0, 3, 3))
         uvs = np.concatenate(all_uv) if all_uv else np.zeros((0, 3, 2))
@@ -414,6 +543,9 @@ class SceneBuilder:
         tri_bsdf = np.concatenate(all_b) if all_b else np.zeros(0, np.int32)
         tri_emitter = (np.concatenate(all_e) if all_e
                        else np.zeros(0, np.int32))
+        tri_medium, tri_medium_ext, tri_sss = (
+            np.concatenate(a) if a else np.zeros(0, np.int32)
+            for a in (all_mi, all_me, all_sss))
 
         v0 = verts[:, 0]
         e1 = verts[:, 1] - verts[:, 0]
@@ -510,11 +642,20 @@ class SceneBuilder:
             aabb_lo=aabb_lo, aabb_hi=aabb_hi,
             clas_ids=clas["ids"], clas_woop=clas["woop"],
             clas_aabb=clas["aabb"],
+            tri_medium=tri_medium, tri_medium_ext=tri_medium_ext,
+            tri_sss=tri_sss,
+            sss_eta=[s["eta"] for s in self.subsurfaces] or [1.0],
+            sss_M=np.zeros((len(tri_sss), 3, 3)),
+            **self._media_arrays(media_rows, ambient),
         )
         cfg = RenderConfig(
             width=self.width, height=self.height, max_depth=self.max_depth,
             rr_depth=self.rr_depth, fov_axis=self.fov_axis,
             bsdf_types=tuple(sorted({int(b["type"]) for b in self.bsdfs})),
             has_bump=any(b["bump"] != -1 for b in self.bsdfs),
+            has_medium=self.medium is not None or len(self.media) > 0,
+            has_hetero=any("density" in m for m in media_rows),
+            has_sss=bool(self.subsurfaces) and bool((tri_sss >= 0).any()),
+            sss=tuple(self.subsurfaces),
         )
         return scene_from_numpy(arrays, device), cfg

@@ -11,13 +11,17 @@ the procedural textures (checkerboard, gridtexture, wireframe,
 vertexcolors, curvature baked to vertex colours); area, constant, point,
 spot, directional, collimated, envmap (an EXR through ``utils/exr.py``),
 sky, sun and sunsky emitters; the rectangle, cube, sphere, disk, cylinder,
-obj, serialized, ply, shapegroup and instance shapes. Every feature the
+obj, serialized, ply, shapegroup and instance shapes; a scene-level
+homogeneous medium, a shape's interior medium, homogeneous or
+heterogeneous (a ``.vol`` density grid through ``scene/volume.py``), and
+the dipole subsurface model with its material presets. Every feature the
 port cannot render yet raises ``NotImplementedError`` at load time, naming
 its ROADMAP item; a shape type the loader does not know is skipped, as the
 reference skips it. A bitmap or env map whose file is missing or a git-lfs
 stub becomes the reference's placeholder (a 4×4 mid-grey texture, a
-constant environment of the map's scale), with a warning; a file that is
-there but cannot be decoded raises.
+constant environment of the map's scale, a thin unit-density fog for a
+density grid), with a warning; a file that is there but cannot be decoded
+raises.
 """
 
 from __future__ import annotations
@@ -30,15 +34,17 @@ import xml.etree.ElementTree as ET
 import numpy as np
 
 from ..core.spectrum import interpolated_spectrum_to_rgb
+from ..render.subsurface import lookup_material
 from . import shapes as shp
 from .scene import (
     BSDF_BLEND, BSDF_COATING, BSDF_CONDUCTOR, BSDF_DIELECTRIC,
-    BSDF_DIFFTRANS, BSDF_DIFFUSE, BSDF_HK, BSDF_MASK, BSDF_PHONG,
+    BSDF_DIFFTRANS, BSDF_DIFFUSE, BSDF_HK, BSDF_MASK, BSDF_NULL, BSDF_PHONG,
     BSDF_PLASTIC, BSDF_ROUGHCONDUCTOR, BSDF_ROUGHDIELECTRIC,
     BSDF_ROUGHDIFFUSE, BSDF_ROUGHPLASTIC, BSDF_THINDIELECTRIC, BSDF_WARD,
     PROC_CHECKERBOARD, PROC_GRID, PROC_MESHATTR, PROC_WIREFRAME,
     SceneBuilder,
 )
+from .volume import load_vol
 
 # Named conductor / dielectric materials (a subset of Mitsuba's ior tables).
 CONDUCTOR_IOR = {
@@ -238,13 +244,95 @@ class XMLLoader:
             elif tag == "sensor":
                 self._sensor(el)
             elif tag == "medium":
-                raise unported("a participating medium", "A9")
+                sigma_t, albedo, g = self._homogeneous(el)
+                self.builder.medium = {"sigma_t": sigma_t, "albedo": albedo,
+                                       "g": g}
             elif tag == "bsdf":
                 self._bsdf(el)
             elif tag == "shape":
                 self._shape(el, base_dir)
             elif tag == "emitter":
                 self._emitter(el)
+
+    def _phase_g(self, el) -> float:
+        """The anisotropy g of a medium's <phase> (0 without one)."""
+        g = 0.0
+        for sub in el:
+            if sub.tag == "phase":
+                g = float(_props(sub, self.variables).get("g", 0.0))
+        return g
+
+    def _homogeneous(self, el):
+        """(sigma_t, albedo, g) of a homogeneous <medium>: sigmaT with its
+        albedo, or sigmaS and sigmaA."""
+        p = _props(el, self.variables)
+        if "sigmaT" in p:
+            sigma_t = np.asarray(p["sigmaT"]).reshape(3)
+            albedo = np.asarray(p.get("albedo", np.ones(3))).reshape(3)
+        else:
+            sigma_s = np.asarray(p.get("sigmaS", np.zeros(3))).reshape(3)
+            sigma_a = np.asarray(p.get("sigmaA", np.zeros(3))).reshape(3)
+            sigma_t = sigma_s + sigma_a
+            albedo = np.where(sigma_t > 0,
+                              sigma_s / np.maximum(sigma_t, 1e-20), 0.0)
+        return sigma_t, albedo, self._phase_g(el)
+
+    def _interior(self, el) -> int:
+        """Register a shape's interior <medium>; returns its table id. A
+        heterogeneous one reads its density grid from the <volume
+        name="density"> file; its sigma_t is ``scale`` on every channel."""
+        b = self.builder
+        if el.get("type") != "heterogeneous":
+            return b.add_medium(*self._homogeneous(el))
+        p = _props(el, self.variables)
+        density = None
+        for ch in el:
+            if ch.tag == "volume" and ch.get("name") == "density":
+                path = _asset(self.base_dir,
+                              _props(ch, self.variables).get("filename"),
+                              "density grid", "a unit-density fog")
+                if path is not None:
+                    density, lo, hi = load_vol(path)
+        if density is None:
+            density, lo, hi = np.ones((2, 2, 2), np.float32), np.zeros(3), \
+                np.ones(3)
+        alb = np.asarray(p.get("albedo", 0.8), dtype=np.float64).reshape(-1)
+        alb = alb if alb.size == 3 else np.full(3, float(alb[0]))
+        return b.add_medium(np.full(3, float(p.get("scale", 1.0))), alb,
+                            self._phase_g(el), density=density, vol_lo=lo,
+                            vol_hi=hi)
+
+    def _dipole(self, el) -> int:
+        """Register a <subsurface type="dipole">: sigmaS/sigmaA, or
+        sigmaT/albedo, or a material preset (skin1 by default), times
+        ``scale``; eta intIOR / extIOR."""
+        sp = _props(el, self.variables)
+
+        def rgb(key, default):
+            v = np.asarray(sp.get(key, default)).reshape(-1)
+            return np.broadcast_to(v, (3,)) if v.size != 3 else v
+
+        if "sigmaS" in sp or "sigmaA" in sp:
+            sigma_s, sigma_a, eta_d = (rgb("sigmaS", np.zeros(3)),
+                                       rgb("sigmaA", np.zeros(3)), 1.3)
+        elif "sigmaT" in sp or "albedo" in sp:
+            sigma_t = rgb("sigmaT", np.ones(3))
+            sigma_s = rgb("albedo", np.full(3, 0.8)) * sigma_t
+            sigma_a, eta_d = sigma_t - sigma_s, 1.3
+        else:
+            sigma_s, sigma_a, eta_d = lookup_material(
+                sp.get("material", "skin1"))
+        scale = float(sp.get("scale", 1.0))
+        try:
+            eta = float(sp.get("intIOR", eta_d)) / max(
+                float(sp.get("extIOR", 1.0)), 1e-6)
+        except (TypeError, ValueError):
+            eta = eta_d
+        return self.builder.add_subsurface(
+            sigma_s * scale, sigma_a * scale, g=0.0, eta=eta,
+            irr_samples=int(sp.get("irrSamples", 16)),
+            sample_multiplier=float(sp.get("sampleMultiplier", 1.0)),
+            quality=float(sp.get("quality", 0.2)))
 
     def _point(self, el, name):
         """The <point name=...> child of ``el``, or None."""
@@ -605,17 +693,19 @@ class XMLLoader:
             # Flattened into transformed triangle copies.
             for sub in el:
                 if sub.tag == "ref" and sub.get("id") in self.shapegroups:
-                    for soup, b_i, e_i in self.shapegroups[sub.get("id")]:
+                    for soup, b_i, e_i, m_i in self.shapegroups[sub.get("id")]:
                         self.builder.add_shape(soup.transformed(to_world),
-                                               b_i, e_i)
+                                               b_i, e_i, interior=m_i)
             return
 
         bsdf_idx = None
         emitter_idx = -1
+        interior_med = 0
+        sss_idx = -1
         for sub in el:
             if sub.tag == "subsurface" and sub.get("type") == "dipole":
-                raise unported("dipole subsurface scattering", "A9")
-            if sub.tag == "ref":
+                sss_idx = self._dipole(sub)
+            elif sub.tag == "ref":
                 ref_id = sub.get("id")
                 if ref_id in self.builder.bsdf_ids:
                     bsdf_idx = self.builder.bsdf_ids[ref_id]
@@ -627,10 +717,12 @@ class XMLLoader:
                     np.asarray(ep.get("radiance", np.ones(3))).reshape(3))
             elif sub.tag == "medium" and \
                     sub.get("name", "interior") == "interior":
-                raise unported("a participating medium", "A9")
+                interior_med = self._interior(sub)
         if bsdf_idx is None:
-            bsdf_idx = self.builder.add_bsdf(BSDF_DIFFUSE,
-                                             albedo=np.full(3, 0.5))
+            # A shape with a medium and no BSDF is an invisible boundary.
+            bsdf_idx = (self.builder.add_bsdf(BSDF_NULL) if interior_med
+                        else self.builder.add_bsdf(BSDF_DIFFUSE,
+                                                   albedo=np.full(3, 0.5)))
         if stype in UNPORTED_SHAPES:
             if stype == "heightfield" and not self._heightfield_file(el, p):
                 return  # heights from a procedural texture: none built
@@ -677,9 +769,10 @@ class XMLLoader:
             kind, scale = self.curvature_notes[code]
             soup = shp.bake_curvature(soup, kind=kind, scale=scale)
         if collect is not None:
-            collect.append((soup, bsdf_idx, emitter_idx))
+            collect.append((soup, bsdf_idx, emitter_idx, interior_med))
         else:
-            self.builder.add_shape(soup, bsdf_idx, emitter_idx)
+            self.builder.add_shape(soup, bsdf_idx, emitter_idx,
+                                   interior=interior_med, sss=sss_idx)
 
     def _heightfield_file(self, el, p) -> str:
         """The height file of a heightfield: its own or its texture's."""

@@ -244,3 +244,32 @@ def test_em_step_matches():
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(to_np(tn.cov), np.asarray(jn.cov), rtol=1e-3,
                                atol=1e-3 * np.abs(np.asarray(jn.cov)).max())
+
+
+def test_twin_drops_non_finite_posteriors_as_the_reference():
+    """A valid sample whose pdf overflows (at the mean of a component of
+    covariance 1e-16·I) and one whose posterior total has no finite
+    reciprocal: the twin drops both posteriors, so every statistic stays
+    finite, and matches the reference's XLA e_step (the kernel against the
+    twin on this batch is in tests/test_torch_gpu.py)."""
+    from torch_parity import posterior_fault_batch
+
+    weight, mean, cov, pos, d, w, leaf, L = posterior_fault_batch()
+    ts = tmix.SDMM(weight=t(weight), mean=t(mean), cov=t(cov))
+    prep = tmix.prepare(ts)
+    pdf, _, _ = tmix.posterior_and_log(
+        ts.weight[leaf[:2]], ts.mean[leaf[:2]], prep.inv_chol[leaf[:2]],
+        prep.inv_det_chol[leaf[:2]], prep.rot[leaf[:2]], t(pos[:2]),
+        t(d[:2]))
+    total = (ts.weight[leaf[:2]] * pdf).sum(-1)
+    assert not torch.isfinite(pdf[0]).all()
+    assert 0.0 < float(total[1]) and torch.isinf(1.0 / total[1])
+    ours = tes.e_step_plain(ts, prep, t(pos), t(d), t(w),
+                            torch.as_tensor(leaf), L)
+    for x in ours[:4]:
+        assert torch.isfinite(x).all()
+    js = jmix.SDMM(weight=jnp.asarray(weight), mean=jnp.asarray(mean),
+                   cov=jnp.asarray(cov))
+    ref = jem.e_step(js, jmix.prepare(js), jnp.asarray(pos), jnp.asarray(d),
+                     jnp.asarray(w), jnp.asarray(leaf), L)
+    _check_stats(ours, ref)

@@ -185,6 +185,31 @@ def test_em_suffstats_kernel_matches_twin(cuda, L, S):
                                    atol=af * float(b.abs().max()) + 1e-12)
 
 
+def test_em_suffstats_kernel_drops_non_finite_posteriors(cuda):
+    """The batch of tests/torch_parity.posterior_fault_batch (a sample
+    whose pdf overflows, one whose posterior total has no finite
+    reciprocal): the kernel's statistics are finite and match the twin's,
+    which drops both posteriors as the reference's XLA E-step does."""
+    from torch_parity import posterior_fault_batch
+
+    weight, mean, cov, pos, d, w, leaf, L = (
+        torch.as_tensor(a, device=cuda) if isinstance(a, np.ndarray) else a
+        for a in posterior_fault_batch())
+    sdmm = mix.SDMM(weight=weight, mean=mean, cov=cov)
+    prep = mix.prepare(sdmm)
+    ref = ems.e_step_plain(sdmm, prep, pos, d, w, leaf, L)
+    out = ems.e_step(sdmm, prep, pos, d, w, leaf, L)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in out[:4])
+    assert torch.equal(out[4], ref[4])
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-5, atol=0)
+    for a, b, rtol, af in ((out[0], ref[0], 2e-4, 2e-5),
+                           (out[1], ref[1], 2e-4, 4e-4),
+                           (out[2], ref[2], 3e-4, 4e-4)):
+        torch.testing.assert_close(a, b, rtol=rtol,
+                                   atol=af * float(b.abs().max()) + 1e-12)
+
+
 def _em_case(cuda, case):
     """E-step inputs: leaves of 0, 1, TILE and TILE + 1 samples (and
     2 TILE + 5), int32 leaf ids; 16,384 leaves, past the 12,288 whose

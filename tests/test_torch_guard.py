@@ -170,13 +170,16 @@ def test_intersect_kernels_take_cuda_tensors_alone(no_gpu, monkeypatch):
 
 
 def test_unported_path_options_raise():
-    """Subsurface scattering still raises; bump maps and point lights are
-    ported: has_bump renders on the CPU, and sample_direct takes a scene
-    with a point light."""
+    """Subsurface scattering, bump maps and point lights are ported: has_sss
+    and has_bump render on the CPU (the box has no subsurface instance, so
+    the dipole term adds nothing), and sample_direct takes a scene with a
+    point light."""
     scene, cfg = _scene()
-    with pytest.raises(NotImplementedError):
-        twf.render_pool(scene, torch.Generator(), 64, 1, 8, 8,
-                        device="cpu", has_sss=True)
+    plain = twf.render_pool(scene, torch.Generator().manual_seed(0), 64, 1,
+                            8, 8, device="cpu")
+    sss = twf.render_pool(scene, torch.Generator().manual_seed(0), 64, 1, 8,
+                          8, device="cpu", has_sss=True)
+    assert torch.equal(plain["image"], sss["image"])
     out = twf.render_pool(scene, torch.Generator().manual_seed(0), 64, 1, 8,
                           8, device="cpu", has_bump=True)
     assert (out["weight"] == 1).all() and torch.isfinite(out["image"]).all()
@@ -194,7 +197,7 @@ def test_unported_path_options_raise():
 
 @pytest.mark.parametrize("option", [
     {"sample_product": True}, {"data_init": True}, {"reservoir_capacity": 64},
-    {"optimize_async": True}, {"pooled_training": False},
+    {"optimize_async": True}, {"n_components": 4},
     {"n_components": 8}])
 def test_unported_options_raise(option):
     scene, cfg = _scene()
@@ -217,10 +220,11 @@ def test_unported_scene_features_raise():
     scene, cfg = _scene()
     tr = ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(max_leaves=8),
                               device="cpu")
-    with pytest.raises(NotImplementedError):
-        tguided.render_pool_guided(scene, tr.guide_state(), torch.Generator(),
-                                   n_lanes=64, spp=1, width=8, height=8,
-                                   has_medium=True, device="cpu")
+    # Media are ported: the guided pool carries them (the box's vacuum).
+    out = tguided.render_pool_guided(
+        scene, tr.guide_state(), torch.Generator().manual_seed(0),
+        n_lanes=64, spp=1, width=8, height=8, has_medium=True, device="cpu")
+    assert float(out["weight"].sum()) == 64
     # A scene past BRUTE_FORCE_MAX triangles is ported: it takes the
     # cluster cull over its clas_* tensors (here the box's own clusters)
     # where the dense sweep over its 2000 empty triangles would find none.
@@ -234,6 +238,32 @@ def test_unported_scene_features_raise():
     hit = tisect.intersect(big, ro, rd)
     assert hit["valid"].all()
     assert torch.equal(hit["tri"], tisect.intersect(scene, ro, rd)["tri"])
+
+
+@pytest.mark.parametrize("feature", ["fog", "grid medium", "dipole"])
+def test_fused_gates_refuse_media_and_subsurface(feature):
+    """Neither fused pool carries a medium or the dipole term: both gates
+    refuse such a scene, as the reference's do, while they take the box."""
+    from torch_parity import make_media_box
+
+    scene, cfg = _scene()
+    tr = ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(max_leaves=8),
+                              device="cpu")
+    gs = tr.guide_state()
+    assert twf.fused_supported(scene, cfg)
+    assert tguided.guided_fused_supported(scene, cfg, gs)
+    kw = {"fog": dict(hetero=False), "grid medium": dict(fog=False),
+          "dipole": dict(fog=False, dipole=True)}[feature]
+    b = make_media_box(tscene, tshapes, 8, 8, **kw)
+    if feature == "dipole":
+        b.media.clear()
+        b.soups = [(s, bsdf, e, 0, -1, sss) for s, bsdf, e, _, _, sss
+                   in b.soups]
+    scene, cfg = b.build(device="cpu")
+    assert cfg.has_medium == (feature != "dipole")
+    assert cfg.has_sss == (feature == "dipole")
+    assert not twf.fused_supported(scene, cfg)
+    assert not tguided.guided_fused_supported(scene, cfg, gs)
 
 
 def test_chip_smoke_refuses_without_gpu(no_gpu, tmp_path):

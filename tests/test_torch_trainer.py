@@ -166,3 +166,34 @@ def test_short_training_run_matches_reference_in_mean():
     assert np.isfinite(img_t).all()
     assert abs(img_t.mean() - img_j.mean()) / img_j.mean() < 0.1, (
         img_t.mean(), img_j.mean())
+
+
+def test_scan_training_run_matches_reference_in_mean():
+    """pooled_training=False: both trainers collect their training vertices
+    with the scan tracer (trace_wave_guided) and then render the frozen
+    tail on the pool; the images agree in mean as above."""
+    jt, tt = _trainers(train_fraction=0.5, pooled_training=False)
+    img_j, _ = jt.run(total_spp=24)
+    img_t, _ = tt.run(total_spp=24)
+    assert [s["optimized_nodes_count"] > 0 for s in tt.stats] == \
+        [s["optimized_nodes_count"] > 0 for s in jt.stats] == \
+        [True, True, False]
+    assert tt.stats[0]["samples_count"] > 0
+    assert np.isfinite(img_t).all()
+    assert abs(img_t.mean() - img_j.mean()) / img_j.mean() < 0.1, (
+        img_t.mean(), img_j.mean())
+
+
+def test_images_above_the_pool_limit_take_the_scan(monkeypatch):
+    """Above SCAN_PIXELS (2^20, lowered here) every iteration, training
+    and frozen, takes the scan tracer and never the pool."""
+    def no_pool(*a, **k):
+        raise AssertionError("the lane pool ran")
+
+    monkeypatch.setattr(ttrainer, "SCAN_PIXELS", W * H - 1)
+    monkeypatch.setattr(ttrainer, "render_pool_guided", no_pool)
+    _, tt = _trainers(train_fraction=0.5)
+    img, iters = tt.run(total_spp=16)
+    assert len(iters) == 2 and np.isfinite(img).all() and img.mean() > 0
+    assert tt.stats[0]["optimized_nodes_count"] > 0
+    assert (iters[1]["weight"] == 8).all()

@@ -6,7 +6,8 @@ equal builder settings (integrator, sample count, seed, sampler, rfilter)
 and render configs. One case a loader feature; the files (PNG bitmaps, EXR
 env maps among them) are written to tmp_path. Features the port cannot
 render yet raise NotImplementedError at load time, naming their ROADMAP
-item."""
+item; media (a .vol density grid among them) and dipole subsurface
+instances load into equal tables."""
 
 import os
 import struct
@@ -286,6 +287,47 @@ CASES = {
     y="1" angle="30"/></transform></emitter>
   <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
     </transform></shape>""")),
+    "medium scene-level": dict(xml=_scene("""
+      <medium type="homogeneous" id="fog">
+        <rgb name="sigmaT" value="0.1, 0.2, 0.3"/>
+        <rgb name="albedo" value="0.8"/>
+        <phase type="hg"><float name="g" value="0.3"/></phase></medium>
+      <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
+        </transform></shape>""")),
+    "medium interior sigmaS sigmaA": dict(xml=_scene("""
+      <shape type="cube"><transform name="toWorld"><scale value="0.3"/>
+        </transform><bsdf type="dielectric"/>
+        <medium type="homogeneous" name="interior">
+          <rgb name="sigmaS" value="1, 2, 3"/><rgb name="sigmaA" value="0.5"/>
+          <phase type="hg"><float name="g" value="-0.4"/></phase></medium>
+      </shape>
+      <shape type="sphere"><float name="radius" value="0.2"/>
+        <medium type="homogeneous" name="interior">
+          <rgb name="sigmaT" value="2"/></medium></shape>""")),
+    "medium heterogeneous": dict(files={"d.vol": "vol"}, xml=_scene("""
+      <shape type="sphere"><float name="radius" value="0.4"/>
+        <bsdf type="dielectric"/>
+        <medium type="heterogeneous" name="interior">
+          <volume name="density" type="gridvolume">
+            <string name="filename" value="d.vol"/></volume>
+          <float name="scale" value="2.5"/><rgb name="albedo" value="0.9"/>
+          <phase type="hg"><float name="g" value="0.2"/></phase></medium>
+      </shape>""")),
+    "subsurface dipole": dict(xml=_scene("""
+      <shape type="sphere"><float name="radius" value="0.3"/>
+        <subsurface type="dipole"><string name="material" value="marble"/>
+          <float name="scale" value="0.01"/></subsurface></shape>
+      <shape type="cube"><transform name="toWorld"><scale value="0.2"/>
+        </transform><subsurface type="dipole">
+          <rgb name="sigmaS" value="1, 2, 3"/><rgb name="sigmaA" value="0.1"/>
+          <float name="intIOR" value="1.4"/>
+          <integer name="irrSamples" value="8"/></subsurface></shape>""")),
+    "shapegroup medium": dict(xml=_scene("""
+      <shape type="shapegroup" id="g"><shape type="cube">
+        <medium type="homogeneous" name="interior">
+          <rgb name="sigmaT" value="0.7"/></medium></shape></shape>
+      <shape type="instance"><ref id="g"/><transform name="toWorld">
+        <scale value="0.2"/><translate x="0.4"/></transform></shape>""")),
     "sunsky": dict(xml=_scene("""
   <emitter type="sunsky"><integer name="resolution" value="32"/>
     <float name="turbidity" value="4"/></emitter>
@@ -302,6 +344,12 @@ def _write(tmp_path, case):
         if name.endswith(".png"):  # a bitmap of random texels
             write_png(tmp_path / name, rs.randint(
                 0, 256, (12, 20, 3) if text == "rgb" else (9, 7)))
+            continue
+        if name.endswith(".vol"):  # a density grid over its own bounds
+            from sdmm_tpu_torch.scene.volume import save_vol
+
+            save_vol(str(tmp_path / name), rs.rand(5, 6, 7),
+                     [-0.4, -0.4, -0.4], [0.4, 0.4, 0.4])
             continue
         if name.endswith(".exr"):
             from sdmm_tpu_torch.utils.exr import write_exr
@@ -333,9 +381,15 @@ def _assert_same_scene(js, jcfg, ts, tcfg):
         np.testing.assert_array_equal(to_np(getattr(ts, name)), ja[name],
                                       err_msg=name)
     assert (tcfg.width, tcfg.height, tcfg.max_depth, tcfg.rr_depth,
-            tcfg.fov_axis, tcfg.bsdf_types) == (
+            tcfg.fov_axis, tcfg.bsdf_types, tcfg.has_medium,
+            tcfg.has_hetero, tcfg.has_sss) == (
         jcfg.width, jcfg.height, jcfg.max_depth, jcfg.rr_depth,
-        jcfg.fov_axis, jcfg.bsdf_types)
+        jcfg.fov_axis, jcfg.bsdf_types, jcfg.has_medium, jcfg.has_hetero,
+        jcfg.has_sss)
+    for a, b in zip(tcfg.sss, jcfg.sss):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -380,13 +434,6 @@ def test_obj_python_parser_matches_native_and_reference(kw, tmp_path,
 
 UNPORTED = {
     "irawan": '<bsdf type="irawan"/>',
-    "medium": '<medium type="homogeneous" id="fog"><rgb name="sigmaT" '
-              'value="0.1"/></medium>',
-    "shape medium": '<shape type="cube"><medium type="homogeneous" '
-                    'name="interior"><rgb name="sigmaT" value="1"/>'
-                    '</medium></shape>',
-    "subsurface": '<shape type="sphere"><subsurface type="dipole"/>'
-                  '</shape>',
     "hair": '<shape type="hair"><string name="filename" value="h.hair"/>'
             '</shape>',
     "heightfield": '<shape type="heightfield"><string name="filename" '

@@ -451,3 +451,88 @@ def lane_wave(n, seed=0, n_pix=256, max_depth=5):
             | np.where(rs.rand(n) < 0.85, bo._ALIVE, 0)
             | np.where(rs.rand(n) < 0.1, bo._EXH, 0)).astype(np.int32)
     return state, meta, rs.rand(8, n).astype(np.float32)
+
+
+def posterior_fault_batch(seed=3, n=600):
+    """E-step inputs (numpy) with two valid samples whose posterior is not
+    finite in float32, among n ordinary ones over three leaves of 16
+    components: in leaf 0 a sample at the mean of a component whose
+    covariance is 1e-16·I (its pdf overflows), and in leaf 1, whose
+    only live component has covariance 0.01·I, a sample so far from it that
+    the posterior total (~5e-40) has no finite reciprocal. Returns (weight
+    [L, K], mean [L, K, 6], cov [L, K, 5, 5], pos, d, w, leaf, L)."""
+    L, K = 3, 16
+    rs = np.random.RandomState(seed)
+    weight = rs.dirichlet(np.ones(K), size=L).astype(np.float32)
+    dirs = rs.randn(L, K, 3)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    mean = np.concatenate([rs.rand(L, K, 3), dirs], -1).astype(np.float32)
+    jit = rs.randn(L, K, 5, 5) * 0.005
+    cov = (0.05 * np.eye(5) + 0.5 * (jit + np.swapaxes(jit, -1, -2)))
+    cov[0, 0] = 1e-16 * np.eye(5)
+    weight[1] = 0.0
+    weight[1, 0] = 1.0
+    mean[1, 0] = [0.5, 0.5, 0.5, 0.0, 0.0, 1.0]
+    cov[1, 0] = 0.01 * np.eye(5)
+    pos = rs.rand(n, 3).astype(np.float32)
+    d = rs.randn(n, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    w = (rs.rand(n) * 2.0).astype(np.float32)
+    # Leaf 1 holds the far sample alone: ordinary samples there would give
+    # totals in float32's subnormal range, which XLA's CPU backend flushes
+    # to zero and PyTorch keeps.
+    leaf = rs.choice([0, 2], size=n).astype(np.int32)
+    # pdf = (2π)^-5/2 · 1e5 · exp(-q/2) = 5e-40 at q = r² / 0.01.
+    r = np.sqrt(0.02 * np.log((2 * np.pi) ** -2.5 * 1e5 / 5e-40))
+    pos[0], d[0], leaf[0] = mean[0, 0, :3], mean[0, 0, 3:], 0
+    pos[1], d[1], leaf[1] = [0.5 + r, 0.5, 0.5], [0.0, 0.0, 1.0], 1
+    return (weight, mean, cov.astype(np.float32), pos, d.astype(np.float32),
+            w, leaf, L)
+
+
+def make_media_box(scene_mod, shapes_mod, width=16, height=16, fog=True,
+                   hetero=True, dipole=False, grid_seed=7):
+    """The box of ``make_box`` with participating media, built with either
+    package: a scene-level fog (``fog``: mean free path ~2.5 box units,
+    albedo 0.8, g 0.3); a dielectric sphere whose interior is a medium,
+    heterogeneous (``hetero``: an 8³ random density grid over the sphere's
+    bounds, sigma_t 3) or homogeneous; with ``dipole`` a subsurface block
+    of explicit coefficients (4 irradiance samples)."""
+    b = make_box(scene_mod, shapes_mod, width, height)
+    if fog:
+        b.medium = {"sigma_t": np.array([0.4, 0.4, 0.4]),
+                    "albedo": np.array([0.8, 0.8, 0.8]), "g": 0.3}
+    if hetero:
+        grid = np.random.RandomState(grid_seed).rand(8, 8, 8)
+        inner = b.add_medium([3.0, 3.0, 3.0], [0.9, 0.7, 0.5], -0.2,
+                             density=grid.astype(np.float32),
+                             vol_lo=[-0.35, 0.25, -0.35],
+                             vol_hi=[0.35, 0.95, 0.35])
+    else:
+        inner = b.add_medium([1.5, 2.0, 2.5], [0.9, 0.8, 0.7], 0.5)
+    glass = b.add_bsdf(scene_mod.BSDF_DIELECTRIC, eta=1.33)
+    b.add_shape(shapes_mod.make_sphere([0.0, 0.6, 0.0], 0.35, n_theta=8,
+                                       n_phi=16), glass, interior=inner)
+    if dipole:
+        sss = b.add_subsurface([8.0, 8.0, 8.0], [0.12, 0.24, 0.48],
+                               eta=1.3, irr_samples=4)
+        b.add_shape(shapes_mod.make_cube(
+            compose([0.5, 0.2, 0.4], [0.15, 0.2, 0.15], ry=20)), 0, sss=sss)
+    return b
+
+
+def film_mean_se(raw, sqr, weight):
+    """The mean of a film's image and its standard error, from the film's
+    sum, sum of squares and sample count per pixel (numpy). The channels
+    are taken as fully correlated, which bounds the error from above."""
+    n = np.maximum(np.asarray(weight, np.float64), 1.0)[..., None]
+    mean = np.asarray(raw, np.float64) / n
+    var = np.maximum(np.asarray(sqr, np.float64) / n - mean * mean, 0.0) / n
+    sd = np.sqrt(var).mean(-1).ravel()
+    return float(mean.mean()), float(np.sqrt((sd * sd).sum()) / sd.size)
+
+
+def within_se(a, b, k=4.0):
+    """Whether two (mean, standard error) pairs lie within k joint
+    standard errors."""
+    return abs(a[0] - b[0]) <= k * float(np.hypot(a[1], b[1]))
