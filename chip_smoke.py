@@ -128,6 +128,26 @@ Phases (any failure raises and the script exits non-zero):
      the means, from the films' sqr and weight. One "features:" JSON line
      prints the load and build seconds, each call's wall and launches and
      the card's name and power limit.
+ 10. participating media, subsurface scattering, samplers and rfilters on
+     the card. write_media_xml writes scene M, media.xml (640x360, depth
+     10: the Cornell box in a homogeneous fog, a default sphere of
+     dielectric holding a 64³ .vol density grid, the short block with a
+     skin1 dipole; 4,004 triangles, so clas_cull), and its stripped twin.
+     M must fail both fused gates. cli.main renders M with gt at 16 spp
+     (renderer.render) and sdmm at 32 spp (the media guided pool), the
+     stripped scene with gt, every sampler and rfilter on the Cornell box
+     at 8 spp (mt_sweep), and M at 64x36 on the card and in a CPU process
+     (started at the phase's top); SDMMTrainer(pooled_training=False)
+     trains two iterations on M through trace_wave_guided. The sdmm and
+     scan-trained means must lie within 5% of gt's, the stripped mean more
+     than 10% away, each sampler's and rfilter's box mean within 3% of the
+     independent/box one, the card and CPU means within 4 standard errors;
+     guided_sample, the E-step and clas_cull must launch on M, mt_sweep on
+     the box, trace, shade, step and bounce never on M. One "media:" JSON
+     line prints each call's wall seconds and launches.
+Phases 5, 7 and 10 run their training under EmCensus, which counts the
+E-step's valid samples with a non-finite posterior by cause and the NaN
+entries of its stats_w; any NaN fails the run.
 Phases 5 and 6 also read mt_sweep's launches: the training iterations and
 the eager render_pool intersect through it, and its launch count is the sum
 of both. guided_sample's launch count is the sum of phases 5 and 7.
@@ -847,6 +867,8 @@ def phase_main_path(dev, width=640, height=360):
     torch.cuda.synchronize()
     wall = time.time() - t0
     print(f"em census: phase 5: {json.dumps(census.totals)}", flush=True)
+    check(census.totals["nan_stats_w"] == 0,
+          "main path: the E-step's statistics hold NaN")
     launches = {"guided_sample": gso.guided_sample.launches,
                 "em_suffstats": ems.suffstats.launches,
                 "trace": gst.trace.launches, "shade": gst.shade.launches,
@@ -1504,6 +1526,8 @@ def phase_large_path(dev, scene, cfg, smi, width=640, height=360):
     wall = time.time() - t0
     n_gs = gso.guided_sample.launches
     print(f"em census: phase 7: {json.dumps(census.totals)}", flush=True)
+    check(census.totals["nan_stats_w"] == 0,
+          "large training render: the E-step's statistics hold NaN")
     train = [s for s in tr.stats if s["optimized_nodes_count"] > 0]
     frozen = [s for s in tr.stats if s["optimized_nodes_count"] == 0]
     check(len(iters) == 5 and len(train) == 2,
@@ -1967,9 +1991,10 @@ def write_features_xml(dirname, width, height, spp, lit=False,
     return path
 
 
-# Phase 9's CPU render, run as a process of its own: cli.main on the CPU
-# with render_wavefront's result (the film's raw, sqr and weight columns and
-# the pool) saved beside the image; six of the host's threads.
+# Phases 9 and 10's CPU render, run as a process of its own: cli.main on
+# the CPU with the result of the renderer {fn} of render/{module}.py (the
+# film's raw, sqr and weight columns and the pool) saved beside the image;
+# six of the host's threads.
 CPU_RENDER = """
 import sys
 import numpy as np
@@ -1977,12 +2002,12 @@ import torch
 sys.path.insert(0, {root!r})
 torch.set_num_threads(6)
 from sdmm_tpu_torch import cli
-from sdmm_tpu_torch.render import wavefront as wf
-real, film = wf.render_wavefront, {{}}
+from sdmm_tpu_torch.render import {module} as wf
+real, film = wf.{fn}, {{}}
 def recording(*a, **k):
     film.update(real(*a, **k))
     return film
-wf.render_wavefront = recording
+wf.{fn} = recording
 cli.main(["render", {xml!r}, "-o", {npy!r}, *{args!r}, "--device", "cpu"])
 np.savez({film!r}, **{{k: film[k] for k in ("raw", "sqr", "weight",
                                            "pool")}})
@@ -2055,7 +2080,8 @@ def phase_features(dev, smi, width=640, height=360, spp_b=16):
             cpu_film = os.path.join(tmp, "small_cpu.npz")
             cpu_run = subprocess.Popen(
                 [sys.executable, "-c", CPU_RENDER.format(
-                    root=ROOT, xml=paths["B"], film=cpu_film,
+                    module="wavefront", fn="render_wavefront", root=ROOT,
+                    xml=paths["B"], film=cpu_film,
                     npy=os.path.join(tmp, "small_cpu.npy"), args=small)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             t_cpu = time.time()
@@ -2163,6 +2189,264 @@ def phase_features(dev, smi, width=640, height=360, spp_b=16):
     print("features:", json.dumps(report), flush=True)
 
 
+MEDIA_SPHERE = ([0.0, 1.2, 0.3], 0.3)  # centre, radius
+
+
+def write_media_xml(dirname, width, height, spp, strip=False):
+    """Phase 10's scene M as media.xml in ``dirname``: the Cornell box of
+    write_cornell_xml filled with a homogeneous scene-level fog (sigma_t
+    0.5, a mean free path of the box's size; albedo 0.8, g 0.3), a default
+    sphere (make_sphere's tessellation: the scene passes 1,024 triangles)
+    of dielectric whose interior is heterogeneous, from a 64³ .vol grid
+    (volume.save_vol: smooth density in [0, 1] over the sphere's bounds,
+    sigma_t 4, albedo 0.9, g -0.2), and the short block with a dipole
+    subsurface model of the skin1 preset at scale 0.05 (a mean free path
+    of ~0.25 box units) and 4 irradiance samples a bake point. ``strip``
+    writes media_stripped.xml: the same scene without the fog, the
+    sphere's medium and the dipole. Returns the file's path."""
+    from sdmm_tpu_torch.scene.volume import save_vol
+
+    c, r = MEDIA_SPHERE
+    z, y, x = np.mgrid[0:64, 0:64, 0:64] / 63.0
+    dens = 0.5 + 0.5 * np.sin(6.0 * x) * np.cos(5.0 * y) * np.sin(4.0 * z
+                                                                  + 1.0)
+    save_vol(os.path.join(dirname, "density.vol"), dens,
+             np.asarray(c) - r, np.asarray(c) + r)
+    name = "media_stripped.xml" if strip else "media.xml"
+    path = os.path.join(dirname, name)
+    write_cornell_xml(path, width, height, spp)
+    with open(path) as f:
+        text = f.read()
+    short = _digits(cornell_blocks()[1])
+    medium = ('' if strip else
+              '<medium type="heterogeneous" name="interior"><volume '
+              'name="density" type="gridvolume"><string name="filename" '
+              'value="density.vol"/></volume><float name="scale" value="4"/>'
+              '<rgb name="albedo" value="0.9"/><phase type="hg"><float '
+              'name="g" value="-0.2"/></phase></medium>')
+    extra = [f'  <shape type="sphere"><point name="center" x="{c[0]}" '
+             f'y="{c[1]}" z="{c[2]}"/><float name="radius" value="{r}"/>'
+             f'<bsdf type="dielectric"><float name="intIOR" value="1.33"/>'
+             f'</bsdf>{medium}</shape>']
+    if not strip:
+        extra.append('  <medium type="homogeneous" id="fog"><rgb '
+                     'name="sigmaT" value="0.5"/><rgb name="albedo" '
+                     'value="0.8"/><phase type="hg"><float name="g" '
+                     'value="0.3"/></phase></medium>')
+        block = f'<matrix value="{short}"/></transform><ref id="white"/>'
+        check(text.count(block) == 1, "media.xml: the short block")
+        text = text.replace(block, block + '<subsurface type="dipole">'
+                            '<string name="material" value="skin1"/><float '
+                            'name="scale" value="0.05"/><integer '
+                            'name="irrSamples" value="4"/></subsurface>')
+    text = text.replace("</scene>", "\n".join(extra) + "\n</scene>")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def phase_media(dev, smi, width=640, height=360):
+    """Phase 10: participating media, subsurface scattering, samplers and
+    rfilters on the card. write_media_xml writes scene M (media.xml: fog,
+    a grid-density medium inside a dielectric sphere, a dipole block; >
+    1,024 triangles, so every ray goes through clas_cull) and its stripped
+    twin to a temporary directory; M must fail both fused gates. cli.main
+    renders M with gt at 16 spp (renderer.render: trace_wave) and sdmm at
+    32 spp (training on the media guided pool, the frozen tail on the eager
+    guided pool), the stripped scene with gt at 16 spp, and M at 64x36, 4
+    spp, on the card and on the CPU (a process of its own, started at the
+    phase's top); SDMMTrainer(pooled_training=False) trains two iterations
+    on M through the scan tracer. On the Cornell box alone (mt_sweep)
+    cli.main gt runs at 8 spp under every sampler and rfilter. Every
+    E-step of the phase runs under EmCensus. Checks: the sdmm mean within
+    5% of gt's, the stripped gt mean more than 10% away from M's, the
+    64x36 card and CPU means within 4 standard errors, the scan-trained
+    image within 5% of gt, each sampler's and rfilter's box mean within 3%
+    of the independent/box one, no NaN in the E-step's stats_w;
+    guided_sample, the E-step and clas_cull launch on M, mt_sweep on the
+    box, and trace, shade, step and bounce never on M. One "media:" JSON
+    line prints each call's wall seconds and launches, the means and the
+    card's name and power limit."""
+    import tempfile
+
+    from sdmm_tpu_torch import cli
+    from sdmm_tpu_torch.guiding import trainer as tr
+    from sdmm_tpu_torch.render import renderer as rmod
+    from sdmm_tpu_torch.render import wavefront as wf
+    from sdmm_tpu_torch.render.guided import guided_fused_supported
+    from sdmm_tpu_torch.scene.xml_loader import load_scene
+
+    t_phase = time.time()
+    report = {"card": smi, "seconds": {}, "launches": {}, "means": {}}
+    sec, means = report["seconds"], report["means"]
+    films = []
+    real_render = rmod.render
+
+    def recording(*a, **k):
+        films.append(real_render(*a, **k))
+        return films[-1]
+
+    rmod.render = recording
+    counters = _counts()
+    cpu_run = None
+    try:
+        with tempfile.TemporaryDirectory() as tmp, EmCensus() as census:
+            path = write_media_xml(tmp, width, height, 16)
+            stripped = write_media_xml(tmp, width, height, 16, strip=True)
+            box = os.path.join(tmp, "box.xml")
+            write_cornell_xml(box, width, height, 8)
+            small = ["--width", "64", "--height", "36", "--spp", "4",
+                     "--integrator", "gt"]
+            cpu_film = os.path.join(tmp, "small_cpu.npz")
+            cpu_run = subprocess.Popen(
+                [sys.executable, "-c", CPU_RENDER.format(
+                    module="renderer", fn="render", root=ROOT, xml=path,
+                    film=cpu_film,
+                    npy=os.path.join(tmp, "small_cpu.npy"), args=small)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            t_cpu = time.time()
+            scene, cfg = load_scene(path).build(device=dev)
+            gs = tr.SDMMTrainer(scene, cfg, tr.TrainerConfig(),
+                                device=dev).guide_state()
+            check(scene.tri_v0.shape[0] > 1024 and cfg.has_medium
+                  and cfg.has_hetero and cfg.has_sss,
+                  "scene M: triangles, media or dipole missing")
+            check(not wf.fused_supported(scene, cfg)
+                  and not guided_fused_supported(scene, cfg, gs),
+                  "scene M: a fused gate takes it")
+            print(f"media: scene M {scene.tri_v0.shape[0]} triangles, "
+                  f"{scene.med_sigma_t.shape[0]} media rows, volumes "
+                  f"{tuple(scene.volumes.shape)}; both fused gates refuse it",
+                  flush=True)
+
+            def run(name, xml, args):
+                out = os.path.join(tmp, name, "image.npy")
+                for fn in counters.values():
+                    fn.launches = 0
+                del films[:]
+                torch.cuda.synchronize()
+                t0 = time.time()
+                check(cli.main(["render", xml, "-o", out, *args]) is None,
+                      f"cli {name}: non-zero return")
+                torch.cuda.synchronize()
+                sec[name] = time.time() - t0
+                la = {k: fn.launches for k, fn in counters.items()}
+                report["launches"][name] = la
+                img = np.load(out)
+                check(np.isfinite(img).all() and img.shape[2] == 3,
+                      f"cli {name}: image not finite or misshapen")
+                means[name] = float(img.mean())
+                print(f"media: cli {name}: {sec[name]:.3f} s, mean "
+                      f"{means[name]:.5f}, launches {la}", flush=True)
+                return la
+
+            for name, args in (("gt_M", ["--integrator", "gt", "--spp", "16"]),
+                               ("sdmm_M", ["--integrator", "sdmm", "--spp",
+                                           "32"])):
+                la = run(name, path, args)
+                for k in ("trace", "shade", "step", "bounce"):
+                    check(la[k] == 0, f"cli {name}: {k} was launched")
+                need = (("guided_sample", "em_suffstats", "clas_cull")
+                        if name.startswith("sdmm") else ("clas_cull",))
+                for k in need:
+                    check(la[k] > 0, f"cli {name}: {k} was not launched")
+            check(len(films) == 0, "sdmm on M reached the wave renderer")
+            rel = abs(means["sdmm_M"] - means["gt_M"]) / means["gt_M"]
+            report["sdmm_vs_gt_rel"] = rel
+            check(rel < 0.05, f"scene M: the sdmm mean {means['sdmm_M']:.5f}"
+                  f" is not within 5% of gt's {means['gt_M']:.5f}")
+            run("gt_stripped", stripped, ["--integrator", "gt", "--spp",
+                                          "16"])
+            rel_s = abs(means["gt_stripped"] - means["gt_M"]) / means["gt_M"]
+            report["stripped_vs_gt_rel"] = rel_s
+            check(rel_s > 0.10, "scene M: stripping the media moved the gt "
+                  f"mean by only {rel_s:.4f}")
+
+            # Two training iterations on the scan tracer.
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            st = tr.SDMMTrainer(scene, cfg, tr.TrainerConfig(
+                pooled_training=False, train_fraction=1.0), device=dev)
+            img, iters = st.run(total_spp=8)
+            torch.cuda.synchronize()
+            sec["scan_training_M"] = time.time() - t0
+            la = {k: fn.launches for k, fn in counters.items()}
+            report["launches"]["scan_training_M"] = la
+            means["scan_training_M"] = float(img.mean())
+            rel_t = abs(means["scan_training_M"] - means["gt_M"]) \
+                / means["gt_M"]
+            print(f"media: scan training, 2 iterations at 4 spp: "
+                  f"{sec['scan_training_M']:.3f} s, mean "
+                  f"{means['scan_training_M']:.5f} (rel {rel_t:.4f}), "
+                  f"launches {la}", flush=True)
+            check(len(iters) == 2 and all(
+                s["optimized_nodes_count"] > 0 for s in st.stats),
+                "scan training: not two optimized iterations")
+            check(np.isfinite(img).all() and rel_t < 0.05,
+                  "scan training: the image mean is not within 5% of gt's")
+            check(la["guided_sample"] > 0 and la["em_suffstats"] > 0,
+                  "scan training: guided_sample or the E-step not launched")
+
+            # Every sampler and rfilter on the box alone.
+            run("box_independent_box", box, ["--integrator", "gt",
+                                             "--spp", "8"])
+            report["box_rel"] = {}
+            for opt in (["--sampler", "stratified"], ["--sampler", "halton"],
+                        ["--sampler", "sobol"], ["--rfilter", "tent"],
+                        ["--rfilter", "gaussian"], ["--rfilter", "mitchell"],
+                        ["--rfilter", "catmullrom"],
+                        ["--rfilter", "lanczos"]):
+                name = f"box_{opt[1]}"
+                la = run(name, box, ["--integrator", "gt", "--spp", "8",
+                                     *opt])
+                check(len(films) == 1 and la["mt_sweep"] > 0,
+                      f"cli {name}: not the wave renderer on mt_sweep")
+                rel_b = abs(means[name] - means["box_independent_box"]) \
+                    / means["box_independent_box"]
+                report["box_rel"][name] = rel_b
+                check(rel_b < 0.03, f"cli {name}: mean {means[name]:.5f} not "
+                      "within 3% of the independent/box mean "
+                      f"{means['box_independent_box']:.5f}")
+
+            del films[:]
+            t0 = time.time()
+            cli.main(["render", path, "-o",
+                      os.path.join(tmp, "small_cuda.npy"), *small])
+            sec["gt_M_64x36_cuda"] = time.time() - t0
+            small_card = dict(films[0])
+            out, err = cpu_run.communicate(timeout=900)
+            sec["gt_M_64x36_cpu_process"] = time.time() - t_cpu
+            check(cpu_run.returncode == 0, "scene M at 64x36 on the CPU: "
+                  f"the render failed: {err[-2000:]}")
+            stats = {}
+            for where, film in (("cuda", small_card),
+                                ("cpu", dict(np.load(cpu_film)))):
+                check((film["weight"] == 4).all()
+                      and np.isfinite(film["raw"]).all(),
+                      f"scene M at 64x36 on {where}: film")
+                stats[where] = _film_mean(film)
+            (m_c, se_c), (m_h, se_h) = stats["cuda"], stats["cpu"]
+            z = abs(m_c - m_h) / np.hypot(se_c, se_h)
+            report["card_vs_cpu"] = {"card": stats["cuda"],
+                                     "cpu": stats["cpu"], "z": z}
+            check(z < 4.0, f"scene M at 64x36: the card's mean {m_c:.5f} "
+                  f"and the CPU's {m_h:.5f} differ by {z:.2f} standard "
+                  "errors")
+        report["em_census"] = census.totals
+        check(census.totals["calls"] > 0
+              and census.totals["nan_stats_w"] == 0,
+              f"phase 10: E-step census {census.totals}")
+    finally:
+        rmod.render = real_render
+        if cpu_run is not None and cpu_run.poll() is None:
+            cpu_run.kill()
+            cpu_run.wait()
+    sec["phase"] = time.time() - t_phase
+    print("media:", json.dumps(report), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2212,6 +2496,7 @@ def main():
     launches["guided_sample"] += n_gs
     phase_entry_point(dev, smi)
     phase_features(dev, smi)
+    phase_media(dev, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

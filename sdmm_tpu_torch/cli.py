@@ -9,8 +9,9 @@ Integrators: ``gt``/``volpath`` (path tracing with NEE) and ``path`` (no
 NEE) through ``render_wavefront``, or through the wave renderer
 ``renderer.render`` for a scene with a medium or a sampler other than
 ``independent`` or an rfilter other than ``box``; ``sdmm``, the guided
-training render, through ``SDMMTrainer``. The others keep their place in the argument list and
-raise ``NotImplementedError``, naming the ROADMAP item that ports them.
+training render, through ``SDMMTrainer``. The others keep their place in
+the argument list and raise ``NotImplementedError``, naming the ROADMAP
+item that ports them.
 Renders run on the card unless ``--device cpu`` is given. Stats go next to
 the output as stats.json; an sdmm render also writes its guiding model to
 checkpoints/model_NNNNN.asdmm.

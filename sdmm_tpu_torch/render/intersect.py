@@ -25,7 +25,10 @@ BRUTE_FORCE_MAX = 1024
 
 
 def intersect(scene, ro: torch.Tensor, rd: torch.Tensor, t_max=None):
-    """Closest hit. Returns dict with t, tri [int32, -1 = miss], u, v, valid."""
+    """Closest hit. Returns dict with t, tri [int32, -1 = miss], u, v, valid.
+    The kernels take contiguous rows: a camera wave's origins are one
+    expanded row."""
+    ro, rd = ro.contiguous(), rd.contiguous()
     if scene.tri_v0.shape[0] > BRUTE_FORCE_MAX:
         return clas_cull.intersect(scene, ro, rd, t_max)
     if t_max is None:
@@ -36,6 +39,7 @@ def intersect(scene, ro: torch.Tensor, rd: torch.Tensor, t_max=None):
 def occluded(scene, ro: torch.Tensor, rd: torch.Tensor,
              t_max: torch.Tensor) -> torch.Tensor:
     """Any hit within (EPS, t_max) [N]. Returns bool [N]."""
+    ro, rd = ro.contiguous(), rd.contiguous()
     if scene.tri_v0.shape[0] > BRUTE_FORCE_MAX:
         return clas_cull.occluded(scene, ro, rd, t_max)
     return mt_sweep(ro, rd, t_max, scene.tri_v0, scene.tri_e1,

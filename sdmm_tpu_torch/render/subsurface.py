@@ -115,8 +115,8 @@ def _cosine_dirs(n, u):
     r = torch.sqrt(u[:, 0])
     phi = 2.0 * math.pi * u[:, 1]
     z = (1.0 - u[:, 0]).clamp_min(0.0).sqrt()
-    return (s * (r * torch.cos(phi))[:, None] + t * (r * torch.sin(phi))[:, None]
-            + n * z[:, None])
+    return (s * (r * torch.cos(phi))[:, None]
+            + t * (r * torch.sin(phi))[:, None] + n * z[:, None])
 
 
 def gather_irradiance(scene, cfg, points, normals, irr_samples: int,

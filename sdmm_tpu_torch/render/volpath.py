@@ -200,8 +200,8 @@ def trace_wave(scene, generator: torch.Generator, ro: torch.Tensor,
         do_rr = depth + 1 >= rr_depth
         if do_rr:
             active = active & (u_rr < q)
-            thr = torch.where(active[:, None], thr / q.clamp_min(1e-6)[:, None],
-                              thr)
+            thr = torch.where(active[:, None],
+                              thr / q.clamp_min(1e-6)[:, None], thr)
 
         ro_next = it["p"] + it["ng"] * torch.where(
             wo_dot_geo > 0, RAY_EPS, -RAY_EPS)[:, None]

@@ -67,7 +67,8 @@ def test_sample_distance_and_transmittance_match():
                                jnp.asarray(t_surf))
     got = tmed.sample_distance(ts, torch.as_tensor(med), torch.as_tensor(u),
                                torch.as_tensor(t_surf))
-    assert np.array_equal(to_np(got["scattered"]), np.asarray(ref["scattered"]))
+    assert np.array_equal(to_np(got["scattered"]),
+                          np.asarray(ref["scattered"]))
     assert got["scattered"].any() and not got["scattered"].all()
     for k in ("t", "weight"):
         np.testing.assert_allclose(to_np(got[k]), np.asarray(ref[k]), **TOL)
@@ -194,7 +195,8 @@ def test_delta_tracking_matches_homogeneous_and_beer_lambert():
                                u, t_surf)
     assert abs(1.0 - float(hs0["scattered"].float().mean()) - want) < 4 * se
     np.testing.assert_allclose(
-        to_np(tmed.transmittance(hom, torch.full((1,), m0), torch.tensor([d]))),
+        to_np(tmed.transmittance(hom, torch.full((1,), m0),
+                                 torch.tensor([d]))),
         want, rtol=1e-6)
 
 
@@ -203,7 +205,8 @@ def test_vol_files_round_trip_across_packages(tmp_path):
     dens = rs.rand(3, 4, 5).astype(np.float32)
     tvol.save_vol(str(tmp_path / "t.vol"), dens, [0, -1, 0], [1, 2, 3])
     jvol.save_vol(str(tmp_path / "j.vol"), dens, [0, -1, 0], [1, 2, 3])
-    assert (tmp_path / "t.vol").read_bytes() == (tmp_path / "j.vol").read_bytes()
+    assert (tmp_path / "t.vol").read_bytes() == \
+        (tmp_path / "j.vol").read_bytes()
     for a, b in zip(tvol.load_vol(str(tmp_path / "j.vol")),
                     jvol.load_vol(str(tmp_path / "t.vol"))):
         np.testing.assert_array_equal(a, b)
