@@ -145,7 +145,22 @@ Phases (any failure raises and the script exits non-zero):
      guided_sample, the E-step and clas_cull must launch on M, mt_sweep on
      the box, trace, shade, step and bounce never on M. One "media:" JSON
      line prints each call's wall seconds and launches.
-Phases 5, 7 and 10 run their training under EmCensus, which counts the
+ 11. the guiding extras on the card, on phase 8's cornell.xml: cli.main gt
+     at 64 spp; (a) --integrator ppg at 64 spp (PPGTrainer, mt_sweep on
+     every bounce; each iteration's spp, seconds and leaves printed); (b)
+     sdmm at 64 spp with -D reservoirCapacity=2000000 -D
+     optimizeAsync=true; (c) sdmm to 52 spp with --checkpoint, --resume to
+     64, against two uninterrupted 64-spp runs; (d) SDMMTrainer with
+     sample_product=True and tail_chunk_spp=16 on the four-type box at 64
+     spp against render_wavefront gt (the learned table's fit seconds
+     printed); (e) data_init at 32 spp on the box. Checks: (a), (b), (d),
+     (e) within 5% of gt; mt_sweep in (a), guided_sample and the E-step in
+     (b); (c) every iteration's image and the final one within rtol 1e-5 /
+     atol 1e-6 of the first uninterrupted run, or of the two runs' own
+     difference; (d) product lanes > 0, guided_sample never launched, the
+     E-step launched, the fused guided pool never taken. One
+     "guiding_extras:" JSON line.
+Phases 5, 7, 10 and 11 run their training under EmCensus, which counts the
 E-step's valid samples with a non-finite posterior by cause and the NaN
 entries of its stats_w; any NaN fails the run.
 Phases 5 and 6 also read mt_sweep's launches: the training iterations and
@@ -2447,6 +2462,212 @@ def phase_media(dev, smi, width=640, height=360):
     print("media:", json.dumps(report), flush=True)
 
 
+RESUME_AT = 52  # spp of the interrupted run in phase 11 (c); see there
+
+
+def _resume_diff(a, b):
+    """The largest |a - b| / (1e-6 + 1e-5·|b|): at most 1 where a lies
+    within rtol 1e-5 / atol 1e-6 of b."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / (1e-6 + 1e-5 * np.abs(b))).max())
+
+
+def phase_guiding_extras(dev, smi, width=640, height=360):
+    """Phase 11: the guiding extras on the card, on phase 8's cornell.xml
+    (written to a temporary directory) at 640x360, depth 10, every E-step
+    under EmCensus. cli.main renders gt at 64 spp, the reference mean of
+    every check. (a) --integrator ppg at 64 spp: PPGTrainer's
+    budget-doubling iterations (1, 2, ..., 32, 1 spp; mt_sweep on every
+    bounce); each iteration's spp, seconds and leaf count printed. (b) sdmm
+    at 64 spp with -D reservoirCapacity=2000000 -D optimizeAsync=true: the
+    EM fits the reservoir (guided_sample, the E-step). (c) resume: sdmm to
+    RESUME_AT spp with --checkpoint, then --resume to 64 spp, against two
+    uninterrupted 64-spp runs. RESUME_AT is 52, not 32: train_fraction
+    applies to each call's own budget, so a 32-spp call trains until 8 spp
+    where the 64-spp run trains until 16; from 52 spp on (training while
+    total < 13: iterations 0, 4, 8, 12) both calls make the same training
+    decisions. (d) SDMMTrainer(TrainerConfig(sample_product=True,
+    tail_chunk_spp=16)) on the four-type box (cornell_box(...,
+    extra_bsdfs=True)) at 64 spp against render_wavefront gt at 64 spp;
+    the learned table's fit seconds printed. (e) TrainerConfig(data_init=
+    True) on the Cornell box at 32 spp; the reseeded leaves printed.
+    Checks: (a), (b), (d), (e) within 5% of their gt mean; mt_sweep in (a),
+    guided_sample and the E-step in (b), no NaN in stats_w; (c) each
+    iteration's image and the final image within rtol 1e-5 / atol 1e-6 of
+    the first uninterrupted run or, if the two uninterrupted runs differ
+    by more, within their difference; (d) the product share of guided
+    lanes > 0, guided_sample never launched, the E-step launched, the
+    fused guided pool never taken. One "guiding_extras:" JSON line prints
+    each call's wall seconds and launches and the card's name and power
+    limit."""
+    import tempfile
+
+    from sdmm_tpu_torch import cli
+    from sdmm_tpu_torch.guiding import trainer as tr
+    from sdmm_tpu_torch.render import wavefront as wf
+
+    t_phase = time.time()
+    report = {"card": smi, "seconds": {}, "launches": {}, "means": {}}
+    sec, means, launches = (report["seconds"], report["means"],
+                            report["launches"])
+    counters = _counts()
+
+    def timed(name, fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        sec[name] = time.time() - t0
+        launches[name] = {k: c.launches for k, c in counters.items()}
+        return out
+
+    def within(name, ref):
+        rel = abs(means[name] - means[ref]) / means[ref]
+        report.setdefault("rel", {})[name] = rel
+        check(rel < 0.05, f"guiding extras: {name}'s mean {means[name]:.5f}"
+              f" is not within 5% of {ref}'s {means[ref]:.5f}")
+        return rel
+
+    with tempfile.TemporaryDirectory() as tmp, EmCensus() as census:
+        box = os.path.join(tmp, "cornell.xml")
+        write_cornell_xml(box, width, height, 64)
+
+        def run(name, *args):
+            out = os.path.join(tmp, name, "image.npy")
+            timed(name, lambda: check(
+                cli.main(["render", box, "-o", out, *args]) is None,
+                f"cli {name}: non-zero return"))
+            img = np.load(out)
+            check(np.isfinite(img).all() and img.shape == (height, width, 3),
+                  f"cli {name}: image not finite or misshapen")
+            means[name] = float(img.mean())
+            print(f"guiding extras: cli {name}: {sec[name]:.3f} s, mean "
+                  f"{means[name]:.5f}, launches {launches[name]}",
+                  flush=True)
+            return img, os.path.dirname(out)
+
+        run("gt", "--integrator", "gt", "--spp", "64")
+
+        # (a) PPG.
+        _, d = run("ppg", "--integrator", "ppg", "--spp", "64")
+        with open(os.path.join(d, "stats.json")) as f:
+            ppg_stats = json.load(f)
+        for st in ppg_stats:
+            print(f"guiding extras: ppg iteration {st['iteration']}: "
+                  f"{st['spp']} spp, {st['seconds']:.3f} s, "
+                  f"{st['leaf_nodes_count']} leaves", flush=True)
+        report["ppg_iterations"] = ppg_stats
+        check([st["spp"] for st in ppg_stats] == [1, 2, 4, 8, 16, 32, 1],
+              "ppg: not the budget-doubling iterations")
+        within("ppg", "gt")
+        check(launches["ppg"]["mt_sweep"] > 0, "ppg: mt_sweep not launched")
+
+        # (b) The reservoir and the asynchronous EM.
+        n_census = census.totals["calls"]
+        run("sdmm_reservoir_async", "--integrator", "sdmm", "--spp", "64",
+            "-D", "reservoirCapacity=2000000", "-D", "optimizeAsync=true")
+        within("sdmm_reservoir_async", "gt")
+        la = launches["sdmm_reservoir_async"]
+        check(la["guided_sample"] > 0 and la["em_suffstats"] > 0,
+              "reservoir + async: guided_sample or the E-step not launched")
+        check(census.totals["calls"] > n_census
+              and census.totals["nan_stats_w"] == 0,
+              f"reservoir + async: E-step census {census.totals}")
+
+        # (c) Resume.
+        ck = {k: os.path.join(tmp, f"{k}.npz")
+              for k in ("full1", "full2", "part", "resumed")}
+        finals = {}
+        for name in ("full1", "full2"):
+            finals[name], _ = run(f"sdmm_{name}", "--integrator", "sdmm",
+                                  "--spp", "64", "--checkpoint", ck[name])
+        run("sdmm_part", "--integrator", "sdmm", "--spp", str(RESUME_AT),
+            "--checkpoint", ck["part"])
+        finals["resumed"], _ = run(
+            "sdmm_resumed", "--integrator", "sdmm", "--spp", "64",
+            "--resume", ck["part"], "--checkpoint", ck["resumed"])
+        films = {k: np.load(ck[k])["it_image"]
+                 for k in ("full1", "full2", "resumed")}
+        check(films["resumed"].shape == films["full1"].shape,
+              "resume: not the uninterrupted run's iterations")
+        d_two = max(_resume_diff(films["full2"], films["full1"]),
+                    _resume_diff(finals["full2"], finals["full1"]))
+        d_res = max(_resume_diff(films["resumed"], films["full1"]),
+                    _resume_diff(finals["resumed"], finals["full1"]))
+        report["resume"] = {"resumed_vs_full1": d_res,
+                            "full2_vs_full1": d_two,
+                            "iterations": int(films["full1"].shape[0])}
+        print(f"guiding extras: resume: the resumed run against the first "
+              f"uninterrupted one {d_res:.4g}, the two uninterrupted runs "
+              f"{d_two:.4g} (in units of 1e-6 + 1e-5 |x|)", flush=True)
+        check(d_res <= max(1.0, d_two), "resume: the resumed run differs "
+              f"from the uninterrupted one by {d_res:.4g} (the two "
+              f"uninterrupted runs by {d_two:.4g})")
+
+        # (d) Product sampling on the four-type box.
+        scene4, cfg4 = cornell_box(width, height, dev, extra_bsdfs=True)
+        ref4 = timed("gt_four_type", lambda: wf.render_wavefront(
+            scene4, cfg4, spp=64, seed=5, device=dev))
+        means["gt_four_type"] = float(np.asarray(ref4["image"]).mean())
+        pools, fused = [], []
+        real_pool, real_fused = tr.render_pool_guided, \
+            tr.render_pool_guided_fused
+
+        def pool(*a, **k):
+            pools.append(real_pool(*a, **k))
+            return pools[-1]
+
+        tr.render_pool_guided = pool
+        tr.render_pool_guided_fused = lambda *a, **k: fused.append(1) \
+            or real_fused(*a, **k)
+        try:
+            ptr = tr.SDMMTrainer(scene4, cfg4, tr.TrainerConfig(
+                sample_product=True, tail_chunk_spp=16), device=dev)
+            img, _ = timed("product", lambda: ptr.run(total_spp=64))
+        finally:
+            tr.render_pool_guided = real_pool
+            tr.render_pool_guided_fused = real_fused
+        means["product"] = float(img.mean())
+        n_prod = sum(int(o["n_product"]) for o in pools)
+        n_ok = sum(int(o["n_cond_ok"]) for o in pools)
+        report["product"] = {"fit_seconds": ptr.learned_seconds,
+                             "product_lanes": n_prod,
+                             "valid_conditionals": n_ok,
+                             "share": n_prod / max(1, n_ok)}
+        print(f"guiding extras: product: the learned table fitted in "
+              f"{ptr.learned_seconds:.3f} s; {sec['product']:.3f} s, mean "
+              f"{means['product']:.5f} (gt {means['gt_four_type']:.5f}), "
+              f"product lanes {n_prod} of {n_ok} valid conditionals, "
+              f"launches {launches['product']}", flush=True)
+        within("product", "gt_four_type")
+        check(n_prod > 0, "product: no lane sampled the product")
+        check(not fused and launches["product"]["trace"] == 0,
+              "product: the fused guided pool ran")
+        check(launches["product"]["guided_sample"] == 0
+              and launches["product"]["em_suffstats"] > 0,
+              "product: guided_sample launched or the E-step did not")
+
+        # (e) Data init.
+        scene, cfg = cornell_box(width, height, dev)
+        dtr = tr.SDMMTrainer(scene, cfg, tr.TrainerConfig(data_init=True),
+                             device=dev)
+        img, _ = timed("data_init", lambda: dtr.run(total_spp=32))
+        means["data_init"] = float(img.mean())
+        report["reseeded_leaves"] = dtr.reseeded_leaves
+        print(f"guiding extras: data init: {sec['data_init']:.3f} s, mean "
+              f"{means['data_init']:.5f}, {dtr.reseeded_leaves} leaves "
+              f"reseeded, launches {launches['data_init']}", flush=True)
+        within("data_init", "gt")
+        check(dtr.reseeded_leaves > 0, "data init: no leaf was reseeded")
+    report["em_census"] = census.totals
+    check(census.totals["nan_stats_w"] == 0,
+          f"phase 11: E-step census {census.totals}")
+    sec["phase"] = time.time() - t_phase
+    print("guiding_extras:", json.dumps(report), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2497,6 +2718,7 @@ def main():
     phase_entry_point(dev, smi)
     phase_features(dev, smi)
     phase_media(dev, smi)
+    phase_guiding_extras(dev, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -9,9 +9,11 @@ Integrators: ``gt``/``volpath`` (path tracing with NEE) and ``path`` (no
 NEE) through ``render_wavefront``, or through the wave renderer
 ``renderer.render`` for a scene with a medium or a sampler other than
 ``independent`` or an rfilter other than ``box``; ``sdmm``, the guided
-training render, through ``SDMMTrainer``. The others keep their place in
-the argument list and raise ``NotImplementedError``, naming the ROADMAP
-item that ports them.
+training render, through ``SDMMTrainer`` (``-D reservoirCapacity=N``,
+``-D optimizeAsync=true``; ``--resume`` continues from a full checkpoint,
+``--checkpoint`` writes one at the end); ``ppg``, practical path guiding,
+through ``PPGTrainer``. The others keep their place in the argument list
+and raise ``NotImplementedError``, naming the ROADMAP item that ports them.
 Renders run on the card unless ``--device cpu`` is given. Stats go next to
 the output as stats.json; an sdmm render also writes its guiding model to
 checkpoints/model_NNNNN.asdmm.
@@ -30,8 +32,7 @@ INTEGRATORS = ["gt", "volpath", "path", "sdmm", "ppg", "direct", "ao",
                "pssmlt", "mlt", "erpt", "bdpt", "adaptive", "multichannel",
                "irrcache", "motion"]
 # The integrators still to port, by ROADMAP item.
-UNPORTED_INTEGRATORS = {name: ("A10" if name == "ppg" else "A12")
-                        for name in INTEGRATORS[4:]}
+UNPORTED_INTEGRATORS = {name: "A12" for name in INTEGRATORS[5:]}
 
 
 def _parse_defines(pairs):
@@ -55,9 +56,6 @@ def cmd_render(args):
     from .utils.exr import write_exr
 
     device = resolve_device(args.device)
-    if args.resume or args.checkpoint:
-        raise unported("resuming a training render (--resume, "
-                        "--checkpoint)", "A10")
     overrides = _parse_defines(args.define)
     overrides.setdefault("samplesPerIteration",
                          str(args.samples_per_iteration))
@@ -84,7 +82,14 @@ def cmd_render(args):
     os.makedirs(out_dir, exist_ok=True)
 
     t0 = time.time()
-    if integrator == "sdmm":
+    if integrator == "ppg":
+        from .guiding.ppg import PPGConfig, PPGTrainer
+
+        trainer = PPGTrainer(scene, cfg, PPGConfig(seed=builder.seed),
+                             device=device)
+        image, _ = trainer.run(total_spp=spp, verbose=args.verbose)
+        _write_stats(out_dir, trainer.stats)
+    elif integrator == "sdmm":
         from .guiding import io as gio
         from .guiding.trainer import SDMMTrainer, TrainerConfig
 
@@ -96,7 +101,11 @@ def cmd_render(args):
             optimize_async=overrides.get("optimizeAsync", "false") == "true",
         )
         trainer = SDMMTrainer(scene, cfg, tc, device=device)
-        image, iters = trainer.run(total_spp=spp, verbose=args.verbose)
+        prev_iters = trainer.restore(args.resume) if args.resume else None
+        image, iters = trainer.run(total_spp=spp, verbose=args.verbose,
+                                   iters=prev_iters)
+        if args.checkpoint:
+            gio.save_full_checkpoint(args.checkpoint, trainer, iters)
         _write_stats(out_dir, trainer.stats)
         ckpt_dir = os.path.join(out_dir, "checkpoints")
         os.makedirs(ckpt_dir, exist_ok=True)
@@ -156,9 +165,9 @@ def main(argv=None):
                    help="scene variable override (as mitsuba -D)")
     r.add_argument("--integrator", choices=INTEGRATORS)
     r.add_argument("--resume", help="resume a training render from a full "
-                   "checkpoint (not ported)")
-    r.add_argument("--checkpoint", help="write a full resume checkpoint at "
-                   "the end of the render (not ported)")
+                   "checkpoint (.npz)")
+    r.add_argument("--checkpoint", help="write a full resume checkpoint "
+                   "(.npz) at the end of the render")
     r.add_argument("--spp", type=int)
     r.add_argument("--samples-per-iteration", type=int, default=4)
     r.add_argument("--width", type=int)

@@ -4,7 +4,9 @@
 attribute layout (its own or the port's: ``sdmm``, ``em``, ``initialized``,
 ``tree``, ``iteration``, ``total_spp``);
 ``trainer_state_from_numpy`` loads such a state into a port trainer, so
-that both then hold the same model.
+that both then hold the same model. The same goes for a PPG trainer's state
+(``ppg_state_to_numpy``, ``ppg_state_from_numpy``), a learned-BSDF table
+and a sample reservoir (``tensors_from_numpy``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,43 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _tree_to_numpy(t) -> dict:
+    return {
+        **{k: list(getattr(t, k)) for k in _TREE_LISTS},
+        "node_lo": [np.asarray(a) for a in t.node_lo],
+        "node_hi": [np.asarray(a) for a in t.node_hi],
+        "lo": np.asarray(t.lo), "hi": np.asarray(t.hi),
+        "n_leaves": int(t.n_leaves),
+        "leaf_counts": np.asarray(t.leaf_counts),
+        "max_leaves": int(t.max_leaves),
+        "split_threshold": int(t.split_threshold),
+    }
+
+
+def _tree_from_numpy(td: dict) -> STree:
+    tree = STree(td["lo"], td["hi"], max_leaves=td["max_leaves"],
+                 split_threshold=td["split_threshold"])
+    for k in _TREE_LISTS:
+        setattr(tree, k, list(td[k]))
+    tree.node_lo = [np.asarray(a, np.float64) for a in td["node_lo"]]
+    tree.node_hi = [np.asarray(a, np.float64) for a in td["node_hi"]]
+    tree.n_leaves = int(td["n_leaves"])
+    tree.leaf_counts = np.asarray(td["leaf_counts"], np.float64).copy()
+    return tree
+
+
+def tensors_from_numpy(d: dict, device) -> dict:
+    """A dict of arrays (a learned-BSDF table, a sample reservoir) as
+    tensors on ``device``, float64 arrays as float32."""
+    def conv(a):
+        a = np.array(a)
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        return torch.as_tensor(a, device=device)
+
+    return {k: conv(v) for k, v in d.items()}
+
+
 def trainer_state_to_numpy(tr) -> dict:
     t = tr.tree
     return {
@@ -37,16 +76,7 @@ def trainer_state_to_numpy(tr) -> dict:
         "em_total_weight": _np(tr.em.total_weight),
         "em_iterations": _np(tr.em.iterations),
         "initialized": _np(tr.initialized),
-        "tree": {
-            **{k: list(getattr(t, k)) for k in _TREE_LISTS},
-            "node_lo": [np.asarray(a) for a in t.node_lo],
-            "node_hi": [np.asarray(a) for a in t.node_hi],
-            "lo": np.asarray(t.lo), "hi": np.asarray(t.hi),
-            "n_leaves": int(t.n_leaves),
-            "leaf_counts": np.asarray(t.leaf_counts),
-            "max_leaves": int(t.max_leaves),
-            "split_threshold": int(t.split_threshold),
-        },
+        "tree": _tree_to_numpy(t),
         "iteration": int(tr.iteration),
         "total_spp": int(tr.total_spp),
     }
@@ -60,17 +90,8 @@ def trainer_state_from_numpy(tr, d: dict):
     def f32(a):
         return torch.as_tensor(np.array(a, np.float32), device=dev)
 
-    td = d["tree"]
-    tree = STree(td["lo"], td["hi"], max_leaves=td["max_leaves"],
-                 split_threshold=td["split_threshold"])
-    for k in _TREE_LISTS:
-        setattr(tree, k, list(td[k]))
-    tree.node_lo = [np.asarray(a, np.float64) for a in td["node_lo"]]
-    tree.node_hi = [np.asarray(a, np.float64) for a in td["node_hi"]]
-    tree.n_leaves = int(td["n_leaves"])
-    tree.leaf_counts = np.asarray(td["leaf_counts"], np.float64).copy()
-    tr.tree = tree
-    tr.tables = tree.device_tables(dev)
+    tr.tree = _tree_from_numpy(d["tree"])
+    tr.tables = tr.tree.device_tables(dev)
     tr.sdmm = mix.SDMM(weight=f32(d["sdmm_weight"]), mean=f32(d["sdmm_mean"]),
                        cov=f32(d["sdmm_cov"]))
     tr.em = EMState(
@@ -86,3 +107,26 @@ def trainer_state_from_numpy(tr, d: dict):
     tr.iteration = int(d["iteration"])
     tr.total_spp = int(d["total_spp"])
     tr._bump_model_version()
+
+
+_PPG_ARRAYS = ("hist", "initialized", "theta", "adam_m1", "adam_m2",
+               "adam_t")
+
+
+def ppg_state_to_numpy(tr) -> dict:
+    """A PPG trainer's histograms, fraction state, tree and iteration
+    (either package's)."""
+    return {**{k: _np(getattr(tr, k)) for k in _PPG_ARRAYS},
+            "tree": _tree_to_numpy(tr.tree), "iteration": int(tr.iteration)}
+
+
+def ppg_state_from_numpy(tr, d: dict):
+    """Load the numpy PPG state ``d`` into the port's PPGTrainer ``tr``."""
+    for k in _PPG_ARRAYS:
+        a = np.array(d[k])
+        setattr(tr, k, torch.as_tensor(
+            a.astype(np.float32) if a.dtype == np.float64 else a,
+            device=tr.device))
+    tr.tree = _tree_from_numpy(d["tree"])
+    tr.tables = tr.tree.device_tables(tr.device)
+    tr.iteration = int(d["iteration"])

@@ -1,5 +1,6 @@
 """Spatio-directional Gaussian mixtures, batched ``[L leaves, K components]``
-(port of sdmm_tpu/guiding/mixture.py, without the learned-BSDF products).
+(port of sdmm_tpu/guiding/mixture.py), and the products of directional
+mixtures that learned-BSDF product sampling draws from.
 
 The 5-D model: 3 Euclidean (canonical position) + 2 tangent dims at a unit
 mean direction on S². Dead components carry weight 0.
@@ -71,6 +72,34 @@ def _chol_safe(cov: torch.Tensor, alive: torch.Tensor):
     return chol, ok & alive
 
 
+def chol2x2(cov: torch.Tensor):
+    """Closed-form lower Cholesky factor of [..., 2, 2] covariances (of
+    their symmetric part, as JAX's cholesky takes it) and whether it
+    exists; where it does not, the factor is the identity."""
+    a = cov[..., 0, 0]
+    b = 0.5 * (cov[..., 0, 1] + cov[..., 1, 0])
+    l00 = torch.sqrt(a.clamp_min(0.0))
+    l10 = b / torch.where(l00 > 0.0, l00, 1.0)
+    d = cov[..., 1, 1] - l10 * l10
+    l11 = torch.sqrt(d.clamp_min(0.0))
+    ok = (a > 0.0) & (d > 0.0) & torch.isfinite(l10) & torch.isfinite(l11)
+    one, zero = torch.ones_like(a), torch.zeros_like(a)
+    chol = torch.stack([
+        torch.stack([torch.where(ok, l00, one), zero], -1),
+        torch.stack([torch.where(ok, l10, zero), torch.where(ok, l11, one)],
+                    -1)], -2)
+    return chol, ok
+
+
+def inv_lower2x2(chol: torch.Tensor) -> torch.Tensor:
+    """Inverse of [..., 2, 2] lower-triangular factors."""
+    i00 = 1.0 / chol[..., 0, 0]
+    i11 = 1.0 / chol[..., 1, 1]
+    return torch.stack([
+        torch.stack([i00, torch.zeros_like(i00)], -1),
+        torch.stack([-chol[..., 1, 0] * i00 * i11, i11], -1)], -2)
+
+
 def prepare(m: SDMM) -> Prepared:
     alive = m.weight > 0.0
     rot = tg.make_rotation(m.mean[..., 3:6])
@@ -112,11 +141,19 @@ def _matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def joint_tangent(mean, rot, pos, d):
+    """Per-component joint tangent coords of a sample. mean/rot:
+    [..., K, 6] / [..., K, 3, 3]; pos/d: [..., 3]. Returns (t [..., K, 5]
+    with ABSOLUTE spatial coords, log_jac [..., K], valid [..., K])."""
+    t_dir, aos, valid = tg.log_map(rot, d[..., None, :])
+    t = torch.cat([pos[..., None, :].expand_as(mean[..., :3]), t_dir], -1)
+    return t, aos, valid
+
+
 def component_pdf(mean, inv_chol, inv_det, rot, pos, d):
     """Per-component joint pdf and tangent coords (absolute spatial coords).
     Returns (pdf [..., K], t_abs [..., K, 5])."""
-    t_dir, aos, valid = tg.log_map(rot, d[..., None, :])
-    t_abs = torch.cat([pos[..., None, :].expand_as(mean[..., :3]), t_dir], -1)
+    t_abs, aos, valid = joint_tangent(mean, rot, pos, d)
     centered = torch.cat([t_abs[..., :3] - mean[..., :3], t_abs[..., 3:]], -1)
     z = _matvec(inv_chol, centered)
     pdf = (INV_SQRT_TWO_PI ** 5) * torch.exp(-0.5 * (z * z).sum(-1)) \
@@ -152,6 +189,13 @@ class Conditional(NamedTuple):
     inv_chol: torch.Tensor  # [..., K, 2, 2]
     inv_det: torch.Tensor  # [..., K]
     valid: torch.Tensor  # [...]
+
+
+def marginal_pdf(mu_a, marg_inv_chol, marg_inv_det, pos):
+    """Spatial marginal N(pos; μ_A, Σ_AA) per component; pos [..., 3]."""
+    z = _matvec(marg_inv_chol, pos[..., None, :] - mu_a)
+    return (INV_SQRT_TWO_PI ** 3) * torch.exp(-0.5 * (z * z).sum(-1)) \
+        * marg_inv_det
 
 
 def create_conditional(prep_g: Prepared, weight_g: torch.Tensor,
@@ -271,3 +315,101 @@ def conditional_sample_from_uniforms(c: Conditional, u_sel: torch.Tensor,
     t = _matvec(chol_s, z)
     d, _, ok = tg.exp_map(rot_s, t)
     return d, ok
+
+
+# ---------------------------------------------------------------------------
+# Products of directional mixtures
+# ---------------------------------------------------------------------------
+
+
+def prune_conditional(c: Conditional, k: int) -> Conditional:
+    """Keep the top-k components by weight, renormalized (the learned-BSDF
+    conditional is pruned to its top 2 before the product, so products are
+    K_guide × 2)."""
+    w, idx = torch.topk(c.weight, k, dim=-1)
+    wsum = w.sum(-1, keepdim=True).clamp_min(1e-20)
+    nb = idx.ndim
+
+    def gather(a):
+        ix = idx.reshape(idx.shape + (1,) * (a.ndim - nb))
+        ix = ix.expand(idx.shape + a.shape[nb:])
+        return torch.gather(a, nb - 1, ix)
+
+    return Conditional(
+        weight=w / wsum, mu_dir=gather(c.mu_dir), rot=gather(c.rot),
+        chol=gather(c.chol), inv_chol=gather(c.inv_chol),
+        inv_det=gather(c.inv_det), valid=c.valid,
+    )
+
+
+def product(a: Conditional, b: Conditional) -> Conditional:
+    """Pairwise mixture product a×b → Conditional with K_a·K_b components:
+    each pair of Gaussians multiplied in a's tangent frame, b's covariance
+    transported there through the exp/log Jacobian chain."""
+    ka = a.weight.shape[-1]
+    kb = b.weight.shape[-1]
+    batch = a.weight.shape[:-1]
+    a_rot = a.rot[..., :, None, :, :]
+    b_rot = b.rot[..., None, :, :, :]
+    mm = tg.mm
+    a_cov = mm(a.chol, a.chol.transpose(-1, -2))[..., :, None, :, :]
+    b_cov = mm(b.chol, b.chol.transpose(-1, -2))[..., None, :, :, :]
+    b_mu = b.mu_dir[..., None, :, :]
+
+    # b's mean in a's tangent space; b's covariance transported there:
+    # J = J_log_a(world) ∘ R_b ∘ J_exp_b(0).
+    t_b, aos, log_ok = tg.log_map(a_rot, b_mu)
+    exp_j = tg.exp_jacobian(torch.zeros_like(t_b))
+    log_j = tg.log_jacobian(a_rot, b_mu)
+    j = mm(mm(log_j, b_rot), exp_j)
+    b_cov_t = mm(mm(j, b_cov), j.transpose(-1, -2))
+
+    cov_sum = a_cov + b_cov_t
+    det = cov_sum[..., 0, 0] * cov_sum[..., 1, 1] \
+        - cov_sum[..., 0, 1] * cov_sum[..., 1, 0]
+    inv_det_sum = torch.where(det.abs() > 1e-38, 1.0 / det, 0.0)
+    adj = torch.stack([
+        torch.stack([cov_sum[..., 1, 1], -cov_sum[..., 0, 1]], -1),
+        torch.stack([-cov_sum[..., 1, 0], cov_sum[..., 0, 0]], -1),
+    ], dim=-2)
+    inv_sum = adj * inv_det_sum[..., None, None]
+
+    # New mean in a's tangent frame: A (A+B)⁻¹ t_b.
+    a_inv = mm(a_cov, inv_sum)
+    mean_new_t = _matvec(a_inv, t_b)
+    cov_new_t = mm(a_inv, b_cov_t)
+    cov_new_t = 0.5 * (cov_new_t + cov_new_t.transpose(-1, -2))
+
+    mu_new, _, exp_ok = tg.exp_map(a_rot, mean_new_t)
+    rot_new = tg.make_rotation(mu_new)
+    j2 = mm(mm(tg.log_jacobian(rot_new, mu_new), a_rot),
+            tg.exp_jacobian(mean_new_t))
+    cov_new = mm(mm(j2, cov_new_t), j2.transpose(-1, -2))
+    cov_new = 0.5 * (cov_new + cov_new.transpose(-1, -2))
+
+    # Pair weight: N(t_b; 0, A+B) times the Jacobian factor.
+    z_det = torch.sqrt(det.clamp_min(1e-38))
+    maha = (t_b * _matvec(inv_sum, t_b)).sum(-1)
+    s_ij = (INV_SQRT_TWO_PI ** 2) * torch.exp(-0.5 * maha) / z_det * aos
+    w = a.weight[..., :, None] * b.weight[..., None, :] * s_ij
+    w = torch.where(log_ok & exp_ok, w, 0.0)
+
+    flat = batch + (ka * kb,)
+    w = w.reshape(flat)
+    total = w.sum(-1)
+    valid = (total > 0.0) & torch.isfinite(total) & a.valid & b.valid
+    w = torch.where(valid[..., None],
+                    w / total[..., None].clamp_min(1e-38), 0.0)
+    alive = w > 0.0
+    chol, ok = chol2x2(torch.where(alive[..., None, None],
+                                   cov_new.reshape(flat + (2, 2)),
+                                   torch.eye(2, device=w.device)))
+    ok = ok & alive
+    w = torch.where(ok | ~alive, w, 0.0)
+    return Conditional(
+        weight=w, mu_dir=mu_new.reshape(flat + (3,)),
+        rot=rot_new.reshape(flat + (3, 3)), chol=chol,
+        inv_chol=inv_lower2x2(chol),
+        inv_det=1.0 / (chol[..., 0, 0] * chol[..., 1, 1]),
+        valid=valid,
+    )

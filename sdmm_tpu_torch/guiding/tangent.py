@@ -23,6 +23,13 @@ def _sinc(x: torch.Tensor) -> torch.Tensor:
     return torch.where(small, 1.0 - x * x / 6.0, torch.sin(safe) / safe)
 
 
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for small batched matrices, broadcast, as one elementwise
+    product and sum: on the card, matmul of millions of 2×2 and 3×3
+    matrices runs as batched GEMMs many times slower."""
+    return (a.unsqueeze(-1) * b.unsqueeze(-3)).sum(-2)
+
+
 def exp_map(rot: torch.Tensor, tangent: torch.Tensor):
     """Tangent coords [..., 2] → unit direction [..., 3].
     Returns (dir, sinc_jacobian, valid); valid = |t| < π."""
@@ -85,7 +92,7 @@ def log_jacobian(rot: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     row0 = torch.stack([aos, zeros, j02], -1)
     row1 = torch.stack([zeros, aos, j12], -1)
     j_np = torch.stack([row0, row1], dim=-2)  # [..., 2, 3]
-    return j_np @ rot.transpose(-1, -2)
+    return mm(j_np, rot.transpose(-1, -2))
 
 
 def make_rotation(mu_dir: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,13 @@ while recording training vertices, refit the spatial tree (split leaves at
 ≥ 4000 samples, ≤ 2048 leaves), add jittered cross-leaf replicas, then run
 batched stepwise EM over every trainable leaf. Training runs for the first
 ``train_fraction`` of the sample budget; the frozen-model tail renders on
-the same guided lane pool. Training iterations with
+the same guided lane pool. The options: a prioritized sample reservoir
+that the EM fits instead of one iteration's samples
+(``reservoir_capacity``), k-means++ spatial seeds for leaves that activate
+(``data_init``), the EM's result held aside and adopted at the top of the
+next iteration (``optimize_async``), learned-BSDF product sampling
+(``sample_product``), and a full checkpoint to resume a render from
+(``restore``, ``run(iters=)``). Training iterations with
 ``pooled_training=False``, and every iteration of an image above 2^20
 pixels, take the scan tracer ``trace_wave_guided`` over fixed waves of
 camera rays instead. Per-iteration images are combined by inverse
@@ -49,13 +55,17 @@ class TrainerConfig:
     em: em_mod.EMConfig = field(default_factory=em_mod.EMConfig)
     seed: int = 1234
     double_em_until: int = 4  # 2 EM inner steps in early iterations
-    sample_product: bool = False  # learned-BSDF product sampling: not ported
+    sample_product: bool = False  # learned-BSDF product sampling
     jitter_replicas: bool = True  # cross-leaf sample sharing: replicate
     # path-terminal and weight > 1000 samples into a neighbouring leaf
     saved_samples_per_path: int = 8  # record only the last N path vertices
-    data_init: bool = False  # k-means++ reseed: not ported
-    reservoir_capacity: int = 0  # sample reservoir: not ported
-    optimize_async: bool = False  # double-buffered EM: not ported
+    data_init: bool = False  # k-means++ reseed of the spatial means of a
+    # leaf when it first activates
+    reservoir_capacity: int = 0  # > 0: the EM fits a prioritized-replay
+    # reservoir of this many samples instead of one iteration's
+    per_decay: float = 0.5  # priority decay per iteration of stored samples
+    optimize_async: bool = False  # hold the EM's result aside and adopt it
+    # at the top of the next iteration, before that iteration renders
     sample_capacity: int = 2_000_000  # training-vertex buffer cap per
     # iteration; overflow samples are dropped
     pooled_training: bool = True  # collect training vertices on the lane
@@ -68,11 +78,6 @@ class TrainerConfig:
 
 
 SCAN_PIXELS = 1 << 20  # above it every iteration takes the scan tracer
-
-_UNPORTED = {
-    "sample_product": False, "data_init": False, "reservoir_capacity": 0,
-    "optimize_async": False,
-}
 
 
 def _seeded(device, *parts) -> torch.Generator:
@@ -90,9 +95,6 @@ class SDMMTrainer:
         self.cfg = c = cfg or TrainerConfig()
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported")
-        for name, default in _UNPORTED.items():
-            if getattr(c, name) != default:
-                raise NotImplementedError(f"TrainerConfig.{name} is not ported")
         if c.n_components != gso.K:
             raise NotImplementedError(
                 f"guided sampling is specialised to K = {gso.K} components")
@@ -124,6 +126,24 @@ class SDMMTrainer:
                                        self.device)
         self.initialized = torch.zeros(c.max_leaves, dtype=torch.bool,
                                        device=self.device)
+        self.cum_counts = np.zeros(c.max_leaves)
+        self.reseeded_leaves = 0  # leaves data_init reseeded, in all
+        self.learned = None
+        self.learned_seconds = 0.0
+        if c.sample_product:
+            from .learned_bsdf import build_learned_table
+
+            t0 = time.time()
+            self.learned = build_learned_table(self.scene, device=self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.learned_seconds = time.time() - t0
+        self.reservoir = None
+        if c.reservoir_capacity > 0:
+            from .reservoir import make_reservoir
+
+            self.reservoir = make_reservoir(c.reservoir_capacity,
+                                            self.device)
         self.iteration = 0
         self.total_spp = 0
         self.stats: list[dict] = []
@@ -163,6 +183,7 @@ class SDMMTrainer:
             inv_norm=1.0 / self.spatial_norm,
             kernel_table=gso.pack_guided_rows(
                 prep_c, sdmm_c.weight, self.initialized).T.contiguous(),
+            learned=self.learned,
         )
 
     def _apply_copies(self, copies):
@@ -357,7 +378,10 @@ class SDMMTrainer:
 
         # Jittered cross-leaf replicas: one for the path-terminal vertex,
         # one more for weight > 1000; a replica keeps the ORIGINAL position
-        # and direction, the jitter only picks the destination leaf.
+        # and direction, the jitter only picks the destination leaf. Its
+        # lookup position is the jittered one, so a leaf re-derived after a
+        # reservoir merge or a refit stays the destination.
+        lookup_pos = pos
         if c.jitter_replicas:
             if not sample_batches or "terminal" not in sample_batches[0]:
                 raise KeyError("jitter_replicas requires a 'terminal' field "
@@ -374,28 +398,46 @@ class SDMMTrainer:
             rcap1 = 8192
             while rcap1 < n_mask1:
                 rcap1 *= 2
-            parts = {"pos": [pos], "d": [d], "w": [wgt], "leaf": [leaf],
-                     "v": [valid]}
+            parts = {"pos": [pos], "lk": [lookup_pos], "d": [d], "w": [wgt],
+                     "leaf": [leaf], "v": [valid]}
             for r, rcap in ((0, rcap0), (1, rcap1)):
                 gen = _seeded(dev, c.seed ^ 0x9E37, self.iteration, r)
                 mask = valid & (n_rep > r)
                 filled, (cpos, cd, cw, cleaf, cdiag) = self._compact(
                     mask, rcap, pos, d, wgt, leaf, diag)
-                leaf_r, _ = self._dest_leaf(gen, cpos, cleaf, cdiag)
+                leaf_r, pos_r = self._dest_leaf(gen, cpos, cleaf, cdiag)
                 keep = filled & (leaf_r != cleaf)
                 parts["pos"].append(torch.where(keep[:, None], cpos, 0.5))
+                parts["lk"].append(torch.where(keep[:, None], pos_r, 0.5))
                 parts["d"].append(cd)
                 parts["w"].append(torch.where(keep, cw, -1.0))
                 parts["leaf"].append(torch.where(keep, leaf_r, 0))
                 parts["v"].append(keep)
             pos = torch.cat(parts["pos"])
+            lookup_pos = torch.cat(parts["lk"])
             d = torch.cat(parts["d"])
             wgt = torch.cat(parts["w"])
             leaf = torch.cat(parts["leaf"])
             valid = torch.cat(parts["v"])
 
+        # Prioritized replay: merge into the fixed-capacity reservoir and fit
+        # the EM on its decayed, roulette-thinned contents.
+        if self.reservoir is not None:
+            from .reservoir import reservoir_update
+
+            self.reservoir = reservoir_update(
+                self.reservoir, pos, d, wgt, valid,
+                _seeded(dev, c.seed ^ 0x51ED, self.iteration),
+                c.reservoir_capacity, c.per_decay, lookup_pos=lookup_pos)
+            pos = self.reservoir["pos"]
+            d = self.reservoir["dir"]
+            wgt = self.reservoir["weight"]
+            valid = self.reservoir["valid"]
+            leaf = find_leaf(self.tables, self.reservoir["lookup_pos"]).long()
+
         counts_dev = torch.zeros(L, dtype=torch.int32, device=dev).index_add_(
             0, leaf, valid.to(torch.int32))
+        self.cum_counts[:] = self.tree.leaf_counts[:L]
         # canBeOptimized gate.
         active = (
             (counts_dev >= 8)
@@ -403,6 +445,16 @@ class SDMMTrainer:
                                device=dev) >= 64.0)
             & ((self.total_spp > 12) | (counts_dev > 1000))
         )
+        # k-means++ spatial seeds for leaves activating for the first time.
+        if c.data_init:
+            newly = active & ~self.initialized
+            if bool(newly.any()):
+                centers, has = init_mod.kmeanspp_centers(
+                    _seeded(dev, c.seed ^ 0x4B4D, self.iteration), pos, leaf,
+                    valid, L, n_centers=2)
+                self.sdmm = init_mod.reseed_spatial_means(
+                    self.sdmm, centers, newly & has, n_spatial=2)
+                self.reseeded_leaves += int((newly & has).sum())
         n_inner = 2 if self.iteration < c.double_em_until else 1
         leaf_ext = self.tables["leaf_hi"] - self.tables["leaf_lo"]
         for _ in range(n_inner):
@@ -414,22 +466,62 @@ class SDMMTrainer:
         self._bump_model_version()
         return int(active.sum())
 
-    def run(self, total_spp: int, verbose: bool = False, on_iteration=None):
+    def restore(self, path: str):
+        """Resume from a full checkpoint (io.save_full_checkpoint, either
+        package's). Every random draw of ``run`` and ``optimize`` is
+        seeded from the iteration index, so the continued run matches an
+        uninterrupted one. Returns the restored per-iteration films to pass
+        to ``run(iters=...)``."""
+        from . import io as gio
+
+        state, iters = gio.load_full_checkpoint(path, self.device)
+        self.tree = state["tree"]
+        self.tables = self.tree.device_tables(self.device)
+        self.sdmm = state["sdmm"]
+        self.em = state["em"]
+        self.prep = mix.prepare(self.sdmm)
+        self.initialized = state["initialized"]
+        self.cum_counts = state["cum_counts"]
+        self.iteration = state["iteration"]
+        self.total_spp = state["total_spp"]
+        self.stats = list(state["stats"])
+        self._bump_model_version()
+        return iters
+
+    def run(self, total_spp: int, verbose: bool = False, on_iteration=None,
+            iters=None):
         """Full training render; returns (combined image [H, W, 3],
-        per-iteration films)."""
+        per-iteration films). ``iters``: the films of the iterations
+        already rendered (a resumed run)."""
         c = self.cfg
-        iters = []
+        iters = list(iters) if iters else []
+        pending = None  # optimize_async: the (sdmm, em, prep, initialized)
+        # of the last EM, adopted at the top of the next iteration
         while self.total_spp < total_spp:
             t0 = time.time()
             still_training = self.total_spp < total_spp * c.train_fraction
             spp_iter = c.samples_per_iteration
             if not still_training and c.tail_chunk_spp > 0:
                 spp_iter = min(c.tail_chunk_spp, total_spp - self.total_spp)
+            if pending is not None:
+                self.sdmm, self.em, self.prep, self.initialized = pending
+                self._bump_model_version()
+                pending = None
             image, sqr, weight, batches = self.render_iteration(
                 collect=still_training, spp=spp_iter)
             t_render = time.time() - t0
             t0 = time.time()
-            n_opt = self.optimize(batches) if still_training and batches else 0
+            n_opt = 0
+            if still_training and batches:
+                if c.optimize_async:
+                    old = (self.sdmm, self.em, self.prep, self.initialized)
+                    n_opt = self.optimize(batches)
+                    pending = (self.sdmm, self.em, self.prep,
+                               self.initialized)
+                    self.sdmm, self.em, self.prep, self.initialized = old
+                    self._bump_model_version()
+                else:
+                    n_opt = self.optimize(batches)
             t_train = time.time() - t0
             iters.append({"image": image.cpu().numpy(),
                           "sqr": sqr.cpu().numpy(),

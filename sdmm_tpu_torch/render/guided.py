@@ -2,7 +2,7 @@
 collection: the regenerating lane pool (port of sdmm_tpu/render/guided.py
 ``GuideState``, ``canonical``, ``trace_wave_guided``,
 ``render_pool_guided``, ``_finalize_collect``, ``guided_fused_supported``
-and ``render_pool_guided_fused``, without learned-BSDF products).
+and ``render_pool_guided_fused``).
 
 Every pool step traces one bounce for all lanes; dead lanes restart on the
 next camera sample of a global counter until ``spp`` samples per pixel are
@@ -24,6 +24,12 @@ one step per bounce, whose training vertices' incident radiance comes from
 a backward recursion over the steps; the trainer takes it for
 ``pooled_training=False`` and above 2^20 pixels. It samples through the
 same kernel and carries media and the dipole exitance as the pool does.
+With a learned-BSDF table in the guide state (``GuideState.learned``) both
+take the reference's product route instead of the kernel: every lane
+conditions its leaf's mixture (``create_conditional``) and draws from it
+with explicit uniforms, and lanes whose BSDF has a learned mixture draw
+from the product of the two (``mixture.product``, h = 0.3), with the
+product's pdf in the MIS.
 ``render_pool_guided_fused`` is the frozen-model pool on the fused
 ``ops.guided_step`` kernels (trace + shade). NEE is compiled out (MIS weight
 1 on emitter hits), as in the reference package's guided path.
@@ -40,6 +46,7 @@ from ..core.device import resolve_device
 from ..core.frame import to_local, to_world
 from ..guiding import mixture as mix
 from ..guiding import stree
+from ..guiding.learned_bsdf import PRODUCT_TOP_K, to_world_conditional
 from ..ops import bounce as bo
 from ..ops import guided_sample as gso
 from ..ops import guided_step as gst
@@ -55,8 +62,9 @@ PDF_CLAMP = 0.1  # one-sample MIS pdf clamp of the recorded training weights
 
 
 class GuideState(NamedTuple):
-    """Device-side guiding cache: mixtures, leaf tables and the packed
-    [L, 353] conditioning table the guided-sampling kernel reads."""
+    """Device-side guiding cache: mixtures, leaf tables, the packed
+    [L, 353] conditioning table the guided-sampling kernel reads and the
+    learned-BSDF table of product sampling (None: no product)."""
 
     sdmm: mix.SDMM  # [L, K]
     prep: mix.Prepared
@@ -65,6 +73,7 @@ class GuideState(NamedTuple):
     aabb_lo: torch.Tensor  # [3] world-space scene AABB min
     inv_norm: float  # 1 / spatial normalization
     kernel_table: torch.Tensor  # [L, 353] (pack_guided_rows(...).T)
+    learned: dict | None = None  # learned_bsdf.build_learned_table
 
     def to(self, device) -> "GuideState":
         def mv(x):
@@ -77,12 +86,49 @@ class GuideState(NamedTuple):
             tables={k: mv(v) for k, v in self.tables.items()},
             aabb_lo=mv(self.aabb_lo), inv_norm=self.inv_norm,
             kernel_table=mv(self.kernel_table),
+            learned=None if self.learned is None
+            else {k: mv(v) for k, v in self.learned.items()},
         )
 
 
 def canonical(gs: GuideState, p: torch.Tensor) -> torch.Tensor:
     """World position → canonical guiding coordinates."""
     return (p - gs.aabb_lo) * gs.inv_norm
+
+
+def _learned_sampler(gs: GuideState, packed, leaf, c_pos, it, frame,
+                     wi_local, delta_only, ug, up, bsdf_fraction):
+    """Guided sampling with learned-BSDF products (the reference's route,
+    no kernel): condition the leaf mixtures on ``c_pos``, draw from them
+    with the uniforms ``ug`` [N, 3] and, on lanes whose BSDF has a learned
+    mixture, from the product with its top-2 pruned conditional with
+    ``up`` [N, 3]. Returns (d_guide, g_ok, guide_ok, guide_valid, h,
+    use_product, pdf) where pdf(wo_world) is the guided pdf of the MIS."""
+    weight_g, prep_g, use_guide = mix.unpack_conditioning(
+        packed[leaf.long()], gs.sdmm.weight.shape[-1])
+    cond = mix.create_conditional(prep_g, weight_g, c_pos)
+    guide_valid = use_guide & cond.valid
+    guide_ok = guide_valid & ~delta_only
+    learned_cond, has_dmm = to_world_conditional(
+        gs.learned, it["bsdf"], *frame, wi_local)
+    prod = mix.product(cond, mix.prune_conditional(learned_cond,
+                                                   PRODUCT_TOP_K))
+    use_product = guide_ok & has_dmm & prod.valid
+    h = torch.where(guide_ok, bsdf_fraction, 1.0)
+    h = torch.where(use_product, 0.3, h)
+    d_guide, g_ok = mix.conditional_sample_from_uniforms(cond, ug[:, 0],
+                                                         ug[:, 1:3])
+    d_prod, p_ok = mix.conditional_sample_from_uniforms(prod, up[:, 0],
+                                                        up[:, 1:3])
+    d_guide = torch.where(use_product[:, None], d_prod, d_guide)
+    g_ok = torch.where(use_product, p_ok, g_ok)
+
+    def pdf(wo_world):
+        return torch.where(guide_ok, torch.where(
+            use_product, mix.conditional_pdf(prod, wo_world),
+            mix.conditional_pdf(cond, wo_world)), 0.0)
+
+    return d_guide, g_ok, guide_ok, guide_valid, h, use_product, pdf
 
 
 def trace_wave_guided(
@@ -114,7 +160,11 @@ def trace_wave_guided(
     ``saved_samples_per_path`` valid vertices are kept."""
     n = ro.shape[0]
     dev = ro.device
-    if sample_table is None:
+    learned = gs.learned is not None
+    if learned:
+        packed = mix.pack_conditioning(gs.prep, gs.sdmm.weight,
+                                       gs.initialized)
+    elif sample_table is None:
         sample_table = gso.pack_sample_table(gs.kernel_table)
     thr = torch.ones((n, 3), device=dev)
     eta_sq = torch.ones(n, device=dev)
@@ -128,6 +178,8 @@ def trace_wave_guided(
         rnd = torch.rand((n, 14), generator=generator, device=dev)
         u_sel, u1, u2, u0 = rnd[:, 0], rnd[:, 1], rnd[:, 2:4], rnd[:, 4]
         ug, u_rr, u_m, u_ph = rnd[:, 5:8], rnd[:, 8], rnd[:, 9], rnd[:, 10:12]
+        if learned:
+            up = torch.rand((n, 3), generator=generator, device=dev)
 
         hit = intersect(scene, ro, rd)
         it = surface_interaction(scene, ro, rd, hit)
@@ -170,18 +222,27 @@ def trace_wave_guided(
         bs = bsdf_mod.sample_full(params, wi_local, u0, u1, u2,
                                   types=bsdf_types)
         wo_bsdf_world = to_world(s_ax, t_ax, n_ax, bs["wo"])
-        d_guide, g_ok, pdf_g, pdf_b, guide_valid = gso.guided_sample(
-            sample_table, leaf, c_pos.contiguous(),
-            wo_bsdf_world.contiguous(), ug.contiguous())
-        guide_ok = guide_valid & ~delta_only
-        h = torch.where(guide_ok, bsdf_fraction, 1.0)
-        take_bsdf = (u_sel < h) | ~guide_ok
-        gmm_pdf = torch.where(guide_ok, torch.where(take_bsdf, pdf_b, pdf_g),
-                              0.0)
+        if learned:
+            d_guide, g_ok, guide_ok, guide_valid, h, _, pdf_fn = \
+                _learned_sampler(gs, packed, leaf, c_pos, it,
+                                 (s_ax, t_ax, n_ax), wi_local, delta_only,
+                                 ug, up, bsdf_fraction)
+            take_bsdf = (u_sel < h) | ~guide_ok
+        else:
+            d_guide, g_ok, pdf_g, pdf_b, guide_valid = gso.guided_sample(
+                sample_table, leaf, c_pos.contiguous(),
+                wo_bsdf_world.contiguous(), ug.contiguous())
+            guide_ok = guide_valid & ~delta_only
+            h = torch.where(guide_ok, bsdf_fraction, 1.0)
+            take_bsdf = (u_sel < h) | ~guide_ok
+            gmm_pdf = torch.where(guide_ok, torch.where(take_bsdf, pdf_b,
+                                                        pdf_g), 0.0)
         tb = take_bsdf[:, None]
         wo_local = torch.where(tb, bs["wo"], to_local(s_ax, t_ax, n_ax,
                                                       d_guide))
         wo_world = torch.where(tb, wo_bsdf_world, d_guide)
+        if learned:
+            gmm_pdf = pdf_fn(wo_world)
         sampled_delta = take_bsdf & bs["delta"]
         f_eval, bsdf_pdf_eval = bsdf_mod.eval_pdf_full(
             params, wi_local, wo_local, types=bsdf_types)
@@ -288,7 +349,8 @@ def render_pool_guided(
     grid densities); ``has_sss`` adds the baked dipole exitance.
 
     Returns dict(image, sqr [n_pix, 3], weight [n_pix], n_vertices, steps,
-    n_cond_try, n_cond_ok). With ``collect_cap`` > 0 it also records
+    n_cond_try, n_cond_ok, n_product: the image vertices that sampled by
+    the learned-BSDF product). With ``collect_cap`` > 0 it also records
     training vertices: each recorded vertex is emitted at once with its
     canonical position, direction, clamped pdf, post-vertex throughput and a
     snapshot of the path radiance so far; each path logs its final training
@@ -304,7 +366,12 @@ def render_pool_guided(
     dev = resolve_device(device)
     scene = scene_to(scene, dev)
     gs = gs.to(dev)
-    sample_table = gso.pack_sample_table(gs.kernel_table)
+    learned = gs.learned is not None
+    if learned:
+        packed = mix.pack_conditioning(gs.prep, gs.sdmm.weight,
+                                       gs.initialized)
+    else:
+        sample_table = gso.pack_sample_table(gs.kernel_table)
     collect = collect_cap > 0
     extra = 1 if collect else 0
     n_pix = width * height
@@ -330,6 +397,7 @@ def render_pool_guided(
     n_vert = zeros(dtype=torch.int64)
     n_cond_try = zeros(dtype=torch.int64)
     n_cond_ok = zeros(dtype=torch.int64)
+    n_product = zeros(dtype=torch.int64)
     if collect:
         lt = zeros(N, 3)
         path_id = zeros(N, dtype=torch.int64)
@@ -347,6 +415,8 @@ def render_pool_guided(
         u2, u0, ug, u_rr = rnd[:, 4:6], rnd[:, 6], rnd[:, 7:10], rnd[:, 10]
         if has_medium:
             rnd_m = torch.rand((N, 3), generator=generator, device=dev)
+        if learned:
+            up = torch.rand((N, 3), generator=generator, device=dev)
 
         # --- Regenerate dead lanes from the global sample counter ---
         need = ~alive & ~exhausted
@@ -421,14 +491,22 @@ def render_pool_guided(
                                   types=bsdf_types)
         wo_bsdf_world = to_world(s_ax, t_ax, n_ax, bs["wo"])
 
-        d_guide, g_ok, pdf_g, pdf_b, guide_valid = gso.guided_sample(
-            sample_table, leaf, c_pos.contiguous(),
-            wo_bsdf_world.contiguous(), ug.contiguous())
-        guide_ok = guide_valid & ~delta_only
-        take_bsdf = (u_sel < torch.where(guide_ok, bsdf_fraction, 1.0)) \
-            | ~guide_ok
-        gmm_pdf = torch.where(guide_ok, torch.where(take_bsdf, pdf_b, pdf_g),
-                              0.0)
+        if learned:
+            d_guide, g_ok, guide_ok, guide_valid, h, use_product, pdf_fn = \
+                _learned_sampler(gs, packed, leaf, c_pos, it,
+                                 (s_ax, t_ax, n_ax), wi_local, delta_only,
+                                 ug, up, bsdf_fraction)
+            take_bsdf = (u_sel < h) | ~guide_ok
+            n_product = n_product + (on_surface & in_img & use_product).sum()
+        else:
+            d_guide, g_ok, pdf_g, pdf_b, guide_valid = gso.guided_sample(
+                sample_table, leaf, c_pos.contiguous(),
+                wo_bsdf_world.contiguous(), ug.contiguous())
+            guide_ok = guide_valid & ~delta_only
+            h = torch.where(guide_ok, bsdf_fraction, 1.0)
+            take_bsdf = (u_sel < h) | ~guide_ok
+            gmm_pdf = torch.where(guide_ok, torch.where(take_bsdf, pdf_b,
+                                                        pdf_g), 0.0)
         # Valid-conditional counter as the reference's mixture path counts
         # it: tries are lanes on an initialized leaf, successes those with a
         # valid conditional (guide_valid folds in the initialized flag).
@@ -437,11 +515,12 @@ def render_pool_guided(
         n_cond_try = n_cond_try + cond_try.sum()
         n_cond_ok = n_cond_ok + (cond_try & guide_valid).sum()
 
-        h = torch.where(guide_ok, bsdf_fraction, 1.0)
         wo_guide_local = to_local(s_ax, t_ax, n_ax, d_guide)
         tb = take_bsdf[:, None]
         wo_local = torch.where(tb, bs["wo"], wo_guide_local)
         wo_world = torch.where(tb, wo_bsdf_world, d_guide)
+        if learned:
+            gmm_pdf = pdf_fn(wo_world)
         sampled_delta = take_bsdf & bs["delta"]
 
         f_eval, bsdf_pdf_eval = bsdf_mod.eval_pdf_full(
@@ -524,6 +603,7 @@ def render_pool_guided(
         "steps": steps,
         "n_cond_try": n_cond_try,
         "n_cond_ok": n_cond_ok,
+        "n_product": n_product,
     }
     if collect:
         out["samples"] = _finalize_collect(
@@ -582,10 +662,11 @@ def guided_fused_supported(scene, cfg, gs: GuideState) -> bool:
     BSDF types only, no bump map, a triangle table within MAX_TRIS, no env
     map, no delta light, no texture, no medium, no subsurface scattering
     and a pixel index that fits the meta word (the terms of
-    ``render.wavefront.fused_supported`` but NEE's). The port's guide state
-    holds no learned BSDF, the reference gate's other term."""
+    ``render.wavefront.fused_supported`` but NEE's), and no learned-BSDF
+    table (product sampling takes the eager pool)."""
     return bool(
         gs.kernel_table is not None
+        and gs.learned is None
         and len(cfg.bsdf_types) > 0
         and all(t in bo.SUPPORTED_TYPES for t in cfg.bsdf_types)
         and not cfg.has_bump

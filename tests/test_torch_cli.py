@@ -2,9 +2,10 @@
 and a few spp: ``render`` writes the image (EXR, or .npy), stats.json in
 the reference's schema and, for sdmm, checkpoints/model_NNNNN.asdmm, and the
 image equals what render_wavefront or SDMMTrainer(...).run gives on the same
-loaded scene and seed; ``compare`` prints all_metrics' keys; every option
-the port does not hold yet raises NotImplementedError naming its ROADMAP
-item."""
+loaded scene and seed (ppg, sdmm with the reservoir or the asynchronous
+EM, a render checkpointed and resumed); ``compare`` prints all_metrics'
+keys; every option the port does not hold yet raises NotImplementedError
+naming its ROADMAP item."""
 
 import json
 import os
@@ -143,12 +144,9 @@ def test_compare_prints_all_metrics(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--integrator", "ppg"], "A10"),
     (["--integrator", "bdpt"], "A12"),
     (["--integrator", "direct"], "A12"),
     (["--integrator", "pssmlt"], "A12"),
-    (["--integrator", "sdmm", "--resume", "full.npz"], "A10"),
-    (["--integrator", "sdmm", "--checkpoint", "full.npz"], "A10"),
 ])
 def test_unported_options_raise(tmp_path, extra, item):
     path = tmp_path / "box.xml"
@@ -195,10 +193,58 @@ def test_samplers_and_rfilters_render(tmp_path, extra, monkeypatch):
     assert np.isfinite(np.load(tmp_path / "x.npy")).all()
 
 
-def test_unported_trainer_options_raise(box, tmp_path):
-    with pytest.raises(NotImplementedError):
-        _render(box, tmp_path / "x.exr", "--integrator", "sdmm",
-                "-D", "reservoirCapacity=64")
+def test_render_ppg(box, tmp_path):
+    """--integrator ppg: PPGTrainer's budget-doubling render (1 + 2 + 1
+    spp), stats.json its per-iteration stats."""
+    from sdmm_tpu_torch.guiding.ppg import PPGConfig, PPGTrainer
+
+    out = tmp_path / "ppg" / "img.npy"
+    _render(box, out, "--integrator", "ppg", "--spp", "4")
+    scene, cfg = load_scene(box).build(device="cpu")
+    tr = PPGTrainer(scene, cfg, PPGConfig(seed=77), device="cpu")
+    want, iters = tr.run(total_spp=4)
+    assert [it["spp"] for it in iters] == [1, 2, 1]
+    np.testing.assert_array_equal(np.load(out), want)
+    stats = json.loads((out.parent / "stats.json").read_text())
+    assert [{k: v for k, v in st.items() if k != "seconds"} for st in stats] \
+        == [{k: v for k, v in st.items() if k != "seconds"}
+            for st in tr.stats]
+
+
+@pytest.mark.parametrize("define,option", [
+    ("reservoirCapacity=64", {"reservoir_capacity": 64}),
+    ("optimizeAsync=true", {"optimize_async": True})],
+    ids=["reservoir", "async"])
+def test_render_sdmm_options(box, tmp_path, define, option):
+    """-D reservoirCapacity and -D optimizeAsync reach TrainerConfig: the
+    image equals SDMMTrainer's with the option."""
+    out = tmp_path / "opt" / "img.npy"
+    _render(box, out, "--integrator", "sdmm", "--spp", "8", "-D", define)
+    scene, cfg = load_scene(box).build(device="cpu")
+    tr = SDMMTrainer(scene, cfg, TrainerConfig(seed=77, **option),
+                     device="cpu")
+    want, _ = tr.run(total_spp=8)
+    np.testing.assert_array_equal(np.load(out), want)
+    if tr.reservoir is not None:
+        assert int(tr.reservoir["valid"].sum()) > 0
+
+
+def test_checkpoint_then_resume(box, tmp_path):
+    """--checkpoint writes a full checkpoint at 4 spp; --resume continues
+    it to 8 spp; the image equals the uninterrupted 8-spp render."""
+    ck = tmp_path / "full.npz"
+    _render(box, tmp_path / "a" / "img.npy", "--integrator", "sdmm", "--spp",
+            "4", "--checkpoint", str(ck))
+    assert ck.exists()
+    out = tmp_path / "b" / "img.npy"
+    _render(box, out, "--integrator", "sdmm", "--spp", "8", "--resume",
+            str(ck))
+    scene, cfg = load_scene(box).build(device="cpu")
+    tr = SDMMTrainer(scene, cfg, TrainerConfig(seed=77), device="cpu")
+    want, _ = tr.run(total_spp=8)
+    np.testing.assert_array_equal(np.load(out), want)
+    stats = json.loads((out.parent / "stats.json").read_text())
+    assert [st["iteration"] for st in stats] == [0, 1]
 
 
 def test_module_entry_point(box, tmp_path):

@@ -772,3 +772,63 @@ def test_intersect_wrappers_reject_bad_inputs(cuda):
         with pytest.raises(ValueError):  # a counter that is not int64 [1]
             fn(ro, rd, tm, tree, slot, ids,
                tests=torch.zeros(1, dtype=torch.int32, device=cuda))
+
+
+def test_product_pool_on_the_card_matches_the_cpu(cuda):
+    """The guided pool with a learned-BSDF table (product lanes, no
+    guided_sample launch) on the four-type box: the card's film mean within
+    4 standard errors of the CPU's on the same trained guide state."""
+    from torch_parity import film_mean_se, within_se
+
+    from sdmm_tpu_torch.guiding import em as tem
+    from sdmm_tpu_torch.guiding import trainer as ttrainer
+    from sdmm_tpu_torch.render import guided as tguided
+
+    scene, cfg = make_box(tscene, tshapes, 32, 32, extra_bsdfs=True).build(
+        device="cpu")
+    cfg.max_depth = cfg.rr_depth = 5
+    tr = ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(
+        max_leaves=64, split_threshold=2000, train_fraction=1.0,
+        sample_product=True, em=tem.EMConfig(batch_size=1024), seed=4),
+        device="cpu")
+    tr.run(total_spp=20)
+    assert int(tr.initialized.sum()) > 0
+    gs = tr.guide_state()
+    before = gso.guided_sample.launches
+    stats = {}
+    for dev in ("cpu", "cuda"):
+        out = tguided.render_pool_guided(
+            scene, gs, torch.Generator(device=dev).manual_seed(3),
+            n_lanes=8192, spp=16, width=32, height=32, max_depth=5,
+            rr_depth=5, bsdf_types=cfg.bsdf_types or None, device=dev)
+        assert int(out["n_product"]) > 0
+        stats[dev] = film_mean_se(*(out[k].cpu().numpy()
+                                    for k in ("image", "sqr", "weight")))
+    assert gso.guided_sample.launches == before
+    assert within_se(stats["cuda"], stats["cpu"]), stats
+
+
+def test_reservoir_update_on_the_card_equals_the_cpu(cuda):
+    """reservoir_update on CUDA tensors equals the CPU's on the same batch
+    and uniforms (the compaction's stable sort included)."""
+    from sdmm_tpu_torch.guiding import reservoir as tres
+
+    rs = np.random.RandomState(0)
+    cap, n = 4096, 6000
+    res = {d: tres.make_reservoir(cap, d) for d in ("cpu", "cuda")}
+    for step in range(3):
+        pos = rs.rand(n, 3).astype(np.float32)
+        d = rs.randn(n, 3).astype(np.float32)
+        w = (rs.rand(n) * 5).astype(np.float32)
+        valid = rs.rand(n) < 0.9
+        u = rs.rand(cap + n).astype(np.float32)
+        for dev in res:
+            t = [torch.as_tensor(a, device=dev) for a in (pos, d, w, valid,
+                                                         u)]
+            res[dev] = tres.reservoir_update(res[dev], *t, cap, 0.5)
+        for k, v in res["cpu"].items():
+            got = res["cuda"][k].cpu()
+            if v.dtype == torch.bool:
+                assert torch.equal(got, v), k
+            else:
+                torch.testing.assert_close(got, v, rtol=1e-6, atol=1e-7)

@@ -195,15 +195,68 @@ def test_unported_path_options_raise():
     assert rec["delta"].any() and (~rec["delta"]).any()
 
 
-@pytest.mark.parametrize("option", [
-    {"sample_product": True}, {"data_init": True}, {"reservoir_capacity": 64},
-    {"optimize_async": True}, {"n_components": 4},
-    {"n_components": 8}])
+@pytest.mark.parametrize("option", [{"n_components": 4},
+                                    {"n_components": 8}])
 def test_unported_options_raise(option):
     scene, cfg = _scene()
     with pytest.raises(NotImplementedError):
         ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(**option),
                              device="cpu")
+
+
+EXTRAS = [{"sample_product": True}, {"data_init": True},
+          {"reservoir_capacity": 64}, {"optimize_async": True}]
+
+
+@pytest.mark.parametrize("option", EXTRAS, ids=lambda o: next(iter(o)))
+def test_trainer_options_construct_on_the_cpu(option):
+    """Each guiding extra constructs on the CPU with its state there: the
+    learned table, the reservoir; data_init and optimize_async hold
+    none."""
+    scene, cfg = _scene()
+    tr = ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(
+        max_leaves=8, **option), device="cpu")
+    if "sample_product" in option:
+        assert tr.learned["has"].device.type == "cpu"
+        assert tr.guide_state().learned is tr.learned
+    else:
+        assert tr.learned is None and tr.guide_state().learned is None
+    if "reservoir_capacity" in option:
+        assert tr.reservoir["pos"].shape == (64, 3)
+        assert tr.reservoir["valid"].device.type == "cpu"
+    else:
+        assert tr.reservoir is None
+
+
+@pytest.mark.parametrize("option", EXTRAS, ids=lambda o: next(iter(o)))
+def test_trainer_options_default_to_the_card(no_gpu, option):
+    scene, cfg = _scene()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(
+            max_leaves=8, **option))
+
+
+def test_guiding_extras_default_to_the_card(no_gpu, tmp_path):
+    """PPGTrainer, the learned table, the reservoir and the checkpoint
+    loaders run on the card unless the caller passes device="cpu"."""
+    from sdmm_tpu_torch.guiding import io as tio
+    from sdmm_tpu_torch.guiding import learned_bsdf, ppg, reservoir
+
+    scene, cfg = _scene()
+    tr = ttrainer.SDMMTrainer(scene, cfg,
+                              ttrainer.TrainerConfig(max_leaves=8),
+                              device="cpu")
+    tio.save_full_checkpoint(str(tmp_path / "c.npz"), tr, [])
+    tio.save_bsdf_mixture(str(tmp_path / "m.sdmm"), [1.0], [[0, 0, 1.0]],
+                          [[[1.0, 0], [0, 1.0]]])
+    for call in (lambda: ppg.PPGTrainer(scene, cfg),
+                 lambda: learned_bsdf.build_learned_table(scene),
+                 lambda: reservoir.make_reservoir(16),
+                 lambda: tio.load_full_checkpoint(str(tmp_path / "c.npz")),
+                 lambda: tio.load_bsdf_mixture(str(tmp_path / "m.sdmm"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert ppg.PPGTrainer(scene, cfg, device="cpu").hist.device.type == "cpu"
 
 
 def test_unported_scene_features_raise():
