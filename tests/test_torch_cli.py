@@ -211,37 +211,42 @@ def test_render_ppg(box, tmp_path):
             for st in tr.stats]
 
 
-@pytest.mark.parametrize("define,option", [
-    ("reservoirCapacity=64", {"reservoir_capacity": 64}),
-    ("optimizeAsync=true", {"optimize_async": True})],
+@pytest.mark.parametrize("define,option,spp", [
+    ("reservoirCapacity=64", {"reservoir_capacity": 64}, 4),
+    ("optimizeAsync=true", {"optimize_async": True}, 8)],
     ids=["reservoir", "async"])
-def test_render_sdmm_options(box, tmp_path, define, option):
+def test_render_sdmm_options(box, tmp_path, define, option, spp):
     """-D reservoirCapacity and -D optimizeAsync reach TrainerConfig: the
-    image equals SDMMTrainer's with the option."""
+    image equals SDMMTrainer's with the option (the reservoir fills in the
+    first iteration's optimize; the async EM is adopted in the second)."""
     out = tmp_path / "opt" / "img.npy"
-    _render(box, out, "--integrator", "sdmm", "--spp", "8", "-D", define)
+    _render(box, out, "--integrator", "sdmm", "--spp", str(spp), "-D",
+            define)
     scene, cfg = load_scene(box).build(device="cpu")
     tr = SDMMTrainer(scene, cfg, TrainerConfig(seed=77, **option),
                      device="cpu")
-    want, _ = tr.run(total_spp=8)
+    want, _ = tr.run(total_spp=spp)
     np.testing.assert_array_equal(np.load(out), want)
     if tr.reservoir is not None:
         assert int(tr.reservoir["valid"].sum()) > 0
 
 
 def test_checkpoint_then_resume(box, tmp_path):
-    """--checkpoint writes a full checkpoint at 4 spp; --resume continues
-    it to 8 spp; the image equals the uninterrupted 8-spp render."""
+    """--checkpoint writes a full checkpoint at 2 spp (2 spp an
+    iteration); --resume continues it to 4 spp; the image equals the
+    uninterrupted 4-spp render (both train in the first iteration only)."""
     ck = tmp_path / "full.npz"
-    _render(box, tmp_path / "a" / "img.npy", "--integrator", "sdmm", "--spp",
-            "4", "--checkpoint", str(ck))
+    spi = ["--integrator", "sdmm", "--samples-per-iteration", "2"]
+    _render(box, tmp_path / "a" / "img.npy", *spi, "--spp", "2",
+            "--checkpoint", str(ck))
     assert ck.exists()
     out = tmp_path / "b" / "img.npy"
-    _render(box, out, "--integrator", "sdmm", "--spp", "8", "--resume",
-            str(ck))
+    _render(box, out, *spi, "--spp", "4", "--resume", str(ck))
     scene, cfg = load_scene(box).build(device="cpu")
-    tr = SDMMTrainer(scene, cfg, TrainerConfig(seed=77), device="cpu")
-    want, _ = tr.run(total_spp=8)
+    tr = SDMMTrainer(scene, cfg, TrainerConfig(seed=77,
+                                               samples_per_iteration=2),
+                     device="cpu")
+    want, _ = tr.run(total_spp=4)
     np.testing.assert_array_equal(np.load(out), want)
     stats = json.loads((out.parent / "stats.json").read_text())
     assert [st["iteration"] for st in stats] == [0, 1]
