@@ -1577,11 +1577,12 @@ def _digits(values):
                     for x in np.asarray(values, np.float64).ravel())
 
 
-def write_cornell_xml(path, width, height, spp, obj=None):
+def write_cornell_xml(path, width, height, spp, obj=None, blocks=True):
     """cornell_box(width, height) as a scene file, each toWorld and the
     camera a 17-digit <matrix>, so that the loaded triangles equal the
     programmatic ones; ``obj`` adds a grey diffuse OBJ shape (the spheres of
-    cornell_box's ``spheres``)."""
+    cornell_box's ``spheres``); ``blocks=False`` leaves the two blocks
+    out."""
     parts = [
         '<scene version="0.6.0">',
         '  <integrator type="volpath"><integer name="maxDepth" value="10"/>'
@@ -1600,7 +1601,8 @@ def write_cornell_xml(path, width, height, spp, obj=None):
                      f'name="reflectance" value="{_digits(albedo)}"/></bsdf>')
     shapes = [("rectangle", tw, name, emissive)
               for tw, name, emissive in cornell_rects()]
-    shapes += [("cube", tw, "white", False) for tw in cornell_blocks()]
+    if blocks:
+        shapes += [("cube", tw, "white", False) for tw in cornell_blocks()]
     for kind, tw, name, emissive in shapes:
         light = (f'<emitter type="area"><rgb name="radiance" value="'
                  f'{_digits(CORNELL_RADIANCE)}"/></emitter>'
@@ -2667,6 +2669,451 @@ def phase_guiding_extras(dev, smi, width=640, height=360):
     sec["phase"] = time.time() - t_phase
     print("guiding_extras:", json.dumps(report), flush=True)
 
+# Phase 12's scene G: where the cloth, the hair tuft and the animated cube
+# sit, and the cube's keyframed translation (time 0 to 1).
+CLOTH_TO_WORLD = compose([0.35, 1.25, -0.98], [0.3, 0.3, 1.0])
+HAIR_BOX = ((-0.75, -0.15), (1.15, 1.55), (-0.2, 0.4))  # x, top y, z
+# make_cube winds its +y and -y faces inward, as the reference's does: the
+# camera (at height 1) sees neither face of a cube centred at its height.
+CUBE_AT = [0.55, 1.0, 0.45]
+CUBE_SCALE = 0.1
+CUBE_MOVE = [0.12, 0.05, 0.0]
+
+
+def write_hair(path, n_fibers, n_segments, seed=3):
+    """``n_fibers`` fibers of ``n_segments`` segments in the hair text
+    format (one vertex a line, a blank line between fibers), hanging
+    0.5 down from the top of HAIR_BOX in a helix that turns 20 degrees a
+    segment, so that no vertex is dropped by the angle threshold."""
+    rng = np.random.default_rng(seed)
+    (x0, x1), (y0, y1), (z0, z1) = HAIR_BOX
+    lines = []
+    k = np.arange(n_segments + 1)
+    for _ in range(n_fibers):
+        root = np.array([rng.uniform(x0, x1), rng.uniform(y0, y1),
+                         rng.uniform(z0, z1)])
+        phase = rng.uniform(0.0, 2.0 * np.pi)
+        ang = phase + np.deg2rad(20.0) * k
+        pts = np.stack([root[0] + 0.02 * np.cos(ang),
+                        root[1] - 0.5 * k / n_segments,
+                        root[2] + 0.02 * np.sin(ang)], -1)
+        lines += ["%.9g %.9g %.9g" % tuple(p) for p in pts]
+        lines.append("")
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+def write_geometry_xml(dirname, width, height, spp, n_fibers=1024,
+                       n_segments=16, hf_res=257):
+    """Phase 12's scene G as geometry.xml in ``dirname``: the Cornell box
+    of write_cornell_xml without its blocks (a visible cube top faces
+    inward, see CUBE_AT) with a heightfield floor (an hf_res² EXR height
+    map written by utils/exr.py, 2·(hf_res − 1)² triangles, bumps of up
+    to 0.04), a hair tuft (hair.txt from write_hair, radius 0.004:
+    8·n_segments triangles a fiber), an Irawan cloth rectangle with the
+    built-in plain weave on the back wall, and a small cube with a
+    two-keyframe <animation> translation by CUBE_MOVE. Returns the
+    file's path."""
+    from sdmm_tpu_torch.utils.exr import write_exr
+
+    y, x = np.mgrid[0:hf_res, 0:hf_res] / (hf_res - 1.0)
+    height_map = 0.5 + 0.5 * np.sin(9.0 * x) * np.cos(7.0 * y)
+    write_exr(os.path.join(dirname, "height.exr"),
+              np.repeat(height_map[..., None], 3, -1).astype(np.float32))
+    write_hair(os.path.join(dirname, "hair.txt"), n_fibers, n_segments)
+    path = os.path.join(dirname, "geometry.xml")
+    write_cornell_xml(path, width, height, spp, blocks=False)
+    with open(path) as f:
+        text = f.read()
+    floor = compose([0.0, 0.002, 0.0], [0.99, 0.99, 0.04], rx=-90)
+    cube0 = compose(CUBE_AT, [CUBE_SCALE] * 3)
+    cube1 = compose(np.add(CUBE_AT, CUBE_MOVE), [CUBE_SCALE] * 3)
+    extra = [
+        '  <shape type="heightfield"><string name="filename" '
+        'value="height.exr"/><transform name="toWorld"><matrix value="'
+        f'{_digits(floor)}"/></transform><bsdf type="diffuse"><rgb '
+        'name="reflectance" value="0.55, 0.5, 0.45"/></bsdf></shape>',
+        '  <shape type="hair"><string name="filename" value="hair.txt"/>'
+        '<float name="radius" value="0.004"/><bsdf type="diffuse"><rgb '
+        'name="reflectance" value="0.35, 0.2, 0.1"/></bsdf></shape>',
+        '  <shape type="rectangle"><transform name="toWorld"><matrix '
+        f'value="{_digits(CLOTH_TO_WORLD)}"/></transform><bsdf '
+        'type="irawan"><float name="repeatU" value="12"/><float '
+        'name="repeatV" value="12"/></bsdf></shape>',
+        '  <shape type="cube"><animation name="toWorld"><transform '
+        f'time="0"><matrix value="{_digits(cube0)}"/></transform>'
+        f'<transform time="1"><matrix value="{_digits(cube1)}"/>'
+        '</transform></animation><ref id="white"/></shape>']
+    text = text.replace("</scene>", "\n".join(extra) + "\n</scene>")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def write_cornell_dae(path):
+    """The Cornell box's walls and blocks (cornell_box's triangles, light
+    aside) as a COLLADA file: one geometry a shape with POSITION and
+    NORMAL inputs at 17 digits, a lambert effect a material, each bound
+    to its instance. Returns [(material, verts [F, 3, 3], normals)]."""
+    from sdmm_tpu_torch.scene import shapes
+
+    parts = [(name, shapes.make_rectangle(tw).concat())
+             for tw, name, emissive in cornell_rects() if not emissive]
+    parts += [("white", shapes.make_cube(tw).concat())
+              for tw in cornell_blocks()]
+    geoms, nodes = [], []
+    for i, (mat, (v, n, _, _)) in enumerate(parts):
+        k = len(v) * 3
+        geoms.append(
+            f'<geometry id="g{i}" name="shape{i}"><mesh>'
+            f'<source id="p{i}"><float_array count="{k * 3}">{_digits(v)}'
+            '</float_array><technique_common><accessor stride="3"/>'
+            f'</technique_common></source><source id="n{i}"><float_array '
+            f'count="{k * 3}">{_digits(n)}</float_array><technique_common>'
+            '<accessor stride="3"/></technique_common></source>'
+            f'<vertices id="v{i}"><input semantic="POSITION" source="#p{i}"/>'
+            f'</vertices><triangles count="{len(v)}" material="m"><input '
+            f'semantic="VERTEX" source="#v{i}" offset="0"/><input '
+            f'semantic="NORMAL" source="#n{i}" offset="0"/><p>'
+            + " ".join(str(j) for j in range(k)) + '</p></triangles>'
+            '</mesh></geometry>')
+        nodes.append(
+            f'<node><instance_geometry url="#g{i}"><bind_material>'
+            f'<technique_common><instance_material symbol="m" target='
+            f'"#{mat}"/></technique_common></bind_material>'
+            '</instance_geometry></node>')
+    albedo = dict(CORNELL_BSDFS)
+    effects = "".join(
+        f'<effect id="{m}-fx"><profile_COMMON><technique sid="t"><lambert>'
+        f'<diffuse><color>{_digits(albedo[m])} 1</color></diffuse>'
+        '</lambert></technique></profile_COMMON></effect>'
+        for m in ("white", "red", "green"))
+    mats = "".join(f'<material id="{m}"><instance_effect url="#{m}-fx"/>'
+                   '</material>' for m in ("white", "red", "green"))
+    with open(path, "w") as f:
+        f.write('<?xml version="1.0"?><COLLADA xmlns="http://www.collada.'
+                'org/2005/11/COLLADASchema" version="1.4.1"><asset><up_axis>'
+                'Y_UP</up_axis></asset><library_effects>' + effects
+                + '</library_effects><library_materials>' + mats
+                + '</library_materials><library_geometries>'
+                + "".join(geoms) + '</library_geometries>'
+                '<library_visual_scenes><visual_scene id="s">'
+                + "".join(nodes) + '</visual_scene></library_visual_scenes>'
+                '</COLLADA>\n')
+
+
+def _project_np(cam, tan_half, p, width, height):
+    """World points -> pixel coordinates through the perspective camera
+    (fov about x), in float64: the analytic side of the motion check."""
+    v = (np.asarray(p, np.float64) - cam[:3, 3]) @ cam[:3, :3]
+    tx, ty = tan_half, tan_half * height / width
+    return np.stack([(1.0 - v[:, 0] / (v[:, 2] * tx)) * 0.5 * width,
+                     (1.0 - v[:, 1] / (v[:, 2] * ty)) * 0.5 * height], -1)
+
+
+# Irawan's card and CPU evaluations may differ past their tolerance on this
+# share of the lanes: the specular term switches on and off at the yarn
+# band's and the fiber angle's edges, so a lane within an ulp of an edge
+# takes it on one device and not on the other (2 of 2^20 lanes in phase
+# 12, 4 of 2^18 in tests/test_torch_gpu.py on the first proof run).
+IRAWAN_OFF_SHARE = 1e-4
+
+
+def _irawan_check(dev, scene, n=1 << 20):
+    """Irawan on the card: eval_irawan on n random lanes against the CPU
+    twin (rtol 1e-5 / atol 1e-6, or on an ill-conditioned lane no further
+    than twice the CPU's float32 error against a float64 evaluation; at
+    most IRAWAN_OFF_SHARE of the lanes past that, each printed), and the
+    cosine sampling's weight against f / pdf (rtol 1e-5). Returns the
+    report entry."""
+    from sdmm_tpu_torch.bsdf import bsdf as tbsdf
+    from sdmm_tpu_torch.bsdf import irawan
+
+    g = torch.Generator().manual_seed(12)
+    uv = torch.rand((n, 2), generator=g) * 24.0
+    wi, wo = (torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=g) * torch.tensor([1.0, 1.0, 0.5])
+        + torch.tensor([0.0, 0.0, 0.6]), dim=-1) for _ in range(2))
+    tabs = irawan.device_tables(scene)
+    out, ms = {}, {}
+    for name, d, dt in (("cuda", dev, torch.float32),
+                        ("cpu", "cpu", torch.float32),
+                        ("cpu64", "cpu", torch.float64)):
+        t = {k: v.to(d) for k, v in tabs.items()}
+        t = {k: v.to(dt) if v.is_floating_point() else v for k, v in t.items()}
+        args = [x.to(d, dt) for x in (uv, wi, wo)]
+        fn = lambda: irawan.eval_irawan(t, *args)  # noqa: E731
+        ms[name] = time_ms(fn, reps=5) if name == "cuda" else None
+        out[name] = fn().cpu().double().numpy()
+    got, want, exact = out["cuda"], out["cpu"], out["cpu64"]
+    tol = np.maximum(1e-6 + 1e-5 * np.abs(want), 2.0 * np.abs(want - exact))
+    bad = (np.abs(got - want) > tol).any(-1)
+    ill = (np.abs(got - want) > 1e-6 + 1e-5 * np.abs(want)).any(-1).sum()
+    for i in np.nonzero(bad)[0][:5]:
+        print(f"geometry/classic: irawan lane {i}: card {got[i]}, CPU "
+              f"{want[i]}, float64 {exact[i]}", flush=True)
+    check(bad.sum() <= IRAWAN_OFF_SHARE * n, f"irawan: {int(bad.sum())} "
+          f"of {n} lanes on the card differ from the CPU twin")
+    # Cosine sampling: the weight is f / pdf at the sampled direction.
+    types = (16,)
+    idx = torch.full((n,), int(scene.bsdf_type.tolist().index(16)),
+                     dtype=torch.int32, device=dev)
+    p = tbsdf.gather_params(scene, idx, uv.to(dev), types=types)
+    u = torch.rand((n, 4), generator=g).to(dev)
+    bs = tbsdf.sample_full(p, wi.to(dev), u[:, 0], u[:, 1], u[:, 2:],
+                           types=types)
+    f, pdf = tbsdf.eval_pdf_full(p, wi.to(dev), bs["wo"], types=types)
+    ok = pdf > 0
+    w_err = float(((bs["weight"][ok] - f[ok] / pdf[ok, None]).abs()
+                   / (f[ok] / pdf[ok, None]).abs().clamp_min(1e-30)).max())
+    check(w_err <= 1e-5, f"irawan: sampling weight off f/pdf by {w_err:.3g}")
+    rep = {"lanes": n, "max_abs_err": float(np.abs(got - want).max()),
+           "lanes_past_1e-5": int(ill), "lanes_off": int(bad.sum()),
+           "ms": ms["cuda"],
+           "weight_rel_err": w_err}
+    print(f"geometry/classic: irawan on the card: {rep}", flush=True)
+    return rep
+
+
+def phase_geometry_classic(dev, smi, width=640, height=360, n_fibers=1024,
+                           hf_res=257):
+    """Phase 12: the rest of scene loading and the classic integrators on the
+    card, through cli.main at 640x360, depth 10. write_geometry_xml writes
+    scene G (the Cornell box's walls and light, a 257² EXR heightfield
+    floor, a hair tuft of 1,024 fibers of 16 segments, an Irawan cloth with
+    the plain weave and a keyframed cube: 262,170 triangles, so clas_cull)
+    into a temporary directory under build/. gt at 16 spp is the reference
+    of every check; sdmm at 32 spp within 5% of it (the Irawan cloth keeps
+    it on the eager pools: guided_sample and the E-step launch). direct at
+    16 spp within 3% of gt at max depth 2, on G and on the Cornell box
+    without its blocks (mt_sweep; a block's top faces inward, as in the
+    reference, and gt's strict normals cull it where direct lights it). ao
+    at 16 spp: every value in [0, 1]. field (shNormal, distance) at 4 spp
+    through the CLI, and trace_field on 2,048 camera rays on the card equal
+    to the CPU twin's on the hit rays within 1e-5 (>= 99.9% of them: a
+    cluster box face). multichannel at 4 spp: four finite EXRs beside the
+    output. adaptive with at most 64 spp (-D maxError=0.1) within 3% of gt
+    and a mean spp below 64. motion at 1 spp: on the cube's pixels (field
+    primIndex) the mean displacement within 1% of the analytic one (the
+    pixel's field position moved by CUBE_MOVE, both projected in float64),
+    every other pixel below 1e-4. Irawan on the card (_irawan_check, 2^20
+    lanes). COLLADA: python -m sdmm_tpu_torch import of write_cornell_dae's
+    file, included by a scene with the camera and the light, builds the
+    SceneData of the same meshes built in code, field for field, and gt at
+    16 spp on both gives the same mean. Each call's wall, mean and launches
+    of rows 1, 2, 7 and 8 print on its own line; one "geometry_classic:"
+    JSON line sums them up with the card's name and power limit."""
+    import tempfile
+
+    from sdmm_tpu_torch import cli
+    from sdmm_tpu_torch.render import classic
+    from sdmm_tpu_torch.render.wavefront import render_wavefront
+    from sdmm_tpu_torch.scene import shapes
+    from sdmm_tpu_torch.scene.collada import load_dae
+    from sdmm_tpu_torch.scene.scene import BSDF_DIFFUSE, SceneBuilder
+    from sdmm_tpu_torch.scene.sensor import generate_rays
+    from sdmm_tpu_torch.scene.xml_loader import load_scene
+    from sdmm_tpu_torch.utils.exr import read_exr
+
+    t_phase = time.time()
+    rows = ("guided_sample", "em_suffstats", "mt_sweep", "clas_cull")
+    report = {"card": smi, "seconds": {}, "launches": {}, "means": {}}
+    sec, means, launches = (report["seconds"], report["means"],
+                            report["launches"])
+    counters = _counts()
+
+    def timed(name, fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        sec[name] = time.time() - t0
+        launches[name] = {k: counters[k].launches for k in rows}
+        return out
+
+    def within(name, ref, limit):
+        rel = abs(means[name] - means[ref]) / means[ref]
+        report.setdefault("rel", {})[name] = rel
+        check(rel < limit, f"geometry/classic: {name}'s mean "
+              f"{means[name]:.5f} is not within {limit:.0%} of {ref}'s "
+              f"{means[ref]:.5f}")
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.time()
+        g = write_geometry_xml(tmp, width, height, 16, n_fibers=n_fibers,
+                               hf_res=hf_res)
+        # The box without its blocks: make_cube winds a cube's top face
+        # inward, so gt culls the short block's top where direct lights it
+        # (both packages alike; ROADMAP C).
+        box = os.path.join(tmp, "cornell_walls.xml")
+        write_cornell_xml(box, width, height, 16, blocks=False)
+        sec["write"] = time.time() - t0
+        scene, cfg = timed("load_G", lambda: load_scene(g).build(device=dev))
+        n_tris = scene.tri_v0.shape[0]
+        report["triangles"] = n_tris
+        check(n_tris > 1024 and 16 in cfg.bsdf_types
+              and int((scene.tri_mot >= 0).sum()) == 12,
+              "geometry/classic: scene G lacks a feature")
+        print(f"geometry/classic: G {n_tris} triangles, "
+              f"{scene.clas_ids.shape[0]} clusters, loaded and built in "
+              f"{sec['load_G']:.2f} s", flush=True)
+
+        def run(name, xml, *args, ext=".npy"):
+            out = os.path.join(tmp, name, "image" + ext)
+            timed(name, lambda: check(
+                cli.main(["render", xml, "-o", out, "--device", str(dev),
+                          *args]) is None, f"cli {name}: non-zero return"))
+            img = np.load(out) if ext == ".npy" else read_exr(out)
+            check(np.isfinite(img).all() and img.shape == (height, width, 3),
+                  f"cli {name}: image not finite or misshapen")
+            means[name] = float(img.mean())
+            print(f"geometry/classic: cli {name}: {sec[name]:.3f} s, mean "
+                  f"{means[name]:.5f}, launches {launches[name]}",
+                  flush=True)
+            return img, os.path.dirname(out)
+
+        run("gt", g, "--integrator", "gt", "--spp", "16")
+        check(launches["gt"]["clas_cull"] > 0, "gt on G: no clas_cull")
+        run("sdmm", g, "--integrator", "sdmm", "--spp", "32")
+        within("sdmm", "gt", 0.05)
+        check(launches["sdmm"]["guided_sample"] > 0
+              and launches["sdmm"]["em_suffstats"] > 0
+              and launches["sdmm"]["clas_cull"] > 0,
+              "sdmm on G: guided_sample, the E-step or clas_cull idle")
+        for name, xml in (("", g), ("box_", box)):
+            run(name + "gt_d2", xml, "--integrator", "gt", "--spp", "16",
+                "--max-depth", "2")
+            run(name + "direct", xml, "--integrator", "direct", "--spp",
+                "16")
+            within(name + "direct", name + "gt_d2", 0.03)
+        check(launches["box_direct"]["mt_sweep"] > 0
+              and launches["direct"]["clas_cull"] > 0,
+              "direct: mt_sweep or clas_cull idle")
+        ao, _ = run("ao", g, "--integrator", "ao", "--spp", "16")
+        check(ao.min() >= 0.0 and ao.max() <= 1.0 and ao.max() > 0.5,
+              "ao: values outside [0, 1]")
+        for fld in ("shNormal", "distance"):
+            run("field_" + fld, g, "--integrator", "field", "--spp", "4",
+                "-D", f"field={fld}")
+        # The field on the card against the CPU twin, on the same rays.
+        scene_cpu, _ = load_scene(g).build(device="cpu")
+        gen = torch.Generator().manual_seed(5)
+        idx = torch.arange(0, width * height, width * height // 2048)
+        pix = torch.stack([idx % width, idx // width], -1).float() + \
+            torch.rand((idx.numel(), 2), generator=gen)
+        ro, rd = generate_rays(scene_cpu, pix, width, height)
+        field_err = {}
+        for fld in ("shNormal", "distance"):
+            a = classic.trace_field(scene, None, ro, rd, field=fld,
+                                    device=dev).cpu()
+            b = classic.trace_field(scene_cpu, None, ro, rd, field=fld,
+                                    device="cpu")
+            hit = (b != 0).any(-1)
+            off = ((a - b).abs() > 1e-5).any(-1) & hit
+            field_err[fld] = {"rays": int(hit.sum()),
+                              "off": int(off.sum()),
+                              "max_abs_err": float((a - b).abs().max())}
+            check(off.sum() <= 0.001 * hit.sum() and hit.sum() > 1000,
+                  f"field {fld}: card and CPU differ on {int(off.sum())} "
+                  "rays")
+        report["field"] = field_err
+        print(f"geometry/classic: field on the card vs the CPU twin: "
+              f"{field_err}", flush=True)
+        _, d = run("multichannel", g, "--integrator", "multichannel",
+                   "--spp", "4", ext=".exr")
+        chans = sorted(f for f in os.listdir(d) if f.startswith("image_"))
+        check(chans == ["image_albedo.exr", "image_distance.exr",
+                        "image_position.exr", "image_shNormal.exr"]
+              and all(np.isfinite(read_exr(os.path.join(d, f))).all()
+                      for f in chans), f"multichannel: wrote {chans}")
+        _, d = run("adaptive", g, "--integrator", "adaptive", "--spp", "64",
+                   "-D", "maxError=0.1")
+        with open(os.path.join(d, "stats.json")) as f:
+            report["adaptive_mean_spp"] = json.load(f)["mean_spp"]
+        within("adaptive", "gt", 0.03)
+        check(report["adaptive_mean_spp"] < 64, "adaptive: no pixel stopped")
+        mot, _ = run("motion", g, "--integrator", "motion", "--spp", "1")
+        pos, _ = run("position", g, "--integrator", "field", "--spp", "1",
+                     "-D", "field=position")
+        prim, _ = run("prim", g, "--integrator", "field", "--spp", "1",
+                      "-D", "field=primIndex")
+        tri = prim[..., 0].reshape(-1).astype(np.int64)
+        cube = scene_cpu.tri_mot.numpy()[tri] >= 0
+        dxy = mot.reshape(-1, 3)[:, :2].astype(np.float64)
+        p0 = pos.reshape(-1, 3)[cube]
+        cam = cornell_camera()
+        tan_half = np.tan(np.deg2rad(40.0) / 2)
+        want = (_project_np(cam, tan_half, p0 + np.asarray(CUBE_MOVE), width,
+                            height)
+                - _project_np(cam, tan_half, p0, width, height))
+        got = dxy[cube].mean(0)
+        rel = float(np.linalg.norm(got - want.mean(0))
+                    / np.linalg.norm(want.mean(0)))
+        static = float(np.abs(dxy[~cube]).max())
+        report["motion"] = {"pixels": int(cube.sum()), "mean": got.tolist(),
+                            "analytic": want.mean(0).tolist(), "rel": rel,
+                            "static_max": static}
+        print(f"geometry/classic: motion {report['motion']}", flush=True)
+        check(cube.sum() > 100 and rel < 0.01 and static < 1e-4,
+              "motion: displacement off its analytic projection")
+        report["irawan"] = _irawan_check(dev, scene)
+
+        # COLLADA: import, include beside the camera and light, render.
+        dae = os.path.join(tmp, "box.dae")
+        write_cornell_dae(dae)
+        imported = os.path.join(tmp, "imported", "box.xml")
+        res = timed("import", lambda: subprocess.run(
+            [sys.executable, "-m", "sdmm_tpu_torch", "import", dae,
+             imported, "--device", str(dev)], cwd=ROOT, capture_output=True,
+            text=True,
+            timeout=300))
+        check(res.returncode == 0, f"import: {res.stdout}{res.stderr}")
+        print(f"geometry/classic: {res.stdout.strip()} in "
+              f"{sec['import']:.2f} s", flush=True)
+        light = cornell_rects()[-1][0]
+        wrap = os.path.join(tmp, "imported", "scene.xml")
+        with open(box) as f:
+            head = f.read().split("  <bsdf")[0]
+        with open(wrap, "w") as f:
+            f.write(head + '  <shape type="rectangle"><transform name='
+                    f'"toWorld"><matrix value="{_digits(light)}"/>'
+                    '</transform><emitter type="area"><rgb name="radiance"'
+                    f' value="{_digits(CORNELL_RADIANCE)}"/></emitter>'
+                    '</shape>\n  <include filename="box.xml"/>\n</scene>\n')
+        b = SceneBuilder()
+        b.add_shape(shapes.make_rectangle(light), b.add_bsdf(
+            BSDF_DIFFUSE, albedo=[0.5, 0.5, 0.5]),
+            b.add_emitter(CORNELL_RADIANCE))
+        meshes, mats = load_dae(dae)
+        ids = {m: b.add_bsdf(BSDF_DIFFUSE, name=m, albedo=mats[m])
+               for m in sorted(mats)}
+        for m in meshes:
+            soup = shapes.TriSoup()
+            soup.add(m["v"], m["n"])
+            b.add_shape(soup, ids[m["material"]])
+        b.set_sensor(cornell_camera(), fov_deg=40.0, width=width,
+                     height=height)
+        b.max_depth = b.rr_depth = 10
+        built = b.build(device=dev)
+        loaded = load_scene(wrap).build(device=dev)
+        _same_scene("imported COLLADA", loaded, built)
+        for name, (sc, c) in (("collada_gt", loaded), ("code_gt", built)):
+            res = timed(name, lambda: render_wavefront(sc, c, spp=16, seed=3,
+                                                       device=dev))
+            means[name] = float(res["image"].mean())
+            print(f"geometry/classic: {name}: {sec[name]:.3f} s, mean "
+                  f"{means[name]:.6f}, launches {launches[name]}",
+                  flush=True)
+        check(abs(means["collada_gt"] - means["code_gt"])
+              <= 1e-6 * means["code_gt"],
+              "collada: the imported scene renders another mean")
+    sec["phase"] = time.time() - t_phase
+    print("geometry_classic:", json.dumps(report), flush=True)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2719,6 +3166,7 @@ def main():
     phase_features(dev, smi)
     phase_media(dev, smi)
     phase_guiding_extras(dev, smi)
+    phase_geometry_classic(dev, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

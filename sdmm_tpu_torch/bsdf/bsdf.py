@@ -1,6 +1,6 @@
 """Wavefront BSDF dispatch over ray batches (port of sdmm_tpu/bsdf/bsdf.py:
-every BSDF type but irawan, bitmap and procedural textures, and the mask,
-blend and coating containers).
+every BSDF type, Irawan's woven cloth through ``bsdf/irawan.py``, bitmap
+and procedural textures, and the mask, blend and coating containers).
 
 Every present model is evaluated on the whole batch in the local shading
 frame and the result is selected by type mask; ``types`` (the codes a scene
@@ -21,11 +21,12 @@ from ..core.frame import coordinate_system, normalize, reflect, to_world
 from ..core.spectrum import luminance
 from ..scene.scene import (
     BSDF_BLEND, BSDF_COATING, BSDF_CONDUCTOR, BSDF_DIELECTRIC,
-    BSDF_DIFFTRANS, BSDF_DIFFUSE, BSDF_HK, BSDF_MASK, BSDF_NULL, BSDF_PHONG,
-    BSDF_PLASTIC, BSDF_ROUGHCONDUCTOR, BSDF_ROUGHDIELECTRIC,
+    BSDF_DIFFTRANS, BSDF_DIFFUSE, BSDF_HK, BSDF_IRAWAN, BSDF_MASK, BSDF_NULL,
+    BSDF_PHONG, BSDF_PLASTIC, BSDF_ROUGHCONDUCTOR, BSDF_ROUGHDIELECTRIC,
     BSDF_ROUGHDIFFUSE, BSDF_ROUGHPLASTIC, BSDF_THINDIELECTRIC, BSDF_WARD,
     SUPPORTED_BSDFS,
 )
+from . import irawan
 from . import microfacet as mf
 from .fresnel import fresnel_conductor, fresnel_dielectric
 
@@ -37,14 +38,12 @@ _CONTAINER_KEYS = ("is_mask", "opacity", "is_blend", "blend_b", "blend_w",
 
 
 def _types(types) -> tuple | None:
-    """``types`` checked against the ported codes (None: every one)."""
+    """``types`` checked against the known codes (None: every one)."""
     if types is None:
         return None
     bad = [t for t in types if t not in SUPPORTED_BSDFS]
     if bad:
-        raise NotImplementedError(
-            f"BSDF types {bad} are not ported to sdmm_tpu_torch yet "
-            "(ROADMAP A9)")
+        raise ValueError(f"unknown BSDF types {bad}")
     return tuple(types)
 
 
@@ -150,6 +149,11 @@ def gather_params(scene, bsdf_idx: torch.Tensor, uv=None,
         p["is_blend"] = is_blend
         p["blend_b"] = pb
         p["blend_w"] = torch.where(is_blend, scene.bsdf_weight[idx], 0.0)
+    if _has(types, BSDF_IRAWAN):
+        # Woven cloth reads the hit's uv and the scene's weave tables.
+        p["iw"] = irawan.device_tables(scene)
+        p["uv"] = uv if uv is not None else torch.zeros(
+            idx.shape + (2,), device=idx.device)
     return p
 
 
@@ -438,8 +442,15 @@ def eval_pdf(params: dict, wi: torch.Tensor, wo: torch.Tensor,
     sels_p: list = []
 
     if any(has(c) for c in (BSDF_DIFFUSE, BSDF_PHONG, BSDF_ROUGHPLASTIC,
-                            BSDF_PLASTIC, BSDF_WARD, BSDF_ROUGHDIFFUSE)):
+                            BSDF_PLASTIC, BSDF_WARD, BSDF_ROUGHDIFFUSE,
+                            BSDF_IRAWAN)):
         pdf_diff = warp.square_to_cosine_hemisphere_pdf(wo)
+
+    if has(BSDF_IRAWAN) and "iw" in params:
+        # Woven cloth, with the cosine pdf of its cosine sampling.
+        sels_f.append((BSDF_IRAWAN, irawan.eval_irawan(
+            params["iw"], params["uv"], wi, wo)))
+        sels_p.append((BSDF_IRAWAN, pdf_diff))
 
     if has(BSDF_WARD):
         f_w, pdf_w = _eval_pdf_ward(params, wi, wo, pdf_diff)
@@ -579,9 +590,15 @@ def sample(params: dict, wi: torch.Tensor, u1: torch.Tensor,
 
     if any(has(c) for c in (BSDF_DIFFUSE, BSDF_PHONG, BSDF_PLASTIC,
                             BSDF_ROUGHPLASTIC, BSDF_WARD, BSDF_ROUGHDIFFUSE,
-                            BSDF_DIFFTRANS)):
+                            BSDF_DIFFTRANS, BSDF_IRAWAN)):
         wo_diff = warp.square_to_cosine_hemisphere(u2)
         pdf_diff = warp.square_to_cosine_hemisphere_pdf(wo_diff)
+
+    if has(BSDF_IRAWAN) and "iw" in params:
+        # Cosine-sampled, weight f / pdf.
+        f_iw, pdf_iw = eval_pdf(_as_type(params, BSDF_IRAWAN), wi, wo_diff,
+                                types=(BSDF_IRAWAN,))
+        put(BSDF_IRAWAN, wo_diff, _ratio(f_iw, pdf_iw), pdf_iw)
 
     if has(BSDF_ROUGHDIFFUSE):
         f_on, pdf_on = eval_pdf(_as_type(params, BSDF_ROUGHDIFFUSE), wi,

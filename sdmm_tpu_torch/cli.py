@@ -1,9 +1,10 @@
-"""Command-line renderer of the port (port of sdmm_tpu/cli.py: ``render`` and
-``compare``, with the same arguments and outputs).
+"""Command-line renderer of the port (port of sdmm_tpu/cli.py: ``render``,
+``compare`` and ``import``, with the same arguments and outputs).
 
     python -m sdmm_tpu_torch render scene.xml -o out.exr -D key=val --spp 64
     python -m sdmm_tpu_torch render scene.xml --integrator sdmm --spp 1024
     python -m sdmm_tpu_torch compare image.exr reference.exr
+    python -m sdmm_tpu_torch import scene.dae out.xml
 
 Integrators: ``gt``/``volpath`` (path tracing with NEE) and ``path`` (no
 NEE) through ``render_wavefront``, or through the wave renderer
@@ -12,11 +13,20 @@ NEE) through ``render_wavefront``, or through the wave renderer
 training render, through ``SDMMTrainer`` (``-D reservoirCapacity=N``,
 ``-D optimizeAsync=true``; ``--resume`` continues from a full checkpoint,
 ``--checkpoint`` writes one at the end); ``ppg``, practical path guiding,
-through ``PPGTrainer``. The others keep their place in the argument list
-and raise ``NotImplementedError``, naming the ROADMAP item that ports them.
-Renders run on the card unless ``--device cpu`` is given. Stats go next to
-the output as stats.json; an sdmm render also writes its guiding model to
-checkpoints/model_NNNNN.asdmm.
+through ``PPGTrainer``; the classic integrators of ``render/classic.py``:
+``direct`` (``emitterSamples``, ``bsdfSamples``, ``shadingSamples``),
+``ao`` (``rayLength``, ``shadingSamples``), ``field`` (``field``) and
+``motion`` (``time``) through the wave renderer, ``adaptive``
+(``maxError``; ``--spp`` is the most a pixel takes) and ``multichannel``
+(``fields``: one EXR a field beside the output, then the first field as the
+output), each reading its properties from the scene's integrator and
+``-D``. The others keep their place in the argument list and raise
+``NotImplementedError``, naming the ROADMAP item that ports them. Renders
+run on the card unless ``--device cpu`` is given. Stats go next to the
+output as stats.json; an sdmm render also writes its guiding model to
+checkpoints/model_NNNNN.asdmm. ``import`` converts a COLLADA file to a
+scene XML and OBJ meshes (the output also as ``-o``), then builds the
+written scene on ``--device`` and prints its triangle count.
 """
 
 from __future__ import annotations
@@ -32,7 +42,9 @@ INTEGRATORS = ["gt", "volpath", "path", "sdmm", "ppg", "direct", "ao",
                "pssmlt", "mlt", "erpt", "bdpt", "adaptive", "multichannel",
                "irrcache", "motion"]
 # The integrators still to port, by ROADMAP item.
-UNPORTED_INTEGRATORS = {name: "A12" for name in INTEGRATORS[5:]}
+UNPORTED_INTEGRATORS = {name: "A12" for name in (
+    "ptracer", "vpl", "photonmapper", "ppm", "sppm", "pssmlt", "mlt",
+    "erpt", "bdpt", "irrcache")}
 
 
 def _parse_defines(pairs):
@@ -118,6 +130,11 @@ def cmd_render(args):
                                    ("iteration_sqr", it["sqr"])):
                     write_exr(os.path.join(out_dir, f"{name}{i:05d}.exr"),
                               (film / n).reshape(cfg.height, cfg.width, 3))
+    elif integrator in ("direct", "ao", "field", "motion", "adaptive",
+                        "multichannel"):
+        image = _render_classic(integrator, scene, cfg, builder, overrides,
+                                spp, sampler, rfilter, out, out_dir, t0,
+                                device)
     else:
         nee = integrator in ("gt", "volpath")
         if not cfg.has_medium and sampler == "independent" \
@@ -146,12 +163,101 @@ def cmd_render(args):
           f"{spp} spp in {time.time() - t0:.1f}s -> {out}")
 
 
+def _render_classic(integrator, scene, cfg, builder, overrides, spp, sampler,
+                    rfilter, out, out_dir, t0, device):
+    """One of the classic integrators; writes stats.json (and a
+    multichannel render's field EXRs) and returns the image."""
+    import numpy as np
+
+    from .render import classic
+    from .render.renderer import render
+    from .utils.exr import write_exr
+
+    props = dict(builder.integrator)
+    props.update(overrides)
+    types = cfg.bsdf_types or None
+    stats = {"integrator": integrator, "spp": spp}
+    if integrator == "adaptive":
+        res = classic.render_adaptive(
+            scene, cfg, max_spp=spp, seed=builder.seed,
+            max_error=float(props.get("maxError", 0.05)), device=device)
+        image = res["image"]
+        stats.update(seconds=time.time() - t0,
+                     mean_spp=float(res["spp_map"].mean()),
+                     mean=float(image.mean()))
+    elif integrator == "multichannel":
+        fields = tuple(f for f in str(props.get(
+            "fields", "position,shNormal,albedo,distance")).split(",")
+            if f in classic.FIELDS)
+        chans = classic.render_multichannel(scene, cfg, fields=fields,
+                                            spp=spp, seed=builder.seed,
+                                            device=device)
+        base, ext = os.path.splitext(out)
+        for name, chan in chans.items():
+            write_exr(f"{base}_{name}{ext or '.exr'}", np.asarray(chan))
+        image = chans[fields[0]]
+        stats.update(fields=list(fields), seconds=time.time() - t0)
+    else:
+        if integrator == "direct":
+            es = int(props.get("emitterSamples",
+                               props.get("shadingSamples", 1)))
+            bs = int(props.get("bsdfSamples", props.get("shadingSamples", 1)))
+
+            def trace(sc, gen, ro, rd):
+                return classic.trace_direct(
+                    sc, gen, ro, rd, emitter_samples=es, bsdf_samples=bs,
+                    bsdf_types=types, has_bump=cfg.has_bump, device=device)
+        elif integrator == "ao":
+            rl = float(props.get("rayLength", -1.0))
+            ss = int(props.get("shadingSamples", 1))
+
+            def trace(sc, gen, ro, rd):
+                return classic.trace_ao(sc, gen, ro, rd, ray_length=rl,
+                                        shading_samples=ss, device=device)
+        elif integrator == "field":
+            fld = props.get("field", "shNormal")
+
+            def trace(sc, gen, ro, rd):
+                return classic.trace_field(sc, gen, ro, rd, field=fld,
+                                           bsdf_types=types, device=device)
+        else:  # motion: the reference renders it with the box filter
+            tm = float(props.get("time", 1.0))
+            sampler, rfilter = "independent", "box"
+
+            def trace(sc, gen, ro, rd):
+                return classic.trace_motion(
+                    sc, gen, ro, rd, width=cfg.width, height=cfg.height,
+                    time=tm, fov_axis=cfg.fov_axis, device=device)
+        image = render(scene, cfg, spp=spp, seed=builder.seed,
+                       trace_fn=trace, sampler=sampler, rfilter=rfilter,
+                       device=device)["image"]
+        stats.update(seconds=time.time() - t0, mean=float(image.mean()))
+    _write_stats(out_dir, stats)
+    return image
+
+
 def cmd_compare(args):
     from .utils.exr import read_exr
     from .utils.metrics import all_metrics
 
     print(json.dumps(all_metrics(read_exr(args.image),
                                  read_exr(args.reference)), indent=2))
+
+
+def cmd_import(args):
+    from .core.device import resolve_device
+    from .scene.collada import import_collada
+    from .scene.xml_loader import load_scene
+
+    device = resolve_device(args.device)
+    out = args.output or args.out_xml
+    if not out:
+        raise SystemExit("import: name the output scene (.xml)")
+    n = import_collada(args.dae, out)
+    scene, _ = load_scene(out).build(device=device)
+    print(f"Imported {n} meshes from {args.dae} -> {out} "
+          f"({scene.tri_v0.shape[0]} triangles on {device})")
+    return 0
 
 
 def main(argv=None):
@@ -189,6 +295,16 @@ def main(argv=None):
     c.add_argument("image")
     c.add_argument("reference")
     c.set_defaults(fn=cmd_compare)
+
+    i = sub.add_parser("import", help="convert a COLLADA .dae scene to "
+                       "scene XML + OBJ meshes")
+    i.add_argument("dae")
+    i.add_argument("out_xml", nargs="?", help="output scene .xml")
+    i.add_argument("-o", "--output", help="output scene .xml")
+    i.add_argument("--device", default="cuda",
+                   help="where the written scene is built: cuda (the "
+                   "default) or cpu")
+    i.set_defaults(fn=cmd_import)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,6 +1,6 @@
-"""Sampling warps used by the ported BSDFs, mixtures and emitters (port of
-sdmm_tpu/core/warp.py: concentric disk, cosine hemisphere, uniform
-triangle, Box-Muller)."""
+"""Sampling warps used by the ported BSDFs, mixtures, emitters and classic
+integrators (port of sdmm_tpu/core/warp.py: concentric disk, cosine
+hemisphere, uniform sphere and hemisphere, uniform triangle, Box-Muller)."""
 
 from __future__ import annotations
 
@@ -40,6 +40,22 @@ def square_to_cosine_hemisphere(u: torch.Tensor) -> torch.Tensor:
 
 def square_to_cosine_hemisphere_pdf(w: torch.Tensor) -> torch.Tensor:
     return w[..., 2].clamp_min(0.0) * INV_PI
+
+
+def square_to_uniform_sphere(u: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the unit sphere; pdf = 1/(4 pi)."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_hemisphere(u: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the z-up hemisphere; pdf = 1/(2 pi)."""
+    z = u[..., 0]
+    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def square_to_uniform_triangle(u: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,11 @@ attribute layout (its own or the port's: ``sdmm``, ``em``, ``initialized``,
 ``trainer_state_from_numpy`` loads such a state into a port trainer, so
 that both then hold the same model. The same goes for a PPG trainer's state
 (``ppg_state_to_numpy``, ``ppg_state_from_numpy``), a learned-BSDF table
-and a sample reservoir (``tensors_from_numpy``).
+and a sample reservoir (``tensors_from_numpy``), and for a scene:
+``scene_from_arrays`` builds the port's ``SceneData`` from any scene with
+the reference's field layout, its Irawan weave tables (the normalisation
+constant as it was drawn there) and keyframed motion included, so that
+both packages then render the same scene.
 """
 
 from __future__ import annotations
@@ -62,6 +66,18 @@ def tensors_from_numpy(d: dict, device) -> dict:
         return torch.as_tensor(a, device=device)
 
     return {k: conv(v) for k, v in d.items()}
+
+
+def scene_from_arrays(scene, device="cuda"):
+    """The port's ``SceneData`` on ``device`` from ``scene``: a NamedTuple
+    with the reference's fields (either package's) or a dict of arrays.
+    Every field is copied as it is (``iw_consts`` too: its specular
+    normalisation is a Monte Carlo estimate, and recomputing it would draw
+    other samples); the port's own fields are derived from the clusters."""
+    from ..scene.scene import scene_from_numpy
+
+    arrays = scene if isinstance(scene, dict) else scene._asdict()
+    return scene_from_numpy({k: _np(v) for k, v in arrays.items()}, device)
 
 
 def trainer_state_to_numpy(tr) -> dict:

@@ -1,7 +1,8 @@
 """The wave renderer (port of sdmm_tpu/render/renderer.py ``render``): the
 image's samples, pixel-major within each sample index, are split into waves
-of camera rays, each wave traced by ``volpath.trace_wave`` and splatted
-into the film with the chosen reconstruction filter. Every pixel gets
+of camera rays, each wave traced by ``volpath.trace_wave`` (or the caller's
+``trace_fn``, such as the classic integrators of ``render/classic.py``) and
+splatted into the film with the chosen reconstruction filter. Every pixel gets
 exactly ``spp`` samples (the reference pads its last wave with a second
 sample of the first pixels). It renders everything the lane pools do not
 carry: participating media, and the samplers and rfilters other than
@@ -25,11 +26,13 @@ from .volpath import trace_wave
 def render(scene, cfg, spp: int = 16, seed: int = 1234,
            rays_per_wave: int = 1 << 18, nee: bool = True,
            sampler: str = "independent", rfilter: str = "box",
-           device: str | torch.device = "cuda") -> dict:
+           trace_fn=None, device: str | torch.device = "cuda") -> dict:
     """Render ``scene`` at ``cfg``'s size and depth on ``device``. sampler:
     independent | stratified | halton | sobol (the camera dimension);
-    rfilter: box | tent | gaussian | mitchell | catmullrom | lanczos. A
-    scene with subsurface instances is baked first unless ``cfg.sss_baked``.
+    rfilter: box | tent | gaussian | mitchell | catmullrom | lanczos;
+    ``trace_fn(scene, generator, ro, rd) -> [N, 3]`` replaces the path
+    tracer (``volpath.trace_wave`` with ``nee``). A scene with subsurface
+    instances is baked first unless ``cfg.sss_baked``.
 
     Returns dict(image [H, W, 3] (the mean), sqr [H, W, 3], weight [H, W],
     raw [H, W, 3] (the sum), as numpy; n_vertices and steps 0, pool
@@ -60,11 +63,15 @@ def render(scene, cfg, spp: int = 16, seed: int = 1234,
         py = (idx // w).float() + u[:, 1]
         ro, rd = generate_rays(scene, torch.stack([px, py], -1), w, h,
                                cfg.fov_axis)
-        li = trace_wave(scene, gen, ro, rd, max_depth=cfg.max_depth,
-                        rr_depth=cfg.rr_depth, nee=nee,
-                        bsdf_types=cfg.bsdf_types or None,
-                        has_medium=cfg.has_medium, has_hetero=cfg.has_hetero,
-                        has_bump=cfg.has_bump, has_sss=cfg.has_sss)
+        if trace_fn is not None:
+            li = trace_fn(scene, gen, ro, rd)
+        else:
+            li = trace_wave(scene, gen, ro, rd, max_depth=cfg.max_depth,
+                            rr_depth=cfg.rr_depth, nee=nee,
+                            bsdf_types=cfg.bsdf_types or None,
+                            has_medium=cfg.has_medium,
+                            has_hetero=cfg.has_hetero, has_bump=cfg.has_bump,
+                            has_sss=cfg.has_sss)
         li = torch.nan_to_num(li, nan=0.0, posinf=0.0, neginf=0.0)
         if rfilter == "gaussian":
             image, sqr, weight = film_mod.splat_gaussian(

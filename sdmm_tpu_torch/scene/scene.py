@@ -1,10 +1,11 @@
 """Scene container: host-side builder → device SoA tensors (port of
-sdmm_tpu/scene/scene.py without motion, the Irawan weave tables and the
-reference's BVH and kernel-layout copies).
+sdmm_tpu/scene/scene.py without the reference's BVH and kernel-layout
+copies).
 
 ``SceneData`` keeps the triangle arrays with their mesh-attribute tables
-(vertex colours, edge heights), the BSDF table of every type but Irawan
-with its texture, bump and container columns, the bitmap texture stack and
+(vertex colours, edge heights), the BSDF table with its texture, bump and
+container columns and the scene's Irawan weave tables, the keyframed
+motion of animated shapes, the bitmap texture stack and
 the procedural texture rows, the emitter radiance table with the
 power-weighted emissive-triangle distribution, the environment (a constant
 or an equirect map with its NEE tables), the delta lights (point, spot,
@@ -46,7 +47,7 @@ BSDF_ROUGHDIFFUSE = 12  # Oren-Nayar
 BSDF_DIFFTRANS = 13  # diffuse transmitter
 BSDF_COATING = 14  # dielectric layer over a child
 BSDF_HK = 15  # Hanrahan-Krueger single-scattering slab
-BSDF_IRAWAN = 16  # Irawan-Marschner woven cloth: not ported (ROADMAP A9)
+BSDF_IRAWAN = 16  # Irawan-Marschner woven cloth (bsdf/irawan.py)
 BSDF_THINDIELECTRIC = 17  # thin slab, no refraction
 
 # Procedural texture kinds.
@@ -55,7 +56,7 @@ PROC_GRID = 1
 PROC_MESHATTR = 2  # vertexcolors / curvature baked to vertex colours
 PROC_WIREFRAME = 3
 
-SUPPORTED_BSDFS = tuple(t for t in range(18) if t != BSDF_IRAWAN)
+SUPPORTED_BSDFS = tuple(range(18))
 
 
 class SceneData(NamedTuple):
@@ -134,6 +135,19 @@ class SceneData(NamedTuple):
     cam_tan_half_fov: torch.Tensor  # []
     aabb_lo: torch.Tensor  # [3]
     aabb_hi: torch.Tensor  # [3]
+    # Irawan woven-cloth tables (bsdf/irawan.py), one pattern a scene;
+    # placeholder rows when there is none.
+    iw_pattern: torch.Tensor  # [th, tw] int32 0-based yarn ids
+    iw_yarns: torch.Tensor  # [Y, 10]
+    iw_kd: torch.Tensor  # [Y, 3]
+    iw_ks: torch.Tensor  # [Y, 3]
+    iw_consts: torch.Tensor  # [12]
+    # Rigid keyframed motion: geometry is baked at the first keyframe;
+    # each animated shape's two keyframe matrices, and each triangle's
+    # shape (-1 = static). Read by render/classic.trace_motion.
+    mot_m0: torch.Tensor  # [Ms, 4, 4]
+    mot_m1: torch.Tensor  # [Ms, 4, 4]
+    tri_mot: torch.Tensor  # [T] int32
     # Morton-ordered triangle clusters (render/clas.build_clusters).
     clas_ids: torch.Tensor  # [C, Tc] int32 original tri ids (-1 pad)
     clas_woop: torch.Tensor  # [C, 12, Tc] Woop rows (ops/clas_cull)
@@ -156,7 +170,7 @@ PORT_FIELDS = ("clas_tree", "clas_woop_slot")
 _INT_FIELDS = ("tri_bsdf", "tri_emitter", "bsdf_type", "bsdf_tex",
                "bsdf_bump", "bsdf_child0", "bsdf_child1", "em_tri_idx",
                "pt_kind", "clas_ids", "tri_medium", "tri_medium_ext",
-               "ambient_med", "med_vol", "tri_sss")
+               "ambient_med", "med_vol", "tri_sss", "iw_pattern", "tri_mot")
 
 
 def scene_from_numpy(arrays: dict, device="cuda") -> SceneData:
@@ -206,6 +220,8 @@ class RenderConfig:
 @dataclass
 class SceneBuilder:
     soups: list = field(default_factory=list)
+    shape_motion: list = field(default_factory=list)  # (M0, M1) or None
+    irawan_pattern: object = None  # the scene's WeavePattern
     bsdfs: list[dict] = field(default_factory=list)
     textures: list[np.ndarray] = field(default_factory=list)  # [R, R, 3]
     proc_textures: list[dict] = field(default_factory=list)
@@ -234,10 +250,7 @@ class SceneBuilder:
 
     def add_bsdf(self, btype: int, name: str | None = None, **params) -> int:
         if btype not in SUPPORTED_BSDFS:
-            raise NotImplementedError(
-                f"BSDF type {btype} is not ported to sdmm_tpu_torch yet "
-                "(ROADMAP A9)" if btype == BSDF_IRAWAN
-                else f"unknown BSDF type {btype}")
+            raise ValueError(f"unknown BSDF type {btype}")
         entry = dict(
             type=btype,
             tex=int(params.get("tex", -1)),
@@ -360,10 +373,14 @@ class SceneBuilder:
         return len(self.subsurfaces) - 1
 
     def add_shape(self, soup: TriSoup, bsdf: int, emitter: int = -1,
-                  interior: int = 0, exterior: int = -1, sss: int = -1):
+                  interior: int = 0, exterior: int = -1,
+                  motion: tuple | None = None, sss: int = -1):
         """``interior``/``exterior``: medium ids (exterior -1 takes the
-        scene-level medium at build); ``sss``: an add_subsurface id."""
+        scene-level medium at build); ``motion``: the (M0, M1) keyframe
+        toWorld matrices of an animated shape, whose soup is baked at M0;
+        ``sss``: an add_subsurface id."""
         self.soups.append((soup, bsdf, emitter, interior, exterior, sss))
+        self.shape_motion.append(motion)
 
     def set_sensor(self, to_world: np.ndarray, fov_deg: float, width: int,
                    height: int, fov_axis: str = "x"):
@@ -479,6 +496,21 @@ class SceneBuilder:
             "g": float(self.medium.get("g", 0.0))})
         return rows, len(rows)
 
+    def _irawan_arrays(self) -> dict:
+        """The weave tables with their normalisation (placeholder rows
+        without a pattern)."""
+        if self.irawan_pattern is None:
+            t = {"pattern": np.zeros((1, 1), np.int32),
+                 "yarns": np.full((1, 10), 0.5, np.float32),
+                 "kd": np.zeros((1, 3), np.float32),
+                 "ks": np.zeros((1, 3), np.float32),
+                 "consts": np.full(12, 0.5, np.float32)}
+        else:
+            from ..bsdf.irawan import build_tables
+
+            t = build_tables(self.irawan_pattern)
+        return {f"iw_{k}": v for k, v in t.items()}
+
     @staticmethod
     def _media_arrays(rows, ambient) -> dict:
         """The media table: row 0 vacuum, then ``rows``; each density grid
@@ -521,10 +553,18 @@ class SceneBuilder:
 
         media_rows, ambient = self._media_rows()
         all_v, all_n, all_uv, all_vc, all_b, all_e = [], [], [], [], [], []
-        all_mi, all_me, all_sss = [], [], []
+        all_mi, all_me, all_sss, all_mot = [], [], [], []
+        mot_mats = []  # (M0, M1) of each animated shape
+        motion = self.shape_motion + [None] * (len(self.soups)
+                                               - len(self.shape_motion))
         any_colors = False
-        for soup, bsdf_i, emitter_i, interior, exterior, sss_i in self.soups:
+        for (soup, bsdf_i, emitter_i, interior, exterior, sss_i), mot in zip(
+                self.soups, motion):
             v, n, uv, vc = soup.concat()
+            if mot is not None:
+                mot_mats.append(mot)
+            all_mot.append(np.full(len(v), len(mot_mats) - 1 if mot is not
+                                   None else -1, dtype=np.int32))
             all_v.append(v)
             all_n.append(n)
             all_uv.append(uv)
@@ -543,9 +583,9 @@ class SceneBuilder:
         tri_bsdf = np.concatenate(all_b) if all_b else np.zeros(0, np.int32)
         tri_emitter = (np.concatenate(all_e) if all_e
                        else np.zeros(0, np.int32))
-        tri_medium, tri_medium_ext, tri_sss = (
+        tri_medium, tri_medium_ext, tri_sss, tri_mot = (
             np.concatenate(a) if a else np.zeros(0, np.int32)
-            for a in (all_mi, all_me, all_sss))
+            for a in (all_mi, all_me, all_sss, all_mot))
 
         v0 = verts[:, 0]
         e1 = verts[:, 1] - verts[:, 0]
@@ -646,6 +686,12 @@ class SceneBuilder:
             tri_sss=tri_sss,
             sss_eta=[s["eta"] for s in self.subsurfaces] or [1.0],
             sss_M=np.zeros((len(tri_sss), 3, 3)),
+            mot_m0=(np.stack([m[0] for m in mot_mats]) if mot_mats
+                    else np.eye(4)[None]),
+            mot_m1=(np.stack([m[1] for m in mot_mats]) if mot_mats
+                    else np.eye(4)[None]),
+            tri_mot=tri_mot,
+            **self._irawan_arrays(),
             **self._media_arrays(media_rows, ambient),
         )
         cfg = RenderConfig(

@@ -1,6 +1,7 @@
 """Host-side shape → triangle-soup generation (port of
 sdmm_tpu/scene/shapes.py: ``TriSoup``, the rectangle, cube, sphere, disk
-and cylinder, indexed meshes, the OBJ loader and the curvature bake).
+and cylinder, hair fibers, heightfields, indexed meshes, the OBJ loader and
+the curvature bake).
 
 Unit-shape conventions match Mitsuba 0.6 (rectangle: [-1,1]^2 in the
 xy-plane, +z normal; cube: [-1,1]^3; disk: the unit disk at z = 0). Pure
@@ -198,33 +199,12 @@ def make_cylinder(p0: np.ndarray, p1: np.ndarray, radius: float,
                   flip_normals: bool = False) -> TriSoup:
     """Open cylinder from p0 to p1 (no end caps, as Mitsuba's), with
     smooth radial normals."""
-    p0 = np.asarray(p0, dtype=np.float64)
-    p1 = np.asarray(p1, dtype=np.float64)
+    p0 = np.asarray(p0, dtype=np.float64)[None]
+    p1 = np.asarray(p1, dtype=np.float64)[None]
     axis = p1 - p0
-    length = np.linalg.norm(axis)
-    z = axis / max(length, 1e-12)
-    a = (np.array([1.0, 0.0, 0.0]) if abs(z[0]) < 0.9
-         else np.array([0.0, 1.0, 0.0]))
-    x = np.cross(z, a)
-    x /= np.linalg.norm(x)
-    y = np.cross(z, x)
-    phi = np.linspace(0.0, 2 * np.pi, n_phi + 1)
-    ring_n = np.outer(np.cos(phi), x) + np.outer(np.sin(phi), y)
-    lo = p0 + radius * ring_n
-    hi = p1 + radius * ring_n
-    verts, normals, uvs = [], [], []
-    for j in range(n_phi):
-        quad_v = [lo[j], hi[j], hi[j + 1], lo[j + 1]]
-        quad_n = [ring_n[j], ring_n[j], ring_n[j + 1], ring_n[j + 1]]
-        u0, u1 = phi[j] / (2 * np.pi), phi[j + 1] / (2 * np.pi)
-        quad_uv = [[u0, 0], [u0, 1], [u1, 1], [u1, 0]]
-        for idx in ([0, 1, 2], [0, 2, 3]):
-            verts.append([quad_v[i] for i in idx])
-            normals.append([quad_n[i] for i in idx])
-            uvs.append([quad_uv[i] for i in idx])
-    verts = np.asarray(verts)
-    normals = np.asarray(normals)
-    uvs = np.asarray(uvs, dtype=np.float64)
+    verts, normals, uvs = _cylinders(p0, p1, axis,
+                                     np.asarray([np.linalg.norm(axis[0])]),
+                                     radius, n_phi)
     if to_world is not None:
         verts = _transform_points(
             to_world, verts.reshape(-1, 3)).reshape(-1, 3, 3)
@@ -238,6 +218,127 @@ def make_cylinder(p0: np.ndarray, p1: np.ndarray, radius: float,
     soup.add(verts, normals, uvs)
     return soup
 
+def _read_hair_fibers(filename: str) -> list[np.ndarray]:
+    """The fibers of a hair file, each [n >= 2, 3] float64: the
+    "BINARY_HAIR" float32 stream (an inf x-coordinate starts a new fiber)
+    or the whitespace text format (a line of fewer than three numbers
+    starts one)."""
+    fibers: list[np.ndarray] = []
+    with open(filename, "rb") as f:
+        header = f.read(11)
+        if header == b"BINARY_HAIR":
+            import struct
+
+            (n_verts,) = struct.unpack("<I", f.read(4))
+            data = np.frombuffer(f.read(4 * 3 * n_verts),
+                                 dtype="<f4").reshape(-1, 3)
+            cur: list[np.ndarray] = []
+            for v in data:
+                if np.isinf(v[0]):
+                    if len(cur) >= 2:
+                        fibers.append(np.asarray(cur))
+                    cur = []
+                else:
+                    cur.append(v.astype(np.float64))
+            if len(cur) >= 2:
+                fibers.append(np.asarray(cur))
+            return fibers
+        f.seek(0)
+        cur = []
+        for line in f.read().decode("utf-8", "ignore").splitlines():
+            parts = line.split()
+            if len(parts) < 3:
+                if len(cur) >= 2:
+                    fibers.append(np.asarray(cur))
+                cur = []
+                continue
+            cur.append(np.array([float(x) for x in parts[:3]]))
+        if len(cur) >= 2:
+            fibers.append(np.asarray(cur))
+    return fibers
+
+
+def load_hair(filename: str, radius: float = 0.025,
+              to_world: np.ndarray | None = None, n_sides: int = 4,
+              reduction: float = 0.0,
+              angle_threshold_deg: float = 1.0) -> TriSoup:
+    """Hair fibers → open cylinders of ``n_sides`` sides per segment.
+    Interior vertices where the fiber turns by less than
+    ``angle_threshold_deg`` are dropped; ``reduction`` drops that fraction
+    of the fibers at random (``np.random.default_rng(0)``, as the
+    reference) and widens the radius to compensate."""
+    fibers = _read_hair_fibers(filename)
+    if reduction > 0:
+        rng = np.random.default_rng(0)
+        keep = rng.random(len(fibers)) >= reduction
+        fibers = [fb for fb, k in zip(fibers, keep) if k]
+        radius *= 1.0 / np.sqrt(max(1.0 - reduction, 1e-6))
+    cos_thresh = np.cos(np.deg2rad(angle_threshold_deg))
+    seg_a, seg_b = [], []
+    for fiber in fibers:
+        pts = [fiber[0]]
+        for i in range(1, len(fiber) - 1):
+            d0 = fiber[i] - pts[-1]
+            d1 = fiber[i + 1] - fiber[i]
+            n0, n1 = np.linalg.norm(d0), np.linalg.norm(d1)
+            if n0 < 1e-12:
+                continue
+            if n1 > 1e-12 and np.dot(d0, d1) / (n0 * n1) > cos_thresh:
+                continue
+            pts.append(fiber[i])
+        pts.append(fiber[-1])
+        seg_a += pts[:-1]
+        seg_b += pts[1:]
+    soup = TriSoup()
+    if seg_a:
+        p0, p1 = np.asarray(seg_a), np.asarray(seg_b)
+        axis = p1 - p0
+        length = np.asarray([np.linalg.norm(d) for d in axis])
+        keep = length >= 1e-12
+        if keep.any():
+            # Zero colours, as the reference's soup.add(*concat()) gives.
+            v, n, uv = _cylinders(p0[keep], p1[keep], axis[keep],
+                                  length[keep], radius, n_sides)
+            soup.add(v, n, uv, np.zeros_like(v))
+    if to_world is not None:
+        soup = soup.transformed(to_world)
+    return soup
+
+
+def _cylinders(p0, p1, axis, length, radius, n_phi):
+    """Open cylinders of n_phi sides around the segments p0[i] -> p1[i]
+    ([S, 3]; axis = p1 - p0 and length its norm): (verts, normals, uvs) of
+    their triangles in order, 2·n_phi a segment, with smooth radial
+    normals. Every vector norm is np.linalg.norm's of one vector, so that a
+    batch gives each segment's cylinder bit for bit."""
+    s = len(p0)
+    z = axis / np.maximum(length, 1e-12)[:, None]
+    a = np.where((np.abs(z[:, 0]) < 0.9)[:, None], [1.0, 0.0, 0.0],
+                 [0.0, 1.0, 0.0])
+    x = np.cross(z, a)
+    x /= np.asarray([np.linalg.norm(v) for v in x])[:, None]
+    y = np.cross(z, x)
+    phi = np.linspace(0.0, 2 * np.pi, n_phi + 1)
+    ring_n = (np.cos(phi)[None, :, None] * x[:, None, :]
+              + np.sin(phi)[None, :, None] * y[:, None, :])  # [S, n+1, 3]
+    lo = p0[:, None, :] + radius * ring_n
+    hi = p1[:, None, :] + radius * ring_n
+    j, j1 = np.arange(n_phi), np.arange(1, n_phi + 1)
+    # Quad j is (lo j, hi j, hi j+1, lo j+1), split as (0, 1, 2), (0, 2, 3).
+    verts = np.stack([np.stack([lo[:, j], hi[:, j], hi[:, j1]], 2),
+                      np.stack([lo[:, j], hi[:, j1], lo[:, j1]], 2)], 2)
+    normals = np.stack([
+        np.stack([ring_n[:, j], ring_n[:, j], ring_n[:, j1]], 2),
+        np.stack([ring_n[:, j], ring_n[:, j1], ring_n[:, j1]], 2)], 2)
+    u0, u1 = phi[j] / (2 * np.pi), phi[j1] / (2 * np.pi)
+    zero, one = np.zeros(n_phi), np.ones(n_phi)
+    q = [np.stack([u0, zero], -1), np.stack([u0, one], -1),
+         np.stack([u1, one], -1), np.stack([u1, zero], -1)]
+    uvs = np.stack([np.stack([q[0], q[1], q[2]], 1),
+                    np.stack([q[0], q[2], q[3]], 1)], 1)  # [n, 2, 3, 2]
+    uvs = np.broadcast_to(uvs[None], (s,) + uvs.shape)
+    return (verts.reshape(-1, 3, 3), normals.reshape(-1, 3, 3),
+            uvs.reshape(-1, 3, 2))
 
 def mesh_to_soup(mesh: dict, to_world: np.ndarray | None = None,
                  flip_normals: bool = False) -> TriSoup:
@@ -441,3 +542,106 @@ def load_obj(path: str, to_world: np.ndarray | None = None,
             soup.add(pv[None], None if pn is None else pn[None],
                      None if pt is None else pt[None])
     return soup
+
+
+def _round_pow2_plus_1(n: int) -> int:
+    """The smallest 2^k + 1 >= n: a heightfield's W - 1 and H - 1 are
+    rounded up to powers of two."""
+    n = max(n, 2)
+    k = n - 1
+    if k & (k - 1) == 0:
+        return n
+    return (1 << (k - 1).bit_length()) + 1
+
+
+def load_height_data(path: str, scale: float = 1.0) -> np.ndarray:
+    """An image file → its luminance (ITU-R 709 weights) as a height grid
+    [H, W] float64, times ``scale``. EXR is read by ``utils/exr.py`` and
+    PNG by ``utils/png.py``; any other format needs PIL, and without it
+    raises naming the file. Integer images above 1.5 are divided by 255."""
+    from ..utils.png import PNG_SIGNATURE, read_png
+
+    ext = path.rsplit(".", 1)[-1].lower()
+    if ext == "exr":
+        from ..utils.exr import read_exr
+
+        img = np.asarray(read_exr(path), dtype=np.float64)
+    else:
+        with open(path, "rb") as f:
+            is_png = f.read(len(PNG_SIGNATURE)) == PNG_SIGNATURE
+        if is_png:
+            img = read_png(path).astype(np.float64)
+        else:
+            try:
+                from PIL import Image
+            except ImportError as exc:
+                raise RuntimeError(
+                    f"{path}: only EXR and PNG height maps are decoded "
+                    "without PIL, which is not installed") from exc
+            img = np.asarray(Image.open(path), dtype=np.float64)
+        if img.max(initial=0.0) > 1.5:
+            img = img / 255.0
+    if img.ndim == 3:
+        if img.shape[-1] >= 3:
+            img = (0.212671 * img[..., 0] + 0.715160 * img[..., 1]
+                   + 0.072169 * img[..., 2])
+        else:
+            img = img[..., 0]
+    return img * scale
+
+
+def _resample_bilinear(data: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Clamped bilinear resample of [h0, w0] to [h, w]."""
+    h0, w0 = data.shape
+    if (h0, w0) == (h, w):
+        return data
+    ys = np.linspace(0, h0 - 1, h)
+    xs = np.linspace(0, w0 - 1, w)
+    y0 = np.clip(np.floor(ys).astype(int), 0, h0 - 1)
+    x0 = np.clip(np.floor(xs).astype(int), 0, w0 - 1)
+    y1 = np.minimum(y0 + 1, h0 - 1)
+    x1 = np.minimum(x0 + 1, w0 - 1)
+    fy = (ys - y0)[:, None]
+    fx = (xs - x0)[None, :]
+    d00 = data[np.ix_(y0, x0)]
+    d01 = data[np.ix_(y0, x1)]
+    d10 = data[np.ix_(y1, x0)]
+    d11 = data[np.ix_(y1, x1)]
+    return (d00 * (1 - fy) * (1 - fx) + d01 * (1 - fy) * fx
+            + d10 * fy * (1 - fx) + d11 * fy * fx)
+
+
+def make_heightfield(data: np.ndarray, to_world: np.ndarray | None = None,
+                     shading_normals: bool = True,
+                     flip_normals: bool = False) -> TriSoup:
+    """A height grid → two triangles a cell. The grid is resampled so that
+    W - 1 and H - 1 are powers of two and placed on [-1, 1]^2 in xy with
+    z = height; uv = grid / (W - 1, H - 1). Shading normals are the
+    normalised (-dz/dx, -dz/dy, 1) of ``np.gradient`` (central differences
+    inside, one-sided at the border), else the faces' own."""
+    data = np.asarray(data, dtype=np.float64)
+    h0, w0 = data.shape
+    w = _round_pow2_plus_1(w0)
+    h = _round_pow2_plus_1(h0)
+    data = _resample_bilinear(data, w, h)
+
+    xs, ys = np.meshgrid(np.arange(w), np.arange(h))
+    obj = np.stack(
+        [xs * (2.0 / (w - 1)) - 1.0, ys * (2.0 / (h - 1)) - 1.0, data],
+        axis=-1).reshape(-1, 3)
+    uv = np.stack([xs / (w - 1), ys / (h - 1)], axis=-1).reshape(-1, 2)
+    dz_dy, dz_dx = np.gradient(data, 2.0 / (h - 1), 2.0 / (w - 1))
+    vn = np.stack([-dz_dx, -dz_dy, np.ones_like(data)],
+                  axis=-1).reshape(-1, 3)
+    vn /= np.maximum(np.linalg.norm(vn, axis=-1, keepdims=True), 1e-20)
+
+    i = (ys[:-1, :-1] * w + xs[:-1, :-1]).reshape(-1)
+    v00, v10, v01, v11 = i, i + 1, i + w, i + w + 1
+    faces = np.concatenate([np.stack([v00, v10, v11], axis=-1),
+                            np.stack([v00, v11, v01], axis=-1)], axis=0)
+    mesh = {"positions": obj, "faces": faces, "uv": uv}
+    if shading_normals:
+        mesh["normals"] = vn
+    else:
+        mesh["face_normals"] = True
+    return mesh_to_soup(mesh, to_world, flip_normals)

@@ -1,25 +1,26 @@
-"""Mitsuba 0.6 scene-XML loader (port of sdmm_tpu/scene/xml_loader.py, cut to
-what the port renders).
+"""Mitsuba 0.6 scene-XML loader (port of sdmm_tpu/scene/xml_loader.py).
 
 It reads the same files the same way: ``<default>``, ``$var`` substitution
 (``-D`` overrides take precedence) and ``<include>``; ``<ref>`` and
 ``twosided``; the perspective sensor with its film, sampler and rfilter;
-the integrator's properties; every BSDF but irawan, with the bumpmap,
-normalmap, blendbsdf, mixturebsdf, mask, coating and roughcoating
+the integrator's properties; every BSDF, irawan with its weave file (or
+the built-in plain weave) and ``$parameter`` substitution, with the
+bumpmap, normalmap, blendbsdf, mixturebsdf, mask, coating and roughcoating
 wrappers; bitmap textures (PNG decoded by ``utils/png.py``), ``scale`` and
 the procedural textures (checkerboard, gridtexture, wireframe,
 vertexcolors, curvature baked to vertex colours); area, constant, point,
 spot, directional, collimated, envmap (an EXR through ``utils/exr.py``),
 sky, sun and sunsky emitters; the rectangle, cube, sphere, disk, cylinder,
-obj, serialized, ply, shapegroup and instance shapes; a scene-level
-homogeneous medium, a shape's interior medium, homogeneous or
-heterogeneous (a ``.vol`` density grid through ``scene/volume.py``), and
-the dipole subsurface model with its material presets. Every feature the
-port cannot render yet raises ``NotImplementedError`` at load time, naming
-its ROADMAP item; a shape type the loader does not know is skipped, as the
-reference skips it. A bitmap or env map whose file is missing or a git-lfs
-stub becomes the reference's placeholder (a 4×4 mid-grey texture, a
-constant environment of the map's scale, a thin unit-density fog for a
+hair, heightfield (an EXR or PNG height map), obj, serialized, ply,
+shapegroup and instance shapes, and a keyframed ``<animation>`` on a
+shape's toWorld (the geometry baked at the first keyframe, the first and
+last keyframes kept as its motion); a scene-level homogeneous medium, a
+shape's interior medium, homogeneous or heterogeneous (a ``.vol`` density
+grid through ``scene/volume.py``), and the dipole subsurface model with
+its material presets. A shape type the loader does not know is skipped,
+as the reference skips it. A bitmap or env map whose file is missing or a
+git-lfs stub becomes the reference's placeholder (a 4×4 mid-grey texture,
+a constant environment of the map's scale, a thin unit-density fog for a
 density grid), with a warning; a file that is there but cannot be decoded
 raises.
 """
@@ -38,8 +39,8 @@ from ..render.subsurface import lookup_material
 from . import shapes as shp
 from .scene import (
     BSDF_BLEND, BSDF_COATING, BSDF_CONDUCTOR, BSDF_DIELECTRIC,
-    BSDF_DIFFTRANS, BSDF_DIFFUSE, BSDF_HK, BSDF_MASK, BSDF_NULL, BSDF_PHONG,
-    BSDF_PLASTIC, BSDF_ROUGHCONDUCTOR, BSDF_ROUGHDIELECTRIC,
+    BSDF_DIFFTRANS, BSDF_DIFFUSE, BSDF_HK, BSDF_IRAWAN, BSDF_MASK, BSDF_NULL,
+    BSDF_PHONG, BSDF_PLASTIC, BSDF_ROUGHCONDUCTOR, BSDF_ROUGHDIELECTRIC,
     BSDF_ROUGHDIFFUSE, BSDF_ROUGHPLASTIC, BSDF_THINDIELECTRIC, BSDF_WARD,
     PROC_CHECKERBOARD, PROC_GRID, PROC_MESHATTR, PROC_WIREFRAME,
     SceneBuilder,
@@ -58,11 +59,6 @@ DIELECTRIC_IOR = {
     "vacuum": 1.0, "air": 1.000277, "water": 1.3330, "glass": 1.5046,
     "bk7": 1.5046, "diamond": 2.419, "polypropylene": 1.49,
 }
-
-# What the reference builds and the port does not render yet, by the
-# ROADMAP item that ports it.
-UNPORTED_BSDFS = {"irawan": "A9"}
-UNPORTED_SHAPES = {"hair": "A8b", "heightfield": "A8b"}
 
 
 def unported(what: str, item: str) -> NotImplementedError:
@@ -461,8 +457,6 @@ class XMLLoader:
         btype = _subst(el.get("type"), self.variables)
         name = el.get("id")
         b = self.builder
-        if btype in UNPORTED_BSDFS:
-            raise unported(f"the {btype} BSDF", UNPORTED_BSDFS[btype])
         p = _props(el, self.variables)
         if btype in ("twosided", "bumpmap", "normalmap"):
             # Wrappers flattened onto the child's row: reflective models
@@ -573,6 +567,22 @@ class XMLLoader:
         elif btype == "difftrans":
             code = BSDF_DIFFTRANS
             kwargs["albedo"] = p.get("transmittance", np.full(3, 0.5))
+        elif btype == "irawan":
+            # Woven cloth: the pattern from a weave-DSL file, its $names
+            # substituted from the BSDF's properties, or the plain weave.
+            from ..bsdf.irawan import PLAIN_WEAVE, parse_weave
+
+            fname = p.get("filename")
+            if fname:
+                with open(os.path.join(self.base_dir, fname)) as fh:
+                    text = fh.read()
+            else:
+                text = PLAIN_WEAVE
+            wp = parse_weave(text, dict(p))
+            wp.repeat_u = float(p.get("repeatU", 1.0))
+            wp.repeat_v = float(p.get("repeatV", 1.0))
+            b.irawan_pattern = wp
+            code = BSDF_IRAWAN
         elif btype == "hk":
             # Hanrahan-Krueger slab from sigmaS/sigmaA or sigmaT + albedo;
             # a nested hg phase sets g (carried in eta).
@@ -677,8 +687,12 @@ class XMLLoader:
         stype = _subst(el.get("type"), self.variables)
         p = _props(el, self.variables)
         to_world = p.get("toWorld", np.eye(4))
+        motion = None
         if isinstance(to_world, tuple) and to_world[0] == "animation":
-            raise unported("keyframed motion", "A8b")
+            # Baked at the first keyframe; the first and last are kept.
+            frames = to_world[1]
+            motion = (frames[0][1], frames[-1][1])
+            to_world = motion[0]
         flip = bool(p.get("flipNormals", False))
 
         if stype == "shapegroup":
@@ -723,10 +737,6 @@ class XMLLoader:
             bsdf_idx = (self.builder.add_bsdf(BSDF_NULL) if interior_med
                         else self.builder.add_bsdf(BSDF_DIFFUSE,
                                                    albedo=np.full(3, 0.5)))
-        if stype in UNPORTED_SHAPES:
-            if stype == "heightfield" and not self._heightfield_file(el, p):
-                return  # heights from a procedural texture: none built
-            raise unported(f"the {stype} shape", UNPORTED_SHAPES[stype])
 
         if stype == "rectangle":
             soup = shp.make_rectangle(to_world, flip)
@@ -749,6 +759,21 @@ class XMLLoader:
             soup = shp.make_cylinder(pts["p0"], pts["p1"],
                                      float(p.get("radius", 1.0)), to_world,
                                      flip_normals=flip)
+        elif stype == "hair":
+            soup = shp.load_hair(
+                os.path.join(base_dir, p.get("filename")),
+                radius=float(p.get("radius", 0.025)), to_world=to_world,
+                reduction=float(p.get("reduction", 0.0)),
+                angle_threshold_deg=float(p.get("angleThreshold", 1.0)))
+        elif stype == "heightfield":
+            fname = self._heightfield_file(el, p)
+            if not fname:
+                return  # heights from a procedural texture: none built
+            soup = shp.make_heightfield(
+                shp.load_height_data(os.path.join(base_dir, fname),
+                                     float(p.get("scale", 1.0))),
+                to_world, shading_normals=bool(p.get("shadingNormals", True)),
+                flip_normals=flip)
         elif stype == "obj":
             soup = shp.load_obj(
                 os.path.join(base_dir, p.get("filename")), to_world, flip,
@@ -772,7 +797,8 @@ class XMLLoader:
             collect.append((soup, bsdf_idx, emitter_idx, interior_med))
         else:
             self.builder.add_shape(soup, bsdf_idx, emitter_idx,
-                                   interior=interior_med, sss=sss_idx)
+                                   interior=interior_med, motion=motion,
+                                   sss=sss_idx)
 
     def _heightfield_file(self, el, p) -> str:
         """The height file of a heightfield: its own or its texture's."""

@@ -1,4 +1,5 @@
-"""Port parity of the BSDFs: every type but irawan (codes 0-15 and 17) and
+"""Port parity of the BSDFs: every type but irawan (codes 0-15 and 17;
+irawan in tests/test_torch_irawan.py, and its dispatch here) and
 the containers (blend with smooth and with delta children, mask, coating,
 roughcoating), in ONE BSDF table built by both packages' SceneBuilder.
 sample_full takes identical u0/u1/u2 and eval_pdf_full identical
@@ -203,10 +204,47 @@ def test_shading_frame_matches(runs, btype):
 
 
 def test_irawan_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tscene.SceneBuilder().add_bsdf(tscene.BSDF_IRAWAN)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tbsdf.eval_pdf_full({}, None, None, types=(0, tscene.BSDF_IRAWAN))
+    """Irawan is no longer refused. A woven row in a table with a diffuse
+    one: each lane takes its own type's lobe; Irawan's eval is eval_irawan
+    at the hit's uv with the cosine pdf, its sample is cosine-distributed
+    with weight f / pdf."""
+    from sdmm_tpu_torch.bsdf import irawan as tirawan
+
+    b = tscene.SceneBuilder()
+    b.irawan_pattern = tirawan.parse_weave(tirawan.PLAIN_WEAVE)
+    b.add_shape(tshapes.make_rectangle(np.eye(4)),
+                b.add_bsdf(0, albedo=[0.7, 0.5, 0.3]))
+    b.add_shape(tshapes.make_rectangle(np.eye(4)),
+                b.add_bsdf(tscene.BSDF_IRAWAN))
+    scene, cfg = b.build(device="cpu")
+    assert cfg.bsdf_types == (0, tscene.BSDF_IRAWAN)
+    n = 4096
+    g = torch.Generator().manual_seed(5)
+    idx = (torch.arange(n) % 2).int()
+    uv = torch.rand((n, 2), generator=g)
+    wi = tbsdf.warp.square_to_cosine_hemisphere(torch.rand((n, 2),
+                                                           generator=g))
+    wo = tbsdf.warp.square_to_cosine_hemisphere(torch.rand((n, 2),
+                                                           generator=g))
+    p = tbsdf.gather_params(scene, idx, uv, types=cfg.bsdf_types)
+    f, pdf = tbsdf.eval_pdf_full(p, wi, wo, types=cfg.bsdf_types)
+    woven = idx == 1
+    want = tirawan.eval_irawan(tirawan.device_tables(scene), uv, wi, wo)
+    assert torch.equal(f[woven], want[woven])
+    assert torch.allclose(f[~woven], torch.tensor([0.7, 0.5, 0.3])
+                          * wo[~woven, 2:] / np.pi)
+    assert torch.allclose(pdf, wo[:, 2] / np.pi, rtol=1e-6, atol=0.0)
+    u = torch.rand((n, 4), generator=g)
+    bs = tbsdf.sample_full(p, wi, u[:, 0], u[:, 1], u[:, 2:],
+                           types=cfg.bsdf_types)
+    assert torch.equal(bs["wo"], tbsdf.warp.square_to_cosine_hemisphere(
+        u[:, 2:]))
+    f_s, pdf_s = tbsdf.eval_pdf_full(p, wi, bs["wo"], types=cfg.bsdf_types)
+    ok = pdf_s > 0
+    assert ok.float().mean() > 0.99 and not bs["delta"].any()
+    assert torch.allclose(bs["weight"][ok], f_s[ok] / pdf_s[ok, None],
+                          rtol=1e-6, atol=0.0)
+    assert (f[woven] > 0).all(-1).float().mean() > 0.99
 
 
 def _params(btype, n, **over):

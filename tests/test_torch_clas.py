@@ -7,17 +7,9 @@ The scene is tests/test_clas_pallas.py's: the box of tests/test_render.py
 plus six spheres of resolution 10 (2,172 triangles), built by both
 packages from the same numpy draws. The builds must agree array for array
 at the default cluster size (9 clusters of 256) and at t_c = 128. The twin
-is held against one interpret-mode call of the reference kernel
-``clas_pallas.intersect`` at t_c = 128, as tests/test_clas_pallas.py
-forces a multi-cluster build (~40 s, nearly all of it tracing the kernel's
-128-way unrolled sweep; it runs in a background thread), and against the
-reference's default route for such scenes, the XLA round loop
-``clas.intersect`` / ``clas.occluded``. 4,096 random rays, t_max INF on
-half of them and finite on the rest, so that one call covers both closest
-hit and occlusion: hit ids and valid equal on every ray, t within rtol
-2e-4 / atol 2e-5 (tests/test_clas_pallas.py:62-69; XLA's CPU backend may
-contract the Woop products into FMAs, and the round loop runs
-Möller–Trumbore).
+against the reference's kernel and its XLA round loop is in
+tests/test_torch_clas_kernel.py (the kernel's ~40 s interpret-mode trace,
+in a file of few tests that the tier-1 scheduler runs late).
 
 The kernel's walk over its cluster tree (``ops/clas_cull.build_tree``) is
 held here through a plain model of it (``torch_parity.tree_walk``): on the
@@ -29,9 +21,7 @@ triangles or opens fewer tree nodes than the bound admits.
 
 import os
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -42,7 +32,6 @@ from torch_parity import (  # noqa: E402
     make_box, make_sphere_box, random_rays, rays_at, to_np, tree_walk,
 )
 
-from sdmm_tpu.ops import clas_pallas  # noqa: E402
 from sdmm_tpu.render import clas as jclas  # noqa: E402
 from sdmm_tpu.scene import scene as jscene  # noqa: E402
 from sdmm_tpu.scene import shapes as jshapes  # noqa: E402
@@ -72,34 +61,6 @@ def _tris(scene):
 
 def _rays():
     return random_rays(_tris(_ts())[0], N, seed=4)
-
-
-def _reference_kernel():
-    js = _js()
-    c = jclas.build_clusters(*_tris(js), t_c=128)
-    js = js._replace(**{f"clas_{k}": jnp.asarray(c[k]) for k in (
-        "lo", "hi", "rows", "ids", "woop", "aabb")})
-    ro, rd, tm = (jnp.asarray(a) for a in _rays())
-    out = clas_pallas.intersect(js, ro, rd, tm, interpret=True)
-    return {k: np.asarray(v) for k, v in out.items()}
-
-
-def _reference_xla():
-    js = _js()
-    ro, rd, tm = (jnp.asarray(a) for a in _rays())
-    out = {k: np.asarray(v) for k, v in jclas.intersect(js, ro, rd, tm)
-           .items()}
-    out["occluded"] = np.asarray(jclas.occluded(js, ro, rd, tm))
-    return out
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _reference_runs():
-    """Starts the reference's calls at the top of the module, so that the
-    interpret-mode trace overlaps the port's tests."""
-    with ThreadPoolExecutor(2) as ex:
-        yield {"kernel": ex.submit(_reference_kernel),
-               "xla": ex.submit(_reference_xla)}
 
 
 def _assert_same_hits(got, want, t_max):
@@ -257,31 +218,6 @@ def test_tree_walk_keeps_the_lower_code_on_exact_ties():
     hits = want[1] >= 0
     assert int(hits.sum()) > 200 and bool((want[1][hits] < n_t).all())
     assert int((got[5] > 0).sum()) > 5  # the tie clause replaced a best
-
-
-def test_twin_matches_reference_kernel(_reference_runs):
-    ts = _ts()
-    c = tclas.build_clusters(*_tris(ts), t_c=128)
-    ts = ts._replace(clas_ids=torch.as_tensor(c["ids"]),
-                     clas_woop=torch.as_tensor(c["woop"]),
-                     clas_aabb=torch.as_tensor(c["aabb"]))
-    ro, rd, tm = (torch.as_tensor(a) for a in _rays())
-    got = clas_cull.intersect(ts, ro, rd, tm)
-    want = _reference_runs["kernel"].result()
-    _assert_same_hits(got, want, to_np(tm))
-    # The reference's occluded is valid & (t < t_max) of the same call.
-    np.testing.assert_array_equal(
-        to_np(clas_cull.occluded(ts, ro, rd, tm)),
-        want["valid"] & (want["t"] < to_np(tm)))
-
-
-def test_twin_matches_xla_cluster_sweep(_reference_runs):
-    ts = _ts()
-    ro, rd, tm = (torch.as_tensor(a) for a in _rays())
-    want = _reference_runs["xla"].result()
-    _assert_same_hits(clas_cull.intersect(ts, ro, rd, tm), want, to_np(tm))
-    np.testing.assert_array_equal(to_np(clas_cull.occluded(ts, ro, rd, tm)),
-                                  want["occluded"])
 
 
 def test_route_by_triangle_count_on_the_cpu(monkeypatch):

@@ -3,9 +3,11 @@ and a few spp: ``render`` writes the image (EXR, or .npy), stats.json in
 the reference's schema and, for sdmm, checkpoints/model_NNNNN.asdmm, and the
 image equals what render_wavefront or SDMMTrainer(...).run gives on the same
 loaded scene and seed (ppg, sdmm with the reservoir or the asynchronous
-EM, a render checkpointed and resumed); ``compare`` prints all_metrics'
-keys; every option the port does not hold yet raises NotImplementedError
-naming its ROADMAP item."""
+EM, a render checkpointed and resumed); the classic integrators (direct,
+ao, field, motion, adaptive, multichannel) with their -D properties and
+stats.json keys; ``compare`` prints all_metrics' keys; ``import`` writes a
+scene that builds; every option the port does not hold yet raises
+NotImplementedError naming its ROADMAP item."""
 
 import json
 import os
@@ -145,7 +147,7 @@ def test_compare_prints_all_metrics(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra,item", [
     (["--integrator", "bdpt"], "A12"),
-    (["--integrator", "direct"], "A12"),
+    (["--integrator", "ptracer"], "A12"),
     (["--integrator", "pssmlt"], "A12"),
 ])
 def test_unported_options_raise(tmp_path, extra, item):
@@ -263,3 +265,71 @@ def test_module_entry_point(box, tmp_path):
     assert res.returncode == 0, res.stderr
     assert "Rendered" in res.stdout
     assert read_exr(str(out)).shape == (12, 16, 3)
+
+
+CLASSIC = {
+    "direct": (["-D", "emitterSamples=2"], {"mean"}),
+    "ao": (["-D", "rayLength=1.5"], {"mean"}),
+    "field": (["-D", "field=distance"], {"mean"}),
+    "motion": (["-D", "time=0.5"], {"mean"}),
+    "adaptive": (["-D", "maxError=0.3"], {"mean", "mean_spp"}),
+    "multichannel": (["-D", "fields=position,uv,nope"], {"fields"}),
+}
+
+
+@pytest.mark.parametrize("integrator", sorted(CLASSIC))
+def test_classic_integrators_render(box, tmp_path, integrator):
+    """The classic integrators through the command line: the image, and
+    stats.json with the reference's keys; the properties come from -D."""
+    from sdmm_tpu_torch.render import classic
+
+    extra, keys = CLASSIC[integrator]
+    out = tmp_path / "out.exr"
+    _render(box, out, "--integrator", integrator, "--spp", "4", *extra)
+    img = read_exr(str(out))
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+    stats = json.loads((tmp_path / "stats.json").read_text())
+    assert {"integrator", "spp", "seconds"} | keys == set(stats)
+    assert stats["integrator"] == integrator and stats["spp"] == 4
+    if integrator == "field":
+        # The same loaded scene and seed through the API.
+        from sdmm_tpu_torch.render.renderer import render
+
+        scene, cfg = load_scene(box).build(device="cpu")
+        want = render(scene, cfg, spp=4, seed=load_scene(box).seed,
+                      trace_fn=lambda s, g, ro, rd: classic.trace_field(
+                          s, g, ro, rd, field="distance", device="cpu"),
+                      device="cpu")["image"]
+        np.testing.assert_array_equal(img, want.astype(np.float32))
+    if integrator == "ao":
+        assert img.min() >= 0.0 and img.max() <= 1.0
+    if integrator == "adaptive":
+        assert stats["mean_spp"] == 4.0  # one pass of 4: the most
+    if integrator == "multichannel":
+        assert stats["fields"] == ["position", "uv"]
+        for f in ("position", "uv"):
+            assert np.isfinite(read_exr(str(tmp_path / f"out_{f}.exr"))).all()
+        np.testing.assert_array_equal(
+            img, read_exr(str(tmp_path / "out_position.exr")))
+
+
+def test_import_writes_a_loadable_scene(tmp_path, capsys):
+    """import: a COLLADA file → scene XML + OBJ meshes, the output named
+    as a second argument or with -o; the written scene builds."""
+    dae = tmp_path / "tri.dae"
+    dae.write_text(
+        '<COLLADA xmlns="http://www.collada.org/2005/11/COLLADASchema">'
+        '<library_geometries><geometry id="g" name="tri"><mesh><source '
+        'id="p"><float_array count="9">0 0 0 1 0 0 0 1 0</float_array>'
+        '<technique_common><accessor stride="3"/></technique_common>'
+        '</source><vertices id="v"><input semantic="POSITION" source="#p"/>'
+        '</vertices><triangles count="1"><input semantic="VERTEX" '
+        'source="#v" offset="0"/><p>0 1 2</p></triangles></mesh></geometry>'
+        '</library_geometries><library_visual_scenes><visual_scene id="s">'
+        '<node><instance_geometry url="#g"/></node></visual_scene>'
+        '</library_visual_scenes></COLLADA>')
+    for args in ([str(tmp_path / "a.xml")], ["-o", str(tmp_path / "b.xml")]):
+        assert cli.main(["import", str(dae), *args, "--device", "cpu"]) == 0
+        assert "1 triangles on cpu" in capsys.readouterr().out
+    assert (tmp_path / "a.xml").read_text() == (tmp_path / "b.xml").read_text()
+    assert (tmp_path / "meshes" / "0000_tri.obj").exists()

@@ -832,3 +832,59 @@ def test_reservoir_update_on_the_card_equals_the_cpu(cuda):
                 assert torch.equal(got, v), k
             else:
                 torch.testing.assert_close(got, v, rtol=1e-6, atol=1e-7)
+
+
+def test_irawan_on_the_card_equals_the_cpu(cuda):
+    """eval_irawan on CUDA tensors equals the CPU's on the same lanes
+    (rtol 1e-5 / atol 1e-6, or on an ill-conditioned lane no further than
+    twice the CPU's own float32 error against a float64 evaluation) on all
+    but 1e-4 of the lanes (chip_smoke.IRAWAN_OFF_SHARE: the specular term
+    switches at the yarn band's and the fiber angle's edges, and a lane
+    within an ulp of an edge takes it on one device alone)."""
+    from torch_parity import TEST_WEAVE, TEST_WEAVE_PARAMS, irawan_agreement
+
+    from sdmm_tpu_torch.bsdf import irawan as tirawan
+
+    tab = tirawan.build_tables(tirawan.parse_weave(TEST_WEAVE,
+                                                   TEST_WEAVE_PARAMS))
+    g = torch.Generator().manual_seed(9)
+    n = 1 << 18
+    uv = torch.rand((n, 2), generator=g) * 4.0 - 1.5
+    wi, wo = (torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=g) * torch.tensor([1.0, 1.0, 0.5])
+        + torch.tensor([0.0, 0.0, 0.6]), dim=-1) for _ in range(2))
+    out = {}
+    for dev, dt in (("cpu", torch.float32), ("cuda", torch.float32),
+                    ("cpu64", torch.float64)):
+        d = dev[:4] if dev != "cpu64" else "cpu"
+        t = {k: torch.as_tensor(v, device=d) for k, v in tab.items()}
+        t = {k: v.to(dt) if v.is_floating_point() else v for k, v in t.items()}
+        out[dev] = tirawan.eval_irawan(
+            t, *(x.to(d, dt) for x in (uv, wi, wo))).cpu().numpy()
+    bad = irawan_agreement(out["cuda"], out["cpu"], out["cpu64"]).any(-1)
+    assert bad.sum() <= 1e-4 * n, (bad.sum(), out["cuda"][bad],
+                                   out["cpu"][bad], out["cpu64"][bad])
+    assert (out["cpu"] > 0).mean() > 0.5
+
+
+def test_trace_field_on_the_card_equals_the_cpu(cuda):
+    """Every field of classic.trace_field on the card equals the CPU's on
+    the same camera rays (rtol 1e-5, atol 1e-5), the hit ids exactly."""
+    from sdmm_tpu_torch.render import classic
+    from sdmm_tpu_torch.scene.sensor import generate_rays
+
+    scene, cfg = make_box(tscene, tshapes, 64, 48).build(device="cpu")
+    g = torch.Generator().manual_seed(2)
+    idx = torch.arange(64 * 48)
+    pix = torch.stack([idx % 64, idx // 64], -1).float() + torch.rand(
+        (idx.numel(), 2), generator=g)
+    ro, rd = generate_rays(scene, pix, 64, 48)
+    for field in classic.FIELDS:
+        got = {d: classic.trace_field(scene, None, ro, rd, field=field,
+                                      bsdf_types=cfg.bsdf_types,
+                                      device=d).cpu()
+               for d in ("cpu", "cuda")}
+        if field in ("shapeIndex", "primIndex"):
+            assert torch.equal(got["cuda"], got["cpu"]), field
+        torch.testing.assert_close(got["cuda"], got["cpu"], rtol=1e-5,
+                                   atol=1e-5, msg=field)

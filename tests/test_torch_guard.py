@@ -260,10 +260,21 @@ def test_guiding_extras_default_to_the_card(no_gpu, tmp_path):
 
 
 def test_unported_scene_features_raise():
-    """Irawan still raises; a textured diffuse builds."""
+    """Every scene feature builds: an Irawan cloth with its weave tables
+    and an unknown BSDF code raises; a textured diffuse builds."""
+    from sdmm_tpu_torch.bsdf.irawan import PLAIN_WEAVE, parse_weave
+
     b = tscene.SceneBuilder()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        b.add_bsdf(tscene.BSDF_IRAWAN)
+    with pytest.raises(ValueError, match="unknown BSDF type"):
+        b.add_bsdf(99)
+    b.irawan_pattern = parse_weave(PLAIN_WEAVE)
+    cloth = b.add_bsdf(tscene.BSDF_IRAWAN)
+    b.add_shape(tshapes.make_rectangle(torch.eye(4).numpy()), cloth)
+    woven, cfg = b.build(device="cpu")
+    assert cfg.bsdf_types == (tscene.BSDF_IRAWAN,)
+    assert woven.iw_pattern.tolist() == [[0, 1], [2, 3]]
+    assert float(woven.iw_consts[8]) > 0.0  # the specular normalisation
+    b = tscene.SceneBuilder()
     tex = b.add_texture(torch.rand((4, 4, 3)).numpy())
     b.add_shape(tshapes.make_rectangle(torch.eye(4).numpy()),
                 b.add_bsdf(tscene.BSDF_DIFFUSE, tex=tex))
@@ -293,10 +304,12 @@ def test_unported_scene_features_raise():
     assert torch.equal(hit["tri"], tisect.intersect(scene, ro, rd)["tri"])
 
 
-@pytest.mark.parametrize("feature", ["fog", "grid medium", "dipole"])
+@pytest.mark.parametrize("feature", ["fog", "grid medium", "dipole",
+                                     "irawan"])
 def test_fused_gates_refuse_media_and_subsurface(feature):
-    """Neither fused pool carries a medium or the dipole term: both gates
-    refuse such a scene, as the reference's do, while they take the box."""
+    """Neither fused pool carries a medium, the dipole term or Irawan's
+    cloth (not an in-kernel BSDF type): both gates refuse such a scene, as
+    the reference's do, while they take the box."""
     from torch_parity import make_media_box
 
     scene, cfg = _scene()
@@ -305,6 +318,17 @@ def test_fused_gates_refuse_media_and_subsurface(feature):
     gs = tr.guide_state()
     assert twf.fused_supported(scene, cfg)
     assert tguided.guided_fused_supported(scene, cfg, gs)
+    if feature == "irawan":
+        from sdmm_tpu_torch.bsdf.irawan import PLAIN_WEAVE, parse_weave
+
+        b = make_box(tscene, tshapes, 8, 8)
+        b.irawan_pattern = parse_weave(PLAIN_WEAVE)
+        b.bsdfs[0] = {**b.bsdfs[0], "type": tscene.BSDF_IRAWAN}
+        scene, cfg = b.build(device="cpu")
+        assert tscene.BSDF_IRAWAN in cfg.bsdf_types
+        assert not twf.fused_supported(scene, cfg)
+        assert not tguided.guided_fused_supported(scene, cfg, gs)
+        return
     kw = {"fog": dict(hetero=False), "grid medium": dict(fog=False),
           "dipole": dict(fog=False, dipole=True)}[feature]
     b = make_media_box(tscene, tshapes, 8, 8, **kw)
@@ -431,6 +455,81 @@ def test_cli_and_loader_default_to_the_card(no_gpu, tmp_path):
     scene, _ = txml.load_scene(xml).build(device="cpu")
     assert scene.tri_v0.device.type == "cpu"
     cli.main(["render", xml, "-o", out, "--spp", "1", "--device", "cpu"])
+    assert os.path.exists(out)
+
+
+def _rays(n=4):
+    ro = torch.tensor([[0.0, 1.0, 3.0]]).repeat(n, 1)
+    rd = torch.tensor([[0.0, 0.0, -1.0]]).repeat(n, 1)
+    return ro, rd
+
+
+CLASSIC_CALLS = {
+    "trace_direct": lambda c, s, g, ro, rd, **k: c.trace_direct(
+        s, g, ro, rd, **k),
+    "trace_ao": lambda c, s, g, ro, rd, **k: c.trace_ao(s, g, ro, rd, **k),
+    "trace_field": lambda c, s, g, ro, rd, **k: c.trace_field(
+        s, g, ro, rd, **k),
+    "trace_motion": lambda c, s, g, ro, rd, **k: c.trace_motion(
+        s, g, ro, rd, 8, 8, **k),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLASSIC_CALLS))
+def test_classic_traces_default_to_the_card(no_gpu, name):
+    """A classic integrator's trace runs on the card unless the caller
+    passes device="cpu", which traces a wave here."""
+    from sdmm_tpu_torch.render import classic
+
+    scene, _ = _scene()
+    ro, rd = _rays()
+    call = CLASSIC_CALLS[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(classic, scene, torch.Generator(), ro, rd)
+    out = call(classic, scene, torch.Generator().manual_seed(0), ro, rd,
+               device="cpu")
+    assert out.shape == (4, 3) and out.device.type == "cpu"
+    assert torch.isfinite(out).all()
+
+
+def test_classic_renders_and_import_default_to_the_card(no_gpu, tmp_path):
+    """render_multichannel, render_adaptive, renderer.render with a
+    trace_fn and the import subcommand run on the card unless the caller
+    asks for the CPU."""
+    from sdmm_tpu_torch import cli
+    from sdmm_tpu_torch.render import classic, renderer
+
+    scene, cfg = _scene()
+    cfg.width = cfg.height = 4
+
+    def trace(s, g, ro, rd):
+        return classic.trace_field(s, g, ro, rd, device="cpu")
+
+    for call in (lambda: classic.render_multichannel(scene, cfg, spp=1),
+                 lambda: classic.render_adaptive(scene, cfg, max_spp=4),
+                 lambda: renderer.render(scene, cfg, spp=1, trace_fn=trace)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    img = renderer.render(scene, cfg, spp=1, trace_fn=trace,
+                          device="cpu")["image"]
+    assert img.shape == (4, 4, 3)
+    dae = tmp_path / "tri.dae"
+    dae.write_text(
+        '<COLLADA xmlns="http://www.collada.org/2005/11/COLLADASchema">'
+        '<library_geometries><geometry id="g"><mesh><source id="p">'
+        '<float_array count="9">0 0 0 1 0 0 0 1 0</float_array>'
+        '<technique_common><accessor stride="3"/></technique_common>'
+        '</source><vertices id="v"><input semantic="POSITION" source="#p"/>'
+        '</vertices><triangles count="1"><input semantic="VERTEX" '
+        'source="#v" offset="0"/><p>0 1 2</p></triangles></mesh></geometry>'
+        '</library_geometries><library_visual_scenes><visual_scene id="s">'
+        '<node><instance_geometry url="#g"/></node></visual_scene>'
+        '</library_visual_scenes></COLLADA>')
+    out = str(tmp_path / "tri.xml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["import", str(dae), out])
+    assert not os.path.exists(out)
+    cli.main(["import", str(dae), out, "--device", "cpu"])
     assert os.path.exists(out)
 
 

@@ -1,11 +1,13 @@
 """Port parity at the slice level: the guided lane-pool render, the trainer's
-optimize step, the state carried across by guiding/convert.py, and a short
-training run, sdmm_tpu_torch vs sdmm_tpu on the box scene of
-tests/test_render.py. Renders use different random streams (JAX threefry,
-torch Philox), so they agree in expectation: image means within 10% (the
-seed-to-seed spread of either pool at 16 spp on 16x16 pixels is ~5%).
-The optimize step on identical samples gives the identical tree and EM
-weights/means within rtol 1e-3."""
+optimize step and the state carried across by guiding/convert.py,
+sdmm_tpu_torch vs sdmm_tpu on the box scene of tests/test_render.py.
+Renders use different random streams (JAX threefry, torch Philox), so they
+agree in expectation: image means within 10% (the seed-to-seed spread of
+either pool at 16 spp on 16x16 pixels is ~5%). The optimize step on
+identical samples gives the identical tree and EM weights/means within
+rtol 1e-3. The short training runs against the reference's are in
+tests/test_torch_trainer_runs.py (a file of few tests that the tier-1
+scheduler runs late)."""
 
 import os
 import sys
@@ -153,35 +155,6 @@ def test_collected_training_samples_are_consistent(trained):
     assert (to_np(s["weight"])[~v] == -1.0).all()
     assert to_np(s["terminal"])[v].sum() <= W * H * 4  # ≤ 1 per path
     assert not to_np(s["terminal"])[~v].any()
-
-
-def test_short_training_run_matches_reference_in_mean():
-    jt, tt = _trainers(train_fraction=0.5)
-    img_j, _ = jt.run(total_spp=24)
-    img_t, _ = tt.run(total_spp=24)
-    assert len(tt.stats) == len(jt.stats) == 3
-    assert set(tt.stats[-1]) == set(jt.stats[-1])  # same stats schema
-    assert [s["optimized_nodes_count"] > 0 for s in tt.stats] == \
-        [s["optimized_nodes_count"] > 0 for s in jt.stats]
-    assert np.isfinite(img_t).all()
-    assert abs(img_t.mean() - img_j.mean()) / img_j.mean() < 0.1, (
-        img_t.mean(), img_j.mean())
-
-
-def test_scan_training_run_matches_reference_in_mean():
-    """pooled_training=False: both trainers collect their training vertices
-    with the scan tracer (trace_wave_guided) and then render the frozen
-    tail on the pool; the images agree in mean as above."""
-    jt, tt = _trainers(train_fraction=0.5, pooled_training=False)
-    img_j, _ = jt.run(total_spp=24)
-    img_t, _ = tt.run(total_spp=24)
-    assert [s["optimized_nodes_count"] > 0 for s in tt.stats] == \
-        [s["optimized_nodes_count"] > 0 for s in jt.stats] == \
-        [True, True, False]
-    assert tt.stats[0]["samples_count"] > 0
-    assert np.isfinite(img_t).all()
-    assert abs(img_t.mean() - img_j.mean()) / img_j.mean() < 0.1, (
-        img_t.mean(), img_j.mean())
 
 
 def test_images_above_the_pool_limit_take_the_scan(monkeypatch):

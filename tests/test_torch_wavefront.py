@@ -1,26 +1,19 @@
 """Port parity: the unguided pools with NEE (render/wavefront.py) and the
 bounce kernel's twin, sdmm_tpu_torch vs sdmm_tpu.
 
-``bounce_plain`` is held against one interpret-mode call of the reference
-``bounce_pallas.bounce`` on one 8192-lane tile of the 12-triangle box of
-tests/test_render.py, on the same numpy inputs (state and splat rtol 1e-5 /
-atol 1e-6, meta equal, each on >= 99.9% of the lanes). The reference's
-compile and its eager ``render_pool`` run in background threads while the
-port's renders run. Whole renders draw their own random numbers, so they
-agree in expectation: the port's eager pool against the reference's at 128
-spp within 5% in image mean (the bound of tests/test_wavefront.py), NEE
-against BSDF sampling alone within the port within 5%, and the port's
-fused pools on the CPU (their plain twins) against its eager pool at 64 spp
-within 6% (tests/test_bounce_pallas.py:310,350), each landing exactly spp
-samples on every pixel.
+Whole renders draw their own random numbers, so they agree in
+expectation: NEE against BSDF sampling alone within the port within 5%,
+and the port's fused pools on the CPU (their plain twins) against its
+eager pool at 64 spp within 6% (tests/test_bounce_pallas.py:310,350), each
+landing exactly spp samples on every pixel. The bounce twin against the
+reference's kernel, and the eager pool against the reference's, are in
+tests/test_torch_wavefront_kernels.py (a file of few tests that the tier-1
+scheduler runs late).
 """
 
 import os
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,8 +21,6 @@ import torch
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_parity import make_box, path_wave, to_np  # noqa: E402
 
-from sdmm_tpu.ops import bounce_pallas as bp  # noqa: E402
-from sdmm_tpu.render import wavefront as jwf  # noqa: E402
 from sdmm_tpu.scene import scene as jscene  # noqa: E402
 from sdmm_tpu.scene import shapes as jshapes  # noqa: E402
 from sdmm_tpu_torch.ops import bounce as bo  # noqa: E402
@@ -55,43 +46,10 @@ def _wave():
     return state, meta, rand[:bo.RAND_ROWS].copy()
 
 
-def _reference_bounce():
-    js, _, _ = _box()
-    tri, em, env = bp.build_tables(js)
-    state, meta, rand = _wave()
-    out = bp.bounce(jnp.asarray(state.reshape(16, R, 128)),
-                    jnp.asarray(meta.reshape(R, 128)),
-                    jnp.asarray(rand.reshape(bo.RAND_ROWS, R, 128)), tri, em,
-                    env, n_tris=int(js.tri_v0.shape[0]),
-                    n_em=int(js.em_tri_idx.shape[0]), max_depth=MAX_DEPTH,
-                    rr_depth=RR_DEPTH, types=(0,), interpret=True)
-    return tuple(np.asarray(a).reshape(a.shape[0], N) if a.ndim == 3
-                 else np.asarray(a).reshape(N) for a in out)
-
-
 def _mean(out):
     img = np.asarray(out["image"]) / np.maximum(
         np.asarray(out["weight"]), 1.0)[:, None]
     return float(img.mean())
-
-
-def _reference_pool():
-    js, _, tcfg = _box()
-    out = jwf.render_pool(js, jax.random.PRNGKey(3), n_lanes=4096, spp=128,
-                          width=W, height=H, max_depth=MAX_DEPTH,
-                          rr_depth=RR_DEPTH, nee=True,
-                          bsdf_types=tcfg.bsdf_types)
-    assert (np.asarray(out["weight"]) == 128).all()
-    return _mean(out)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _reference_runs():
-    """Starts the reference kernel and pool at the top of the module, so
-    that their compiles overlap the port's renders."""
-    with ThreadPoolExecutor(2) as ex:
-        yield {"bounce": ex.submit(_reference_bounce),
-               "pool": ex.submit(_reference_pool)}
 
 
 def _port_pool(spp, nee=True, seed=1):
@@ -109,26 +67,6 @@ def eager64():
     return out
 
 
-def test_bounce_twin_matches_reference_kernel(_reference_runs):
-    _, ts, _ = _box()
-    tri, em, env = bo.build_tables(ts)
-    state, meta, rand = _wave()
-    st, me, sp = (to_np(a) for a in bo.bounce(
-        torch.as_tensor(state), torch.as_tensor(meta), torch.as_tensor(rand),
-        tri, em, env, int(ts.em_tri_idx.shape[0]), MAX_DEPTH, RR_DEPTH,
-        (0,)))
-    st_r, me_r, sp_r = _reference_runs["bounce"].result()
-    assert me.dtype == np.int32 and sp.shape == (8, N)
-    assert sp_r[6].sum() > 100 and sp_r[7].sum() > N // 4
-    assert np.isfinite(sp_r).all()
-    for name, ok in (
-            ("state", np.isclose(st, st_r, rtol=1e-5, atol=1e-6,
-                                 equal_nan=True).all(0)),
-            ("meta", me == me_r),
-            ("splat", np.isclose(sp, sp_r, rtol=1e-5, atol=1e-6).all(0))):
-        assert ok.mean() >= 0.999, (name, ok.mean(), np.nonzero(~ok)[0][:8])
-
-
 def test_bounce_twin_tile_skip():
     _, ts, _ = _box()
     tri, em, env = bo.build_tables(ts)
@@ -137,13 +75,6 @@ def test_bounce_twin_tile_skip():
                            RR_DEPTH, (0,), torch.zeros(1, dtype=torch.int32))
     assert torch.equal(me, meta) and not sp.any()
     assert torch.equal(st.nan_to_num(), state.nan_to_num())
-
-
-def test_render_pool_matches_reference_pool(_reference_runs):
-    out = _port_pool(128, seed=2)
-    assert (to_np(out["weight"]) == 128).all()
-    m_t, m_j = _mean(out), _reference_runs["pool"].result()
-    assert abs(m_t - m_j) / m_j < 0.05, (m_t, m_j)
 
 
 def test_render_pool_nee_matches_bsdf_sampling(eager64):

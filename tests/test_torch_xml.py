@@ -1,13 +1,13 @@
 """Port parity of scene loading: the same scene file, loaded by
-sdmm_tpu.scene.xml_loader.load_scene and by sdmm_tpu_torch's, builds
-array-equal SceneData fields (every field the port has, the port's own
-derived fields aside: textures, env maps and delta lights included) and
-equal builder settings (integrator, sample count, seed, sampler, rfilter)
-and render configs. One case a loader feature; the files (PNG bitmaps, EXR
-env maps among them) are written to tmp_path. Features the port cannot
-render yet raise NotImplementedError at load time, naming their ROADMAP
-item; media (a .vol density grid among them) and dipole subsurface
-instances load into equal tables."""
+sdmm_tpu.scene.xml_loader.load_scene and by sdmm_tpu_torch's, builds array-
+equal SceneData fields (every field the port has, the port's own derived
+fields aside: textures, env maps and delta lights included) and equal
+builder settings (integrator, sample count, seed, sampler, rfilter) and
+render configs. One case a loader feature; the files (PNG bitmaps, EXR env
+maps among them) are written to tmp_path. Media (a .vol density grid among
+them) and dipole subsurface instances load into equal tables; so do the
+Irawan cloth (its weave file with $parameters), hair, heightfields and
+keyframed motion, which once raised NotImplementedError."""
 
 import os
 import struct
@@ -21,7 +21,9 @@ import torch
 sys.path.insert(0, os.path.dirname(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
 from chip_smoke import write_png  # noqa: E402
-from torch_parity import jax_scene_arrays, to_np  # noqa: E402
+from torch_parity import (  # noqa: E402
+    TEST_WEAVE, irawan_norm_draws, jax_scene_arrays, to_np,
+)
 
 from sdmm_tpu.scene import xml_loader as jxml  # noqa: E402
 from sdmm_tpu_torch.scene import scene as tscene  # noqa: E402
@@ -432,21 +434,81 @@ def test_obj_python_parser_matches_native_and_reference(kw, tmp_path,
             np.testing.assert_array_equal(a, b)
 
 
-UNPORTED = {
-    "irawan": '<bsdf type="irawan"/>',
-    "hair": '<shape type="hair"><string name="filename" value="h.hair"/>'
-            '</shape>',
-    "heightfield": '<shape type="heightfield"><string name="filename" '
-                   'value="h.exr"/></shape>',
-    "motion": '<shape type="cube"><animation name="toWorld"><transform '
-              'time="0"/><transform time="1"><translate x="1"/></transform>'
-              '</animation></shape>',
+def _hair_text():
+    """Two fibers in the hair text format, the second with a straight run
+    that the angle threshold thins."""
+    pts = [[0.1 * i, 1.5 - 0.1 * i, 0.02 * (i % 2)] for i in range(6)]
+    pts2 = [[0.3, 1.4 - 0.1 * i, 0.0] for i in range(5)]
+    return "\n".join(" ".join(str(x) for x in p) for p in pts) + "\n\n" + \
+        "\n".join(" ".join(str(x) for x in p) for p in pts2) + "\n"
+
+
+def _height_exr():
+    from sdmm_tpu_torch.utils.exr import write_exr
+
+    path = "h.exr"
+    g = np.linspace(0.0, 1.0, 6 * 5).reshape(5, 6) ** 2
+    return path, lambda d: write_exr(os.path.join(d, path), np.repeat(
+        g[..., None], 3, -1).astype(np.float32))
+
+
+GEOMETRY = {
+    "irawan": ('<shape type="rectangle"><bsdf type="irawan"><string '
+               'name="filename" value="w.weave"/><float name="alpha" '
+               'value="0.2"/><float name="ks" value="0.7"/><float '
+               'name="repeatU" value="4"/><float name="repeatV" value="3"/>'
+               '</bsdf></shape>', {"w.weave": TEST_WEAVE}),
+    "hair": ('<shape type="hair"><string name="filename" value="h.hair"/>'
+             '<float name="radius" value="0.01"/><float name="angleThreshold"'
+             ' value="5"/><transform name="toWorld"><translate x="0.2"/>'
+             '</transform></shape>', {"h.hair": _hair_text()}),
+    "heightfield": ('<shape type="heightfield"><texture type="bitmap">'
+                    '<string name="filename" value="h.exr"/></texture><float '
+                    'name="scale" value="0.3"/><boolean name="shadingNormals"'
+                    ' value="false"/><transform name="toWorld"><rotate x="1" '
+                    'angle="-90"/></transform></shape>', {}),
+    "motion": ('<shape type="cube"><animation name="toWorld"><transform '
+               'time="0"><scale value="0.2"/></transform><transform time='
+               '"0.5"><translate x="0.3"/></transform><transform time="1">'
+               '<scale value="0.2"/><rotate y="1" angle="30"/><translate '
+               'x="0.5" y="0.2"/></transform></animation></shape><shape '
+               'type="sphere"><float name="radius" value="0.2"/></shape>', {}),
 }
 
 
-@pytest.mark.parametrize("feature", sorted(UNPORTED))
+@pytest.mark.parametrize("feature", sorted(GEOMETRY))
 def test_unported_features_raise_at_load(feature, tmp_path):
+    """The features that once raised (irawan, hair, heightfield, keyframed
+    motion) now load: the same XML through both loaders builds equal
+    SceneData, field for field. Irawan's specular normalisation is a
+    Monte Carlo estimate: the port's own draws give its own constant, and
+    on the reference's draws the port gives the reference's (rtol 1e-5)."""
+    from sdmm_tpu_torch.bsdf import irawan as tirawan
+
+    body, files = GEOMETRY[feature]
+    for name, text in files.items():
+        (tmp_path / name).write_text(text)
+    if feature == "heightfield":
+        _height_exr()[1](str(tmp_path))
     path = tmp_path / "scene.xml"
-    path.write_text(_scene(UNPORTED[feature]))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A(8b|9)"):
-        txml.load_scene(str(path))
+    path.write_text(_scene(body))
+    tb = txml.load_scene(str(path))
+    jb = jxml.load_scene(str(path))
+    _assert_same_settings(jb, tb)
+    js, jcfg = jb.build()
+    ts, tcfg = tb.build(device="cpu")
+    if feature == "irawan":
+        tables = {k: getattr(ts, f"iw_{k}") for k in
+                  ("pattern", "yarns", "kd", "ks", "consts")}
+        norm = tirawan.specular_normalization(
+            tables, *(torch.tensor(x) for x in irawan_norm_draws()))
+        want = np.asarray(js.iw_consts)
+        np.testing.assert_allclose(norm, want[8], rtol=1e-5)
+        assert 0.0 < float(ts.iw_consts[8]) < np.inf
+        ts = ts._replace(iw_consts=torch.tensor(want))
+    _assert_same_scene(js, jcfg, ts, tcfg)
+    counts = {"irawan": 2, "hair": 8 * 4 + 8 * 1, "heightfield": 2 * 4 * 8,
+              "motion": 12}
+    assert ts.tri_v0.shape[0] > counts[feature]
+    if feature == "motion":
+        assert ts.mot_m0.shape == (1, 4, 4) and (ts.tri_mot >= 0).sum() == 12

@@ -536,3 +536,74 @@ def within_se(a, b, k=4.0):
     """Whether two (mean, standard error) pairs lie within k joint
     standard errors."""
     return abs(a[0] - b[0]) <= k * float(np.hypot(a[1], b[1]))
+
+
+# A weave with both yarn kinds of the Irawan model: staple yarns (psi != 0)
+# and filament yarns (psi 0, with a smoothstep ss > 0), warp and weft, and a
+# kappa on either side of 0, in a 3x2 tile; $names come from the BSDF's
+# properties.
+TEST_WEAVE = """
+/* a test weave */
+weave {
+    name = "twill-ish", // a comment
+    alpha = $alpha, beta = 2.5, ss = 0.2, hWidth = 0.5,
+    warpArea = 0.6, weftArea = 0.4,
+    tileWidth = 3, tileHeight = 2,
+    pattern { 1, 2, 3,
+              4, 1, 2 },
+    yarn { type = warp, psi = 0, umax = 35, kappa = 0.3,
+           width = 1, length = 2, centerU = 0.2, centerV = 0.3,
+           kd = {0.3, 0.2, 0.1}, ks = {$ks, 0.5, 0.4} },
+    yarn { type = weft, psi = 25, umax = 50, kappa = -0.4,
+           width = 1, length = 1.5, centerU = 0.5, centerV = 0.25,
+           kd = {0.2, 0.3, 0.1}, ks = {0.4, 0.4, 0.4} },
+    yarn { type = warp, psi = 30, umax = 40, kappa = 0,
+           width = 0.8, length = 1.2, centerU = 0.8, centerV = 0.7,
+           kd = {0.5, 0.4, 0.3}, ks = {0.3, 0.3, 0.3} },
+    yarn { type = weft, psi = 0, umax = 30, kappa = -0.2,
+           width = 1, length = 3, centerU = 0.4, centerV = 0.6,
+           kd = {0.1, 0.1, 0.2}, ks = {0.6, 0.5, 0.5} }
+}
+"""
+TEST_WEAVE_PARAMS = {"alpha": 0.2, "ks": 0.7}
+
+
+def irawan_norm_draws(n=10_000, seed=0):
+    """The reference's specular_normalization draws (wi, wo, uv) as numpy:
+    two cosine-sampled directions and a uniform uv from
+    jax.random.PRNGKey(seed) split in three, as sdmm_tpu/bsdf/irawan.py
+    draws them."""
+    import jax
+
+    from sdmm_tpu.core import warp as jwarp
+
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
+    wi = jwarp.square_to_cosine_hemisphere(jax.random.uniform(k1, (n, 2)))
+    wo = jwarp.square_to_cosine_hemisphere(jax.random.uniform(k2, (n, 2)))
+    return (np.asarray(wi), np.asarray(wo),
+            np.asarray(jax.random.uniform(k3, (n, 2))))
+
+
+def make_irawan_box(scene_mod, shapes_mod, irawan_mod, width=16, height=16,
+                    weave=None, params=None):
+    """make_box with its back wall woven (the pattern repeated 6 times
+    across the wall's uv) and its ceiling white."""
+    b = make_box(scene_mod, shapes_mod, width, height)
+    wp = irawan_mod.parse_weave(weave or irawan_mod.PLAIN_WEAVE, params)
+    wp.repeat_u = wp.repeat_v = 6.0
+    b.irawan_pattern = wp
+    cloth = b.add_bsdf(scene_mod.BSDF_IRAWAN)
+    soup, _, em = b.soups[2][:3]
+    b.soups[2] = (soup, cloth, em) + tuple(b.soups[2][3:])
+    return b
+
+
+def irawan_agreement(got, want, exact, rtol=1e-5, atol=1e-6):
+    """Lanes where ``got`` and ``want`` (two float32 evaluations) differ
+    by more than atol + rtol·|want| and by more than twice ``want``'s own
+    distance from ``exact`` (a float64 evaluation): an ill-conditioned
+    lane (a half vector at a yarn's edge, a grazing fiber) is held to the
+    float32 error it has in either package."""
+    got, want, exact = (np.asarray(x, np.float64) for x in (got, want, exact))
+    tol = atol + rtol * np.abs(want)
+    return np.abs(got - want) > np.maximum(tol, 2.0 * np.abs(want - exact))
