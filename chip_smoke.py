@@ -2814,8 +2814,8 @@ def _project_np(cam, tan_half, p, width, height):
 # Irawan's card and CPU evaluations may differ past their tolerance on this
 # share of the lanes: the specular term switches on and off at the yarn
 # band's and the fiber angle's edges, so a lane within an ulp of an edge
-# takes it on one device and not on the other (2 of 2^20 lanes in phase
-# 12, 4 of 2^18 in tests/test_torch_gpu.py on the first proof run).
+# takes it on one device and not on the other (on one H100: 2 of 2^20
+# lanes in phase 12, 4 of 2^18 in tests/test_torch_gpu.py).
 IRAWAN_OFF_SHARE = 1e-4
 
 
