@@ -160,6 +160,12 @@ Phases (any failure raises and the script exits non-zero):
      difference; (d) product lanes > 0, guided_sample never launched, the
      E-step launched, the fused guided pool never taken. One
      "guiding_extras:" JSON line.
+ 12. the rest of scene loading and the classic integrators on the card
+     (phase_geometry_classic): scene G (heightfield, hair, Irawan cloth,
+     a keyframed cube; clas_cull) through cli.main with gt, sdmm, direct,
+     ao, field, multichannel, adaptive and motion, Irawan's card values
+     against the CPU twin's, and a COLLADA import. One
+     "geometry_classic:" JSON line.
 Phases 5, 7, 10 and 11 run their training under EmCensus, which counts the
 E-step's valid samples with a non-finite posterior by cause and the NaN
 entries of its stats_w; any NaN fails the run.
@@ -2811,21 +2817,23 @@ def _project_np(cam, tan_half, p, width, height):
                      (1.0 - v[:, 1] / (v[:, 2] * ty)) * 0.5 * height], -1)
 
 
-# Irawan's card and CPU evaluations may differ past their tolerance on this
-# share of the lanes: the specular term switches on and off at the yarn
-# band's and the fiber angle's edges, so a lane within an ulp of an edge
-# takes it on one device and not on the other (on one H100: 2 of 2^20
-# lanes in phase 12, 4 of 2^18 in tests/test_torch_gpu.py).
-IRAWAN_OFF_SHARE = 1e-4
+# Irawan's card and CPU float32 evaluations may differ past their tolerance
+# on at most this many of _irawan_check's 2^20 lanes (one H100: 2). Both
+# lie within 1e-3 of the pole of their yarn spine's curvature, where an
+# ulp of the cell coordinate moves f by a large share, and the two devices
+# round the coordinate's products and trigonometry differently; in float64
+# the card equals the CPU on every lane.
+IRAWAN_OFF_LANES = 2
 
 
 def _irawan_check(dev, scene, n=1 << 20):
     """Irawan on the card: eval_irawan on n random lanes against the CPU
-    twin (rtol 1e-5 / atol 1e-6, or on an ill-conditioned lane no further
-    than twice the CPU's float32 error against a float64 evaluation; at
-    most IRAWAN_OFF_SHARE of the lanes past that, each printed), and the
-    cosine sampling's weight against f / pdf (rtol 1e-5). Returns the
-    report entry."""
+    twin, in float64 on every lane (rtol 1e-5 / atol 1e-6) and in float32
+    (the same, or on an ill-conditioned lane no further than twice the
+    CPU's float32 error against float64: irawan.float32_disagreement) on
+    all but IRAWAN_OFF_LANES lanes, each printed with its ulp sensitivity
+    and its distance to the spine's pole; and the cosine sampling's weight
+    against f / pdf (rtol 1e-5). Returns the report entry."""
     from sdmm_tpu_torch.bsdf import bsdf as tbsdf
     from sdmm_tpu_torch.bsdf import irawan
 
@@ -2834,10 +2842,11 @@ def _irawan_check(dev, scene, n=1 << 20):
     wi, wo = (torch.nn.functional.normalize(
         torch.randn((n, 3), generator=g) * torch.tensor([1.0, 1.0, 0.5])
         + torch.tensor([0.0, 0.0, 0.6]), dim=-1) for _ in range(2))
-    tabs = irawan.device_tables(scene)
+    tabs = {k: v.cpu() for k, v in irawan.device_tables(scene).items()}
     out, ms = {}, {}
     for name, d, dt in (("cuda", dev, torch.float32),
                         ("cpu", "cpu", torch.float32),
+                        ("cuda64", dev, torch.float64),
                         ("cpu64", "cpu", torch.float64)):
         t = {k: v.to(d) for k, v in tabs.items()}
         t = {k: v.to(dt) if v.is_floating_point() else v for k, v in t.items()}
@@ -2846,14 +2855,20 @@ def _irawan_check(dev, scene, n=1 << 20):
         ms[name] = time_ms(fn, reps=5) if name == "cuda" else None
         out[name] = fn().cpu().double().numpy()
     got, want, exact = out["cuda"], out["cpu"], out["cpu64"]
-    tol = np.maximum(1e-6 + 1e-5 * np.abs(want), 2.0 * np.abs(want - exact))
-    bad = (np.abs(got - want) > tol).any(-1)
+    off64 = (np.abs(out["cuda64"] - exact) > 1e-6 + 1e-5 * np.abs(exact))
+    off, sens = irawan.lanes_off(tabs, uv, wi, wo, got, want, exact)
     ill = (np.abs(got - want) > 1e-6 + 1e-5 * np.abs(want)).any(-1).sum()
-    for i in np.nonzero(bad)[0][:5]:
+    margin = irawan.spine_pole_margin(
+        {k: v.double() if v.is_floating_point() else v
+         for k, v in tabs.items()}, uv[off].double()).numpy()
+    for i, s_i, m_i in zip(off[:5], sens, margin):
         print(f"geometry/classic: irawan lane {i}: card {got[i]}, CPU "
-              f"{want[i]}, float64 {exact[i]}", flush=True)
-    check(bad.sum() <= IRAWAN_OFF_SHARE * n, f"irawan: {int(bad.sum())} "
-          f"of {n} lanes on the card differ from the CPU twin")
+              f"{want[i]}, float64 {exact[i]}, ulp sensitivity {s_i:.3g}, "
+              f"spine pole margin {m_i:.3g}", flush=True)
+    check(not off64.any(), f"irawan: {int(off64.any(-1).sum())} lanes on "
+          "the card differ from the CPU twin in float64")
+    check(len(off) <= IRAWAN_OFF_LANES, f"irawan: {len(off)} of {n} lanes "
+          "on the card differ from the CPU twin in float32")
     # Cosine sampling: the weight is f / pdf at the sampled direction.
     types = (16,)
     idx = torch.full((n,), int(scene.bsdf_type.tolist().index(16)),
@@ -2868,7 +2883,8 @@ def _irawan_check(dev, scene, n=1 << 20):
                    / (f[ok] / pdf[ok, None]).abs().clamp_min(1e-30)).max())
     check(w_err <= 1e-5, f"irawan: sampling weight off f/pdf by {w_err:.3g}")
     rep = {"lanes": n, "max_abs_err": float(np.abs(got - want).max()),
-           "lanes_past_1e-5": int(ill), "lanes_off": int(bad.sum()),
+           "max_abs_err_float64": float(np.abs(out["cuda64"] - exact).max()),
+           "lanes_past_1e-5": int(ill), "lanes_off": len(off),
            "ms": ms["cuda"],
            "weight_rel_err": w_err}
     print(f"geometry/classic: irawan on the card: {rep}", flush=True)
@@ -2890,15 +2906,15 @@ def phase_geometry_classic(dev, smi, width=640, height=360, n_fibers=1024,
     reference, and gt's strict normals cull it where direct lights it). ao
     at 16 spp: every value in [0, 1]. field (shNormal, distance) at 4 spp
     through the CLI, and trace_field on 2,048 camera rays on the card equal
-    to the CPU twin's on the hit rays within 1e-5 (>= 99.9% of them: a
-    cluster box face). multichannel at 4 spp: four finite EXRs beside the
-    output. adaptive with at most 64 spp (-D maxError=0.1) within 3% of gt
-    and a mean spp below 64. motion at 1 spp: on the cube's pixels (field
-    primIndex) the mean displacement within 1% of the analytic one (the
-    pixel's field position moved by CUBE_MOVE, both projected in float64),
-    every other pixel below 1e-4. Irawan on the card (_irawan_check, 2^20
-    lanes). COLLADA: python -m sdmm_tpu_torch import of write_cornell_dae's
-    file, included by a scene with the camera and the light, builds the
+    to the CPU twin's on every hit ray within 1e-5. multichannel at 4 spp:
+    four finite EXRs beside the output. adaptive with at most 64 spp (-D
+    maxError=0.1) within 3% of gt and a mean spp below 64. motion at 1 spp:
+    on the cube's pixels (field primIndex) the mean displacement within 1%
+    of the analytic one (the pixel's field position moved by CUBE_MOVE,
+    both projected in float64), every other pixel below 1e-4. Irawan on
+    the card (_irawan_check, 2^20 lanes). COLLADA: python -m
+    sdmm_tpu_torch import of write_cornell_dae's file, included by a scene
+    with the camera and the light, builds the
     SceneData of the same meshes built in code, field for field, and gt at
     16 spp on both gives the same mean. Each call's wall, mean and launches
     of rows 1, 2, 7 and 8 print on its own line; one "geometry_classic:"
@@ -3017,7 +3033,7 @@ def phase_geometry_classic(dev, smi, width=640, height=360, n_fibers=1024,
             field_err[fld] = {"rays": int(hit.sum()),
                               "off": int(off.sum()),
                               "max_abs_err": float((a - b).abs().max())}
-            check(off.sum() <= 0.001 * hit.sum() and hit.sum() > 1000,
+            check(off.sum() == 0 and hit.sum() > 1000,
                   f"field {fld}: card and CPU differ on {int(off.sum())} "
                   "rays")
         report["field"] = field_err

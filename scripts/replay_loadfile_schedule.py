@@ -3,19 +3,27 @@ scheduler and print the wall it gives.
 
     python3 scripts/replay_loadfile_schedule.py run.xml [-n 6]
         [--without MOD,...] [--split MOD,... --at-most K]
+        [--cut MOD=N1,N2,...] [--startup S]
+        [--noise SIGMA --draws N --seed K --limit SECONDS]
 
 The scheduler (xdist's LoadScopeScheduling with its default reorder) queues
-the test files by their number of tests, most first; each worker takes
-one file, then another whenever at most 2 of its tests are left. Each
-test's junit time (setup, call and teardown) is replayed in that order.
---without drops modules (by name, e.g. test_torch_ppg); --split cuts the
-named modules into files of at most K tests, to see where the scheduler
-would run them. Prints the wall, each worker's busy seconds and the files
-each worker ran.
+the test files by their number of tests, most first, files of one count in
+collection order (by name); each worker takes one file, then another
+whenever at most 2 of its tests are left. Each test's junit time (setup,
+call and teardown) is replayed in that order, after --startup seconds of
+collection. --without drops modules (by name, e.g. test_torch_ppg);
+--split cuts the named modules into files of at most K tests, --cut one
+module into files of the given sizes, in test order, to see where the
+scheduler would run them. Prints the wall, each worker's busy seconds and
+the files each worker ran. With --noise, each of --draws replays scales
+every test by its own log-normal factor exp(SIGMA·z) and the wall's
+median, 90th percentile and share past --limit are printed instead.
 """
 
 import argparse
 import collections
+import random
+import statistics
 import xml.etree.ElementTree as ET
 
 
@@ -27,16 +35,20 @@ def load(path):
     return files
 
 
-def replay(files, n_workers):
-    queue = sorted(files.items(), key=lambda kv: -len(kv[1]))
-    pend = [[] for _ in range(n_workers)]
-    idx = [0] * n_workers
-    t = [0.0] * n_workers
+def replay(files, n_workers, startup=0.0, noise=0.0, rng=None):
+    queue = collections.deque(
+        sorted(sorted(files), key=lambda name: -len(files[name])))
+    pend = [collections.deque() for _ in range(n_workers)]
+    ran = [[] for _ in range(n_workers)]
+    t = [startup] * n_workers
 
     def take(i):
         if queue:
-            name, times = queue.pop(0)
-            pend[i] += [(name, x) for x in times]
+            name = queue.popleft()
+            for x in files[name]:
+                pend[i].append(x * rng.lognormvariate(0.0, noise)
+                               if noise else x)
+            ran[i].append(name)
 
     for i in range(n_workers):
         take(i)
@@ -44,15 +56,14 @@ def replay(files, n_workers):
         if len(pend[i]) <= 2:
             take(i)
     while True:
-        ready = [(t[i], i) for i in range(n_workers) if idx[i] < len(pend[i])]
+        ready = [(t[i], i) for i in range(n_workers) if pend[i]]
         if not ready:
             break
         _, i = min(ready)
-        t[i] += pend[i][idx[i]][1]
-        idx[i] += 1
-        if len(pend[i]) - idx[i] <= 2:
+        t[i] += pend[i].popleft()
+        if len(pend[i]) <= 2:
             take(i)
-    return t, pend
+    return t, ran
 
 
 def main():
@@ -62,25 +73,48 @@ def main():
     ap.add_argument("--without", default="")
     ap.add_argument("--split", default="")
     ap.add_argument("--at-most", type=int, default=3)
+    ap.add_argument("--cut", action="append", default=[])
+    ap.add_argument("--startup", type=float, default=0.0)
+    ap.add_argument("--noise", type=float, default=0.0)
+    ap.add_argument("--draws", type=int, default=1000)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--limit", type=float, default=1470.0)
     a = ap.parse_args()
     drop = set(filter(None, a.without.split(",")))
-    cut = set(filter(None, a.split.split(",")))
+    split = set(filter(None, a.split.split(",")))
+    sizes = {mod: [int(n) for n in ns.split(",")]
+             for mod, ns in (c.split("=") for c in a.cut)}
     files = collections.OrderedDict()
     for name, times in load(a.junit).items():
         mod = name.split(".")[-1]
         if mod in drop:
             continue
-        if mod in cut:
+        if mod in split:
             for j in range(0, len(times), a.at_most):
                 files[f"{name}[{j}]"] = times[j:j + a.at_most]
+        elif mod in sizes:
+            assert sum(sizes[mod]) == len(times), (mod, len(times))
+            j = 0
+            for k, n in enumerate(sizes[mod]):
+                files[f"{name}[{k}]"] = times[j:j + n]
+                j += n
         else:
             files[name] = times
-    t, pend = replay(files, a.n)
+    total = sum(sum(v) for v in files.values())
+    if a.noise:
+        rng = random.Random(a.seed)
+        walls = sorted(max(replay(files, a.n, a.startup, a.noise, rng)[0])
+                       for _ in range(a.draws))
+        print(f"median {statistics.median(walls):.1f} s; p90 "
+              f"{walls[int(0.9 * a.draws)]:.1f} s; past {a.limit:.0f} s "
+              f"{sum(w > a.limit for w in walls) / a.draws:.3f} of "
+              f"{a.draws} draws; sum {total:.1f} s")
+        return
+    t, ran = replay(files, a.n, a.startup)
     print(f"wall {max(t):.1f} s; workers {[round(x, 1) for x in t]}; "
-          f"sum {sum(sum(v) for v in files.values()):.1f} s")
-    for i, p in enumerate(pend):
-        names = list(dict.fromkeys(name.split(".")[-1] for name, _ in p))
-        print(f"worker {i}: {' '.join(names)}")
+          f"sum {total:.1f} s")
+    for i, names in enumerate(ran):
+        print(f"worker {i}: {' '.join(n.split('.')[-1] for n in names)}")
 
 
 if __name__ == "__main__":

@@ -150,10 +150,13 @@ def gather_params(scene, bsdf_idx: torch.Tensor, uv=None,
         p["blend_b"] = pb
         p["blend_w"] = torch.where(is_blend, scene.bsdf_weight[idx], 0.0)
     if _has(types, BSDF_IRAWAN):
-        # Woven cloth reads the hit's uv and the scene's weave tables.
-        p["iw"] = irawan.device_tables(scene)
-        p["uv"] = uv if uv is not None else torch.zeros(
-            idx.shape + (2,), device=idx.device)
+        # Woven cloth reads the hit's uv and the scene's weave tables, also
+        # as a blend's second child.
+        uv_iw = uv if uv is not None else torch.zeros(idx.shape + (2,),
+                                                      device=idx.device)
+        for q in (p, p.get("blend_b", {})):
+            q["iw"] = irawan.device_tables(scene)
+            q["uv"] = uv_iw
     return p
 
 
@@ -446,7 +449,7 @@ def eval_pdf(params: dict, wi: torch.Tensor, wo: torch.Tensor,
                             BSDF_IRAWAN)):
         pdf_diff = warp.square_to_cosine_hemisphere_pdf(wo)
 
-    if has(BSDF_IRAWAN) and "iw" in params:
+    if has(BSDF_IRAWAN):
         # Woven cloth, with the cosine pdf of its cosine sampling.
         sels_f.append((BSDF_IRAWAN, irawan.eval_irawan(
             params["iw"], params["uv"], wi, wo)))
@@ -594,7 +597,7 @@ def sample(params: dict, wi: torch.Tensor, u1: torch.Tensor,
         wo_diff = warp.square_to_cosine_hemisphere(u2)
         pdf_diff = warp.square_to_cosine_hemisphere_pdf(wo_diff)
 
-    if has(BSDF_IRAWAN) and "iw" in params:
+    if has(BSDF_IRAWAN):
         # Cosine-sampled, weight f / pdf.
         f_iw, pdf_iw = eval_pdf(_as_type(params, BSDF_IRAWAN), wi, wo_diff,
                                 types=(BSDF_IRAWAN,))

@@ -351,12 +351,9 @@ def _staple_integrand(u, v, wi, wo, alpha, beta, psi, umax, kappa, w, l,
     return torch.where(valid, fs / delta_x.clamp_min(1e-9), 0.0)
 
 
-def eval_irawan(tables: dict, uv: torch.Tensor, wi: torch.Tensor,
-                wo: torch.Tensor, include_diffuse: bool = True):
-    """f(wi, wo)·cos θo [N, 3] at ``uv`` for pairs on the front side (0
-    elsewhere). ``tables``: pattern [th, tw] int (0-based yarn ids), yarns
-    [Y, 10], kd and ks [Y, 3], consts [12], tensors on the lanes'
-    device."""
+def _yarn_at(tables: dict, uv: torch.Tensor):
+    """The yarn under each uv: its id, its [.., 10] row, whether it is a
+    weft, and the lane's position (u along the spine, v across it)."""
     c = tables["consts"]
     pattern = tables["pattern"]
     th, tw = pattern.shape
@@ -368,28 +365,39 @@ def eval_irawan(tables: dict, uv: torch.Tensor, wi: torch.Tensor,
 
     yr = tables["yarns"][yid]
     is_weft = yr[..., _Y_TYPE] > 0.5
+    cx = torch.floor(x / tw) * tw + yr[..., _Y_CU] * tw
+    cy = torch.floor(y / th) * th + (1.0 - yr[..., _Y_CV]) * th
+    xx = x - cx
+    yy = -(y - cy)
+    # Weft yarns: positions rotated by pi/2 about z.
+    rx = torch.where(is_weft, -yy, xx)
+    ry = torch.where(is_weft, xx, yy)
+    u_c = ry / (yr[..., _Y_LENGTH] / 2.0) * yr[..., _Y_UMAX]
+    v_c = rx * PI / yr[..., _Y_WIDTH].clamp_min(1e-9)
+    return yid, yr, is_weft, u_c, v_c
+
+
+def eval_irawan(tables: dict, uv: torch.Tensor, wi: torch.Tensor,
+                wo: torch.Tensor, include_diffuse: bool = True):
+    """f(wi, wo)·cos θo [N, 3] at ``uv`` for pairs on the front side (0
+    elsewhere). ``tables``: pattern [th, tw] int (0-based yarn ids), yarns
+    [Y, 10], kd and ks [Y, 3], consts [12], tensors on the lanes'
+    device."""
+    c = tables["consts"]
+    yid, yr, is_weft, u_c, v_c = _yarn_at(tables, uv)
     w = yr[..., _Y_WIDTH]
     l = yr[..., _Y_LENGTH]  # noqa: E741
     psi = yr[..., _Y_PSI]
     umax = yr[..., _Y_UMAX]
     kappa = yr[..., _Y_KAPPA]
 
-    cx = torch.floor(x / tw) * tw + yr[..., _Y_CU] * tw
-    cy = torch.floor(y / th) * th + (1.0 - yr[..., _Y_CV]) * th
-    xx = x - cx
-    yy = -(y - cy)
-    # Weft yarns: positions and directions rotated by pi/2 about z.
-    rx = torch.where(is_weft, -yy, xx)
-    ry = torch.where(is_weft, xx, yy)
-
     def rot(d):
+        # Weft yarns: directions rotated by pi/2 about z.
         return torch.stack([torch.where(is_weft, -d[..., 1], d[..., 0]),
                             torch.where(is_weft, d[..., 0], d[..., 1]),
                             d[..., 2]], -1)
 
     wi_r, wo_r = rot(wi), rot(wo)
-    u_c = ry / (l / 2.0) * umax
-    v_c = rx * PI / w.clamp_min(1e-9)
     int_staple = _staple_integrand(u_c, v_c, wi_r, wo_r, c[_C_ALPHA],
                                    c[_C_BETA], psi, umax, kappa, w, l,
                                    c[_C_HWIDTH])
@@ -444,12 +452,11 @@ def specular_normalization(tables: dict, wi=None, wo=None, uv=None,
     return wi.shape[0] / (total * PI)
 
 
-def build_tables(pattern: WeavePattern,
-                 generator: torch.Generator | None = None) -> dict:
+def build_tables(pattern: WeavePattern) -> dict:
     """The pattern's numpy tables with the normalisation in consts."""
     t = pattern.tables()
     t["consts"][_C_NORM] = specular_normalization(
-        {k: torch.as_tensor(v) for k, v in t.items()}, generator=generator)
+        {k: torch.as_tensor(v) for k, v in t.items()})
     return t
 
 
@@ -457,3 +464,67 @@ def device_tables(scene) -> dict:
     """The weave tables of a ``SceneData``, as ``eval_irawan`` takes them."""
     return {"pattern": scene.iw_pattern, "yarns": scene.iw_yarns,
             "kd": scene.iw_kd, "ks": scene.iw_ks, "consts": scene.iw_consts}
+
+
+def spine_pole_margin(tables: dict, uv: torch.Tensor) -> torch.Tensor:
+    """|1 - |r̂·tan u|| [N] for staple yarns whose spine is a hyperbola
+    (r̂ < 0, as with kappa = -0.5): at r̂·tan u = -1 its radius of
+    curvature, and with it the specular term, has a pole (the guarded
+    atanh holds it finite), and f there grows as the margin's -1.5th
+    power. +inf on other lanes."""
+    _, yr, _, u_c, _ = _yarn_at(tables, uv)
+    umax, kappa = yr[..., _Y_UMAX], yr[..., _Y_KAPPA]
+    rhat = 1.0 + kappa * (1.0 + 1.0 / torch.tan(umax))
+    margin = (1.0 - (rhat * torch.tan(u_c.abs())).abs()).abs()
+    hyper = (rhat < -1e-6) & (yr[..., _Y_PSI] != 0.0)
+    return torch.where(hyper, margin, torch.full_like(margin, math.inf))
+
+
+def ulp_sensitivity(tables: dict, uv: torch.Tensor, wi: torch.Tensor,
+                    wo: torch.Tensor) -> torch.Tensor:
+    """The largest change [N] of eval_irawan, in float64, when one
+    coordinate of the float32 ``uv``, ``wi`` or ``wo`` moves by one ulp
+    either way: how far apart two float32 evaluations of a lane may fall
+    when they round its inputs or intermediates differently (at a yarn
+    band's or a fiber angle's edge, or near a pole of the spine's
+    curvature or of a highlight's Jacobian)."""
+    t = {k: v.double() if v.is_floating_point() else v
+         for k, v in tables.items()}
+    x = [a.float() for a in (uv, wi, wo)]
+    base = eval_irawan(t, *(a.double() for a in x))
+    worst = torch.zeros(base.shape[:-1], dtype=torch.float64,
+                        device=base.device)
+    for i, a in enumerate(x):
+        for c in range(a.shape[-1]):
+            for to in (math.inf, -math.inf):
+                moved = a.clone()
+                moved[..., c] = torch.nextafter(
+                    a[..., c], torch.full_like(a[..., c], to))
+                args = [y.double() for y in x]
+                args[i] = moved.double()
+                worst = torch.maximum(
+                    worst, (eval_irawan(t, *args) - base).abs().amax(-1))
+    return worst
+
+
+def float32_disagreement(got, want, exact, rtol=1e-5, atol=1e-6):
+    """Elements where ``got`` and ``want`` (two float32 evaluations, numpy)
+    differ by more than atol + rtol·|want| and by more than twice
+    ``want``'s own distance from ``exact`` (a float64 evaluation): an
+    ill-conditioned lane (a lane near the spine's pole, a grazing fiber)
+    is held to the float32 error it has on the side of ``want``."""
+    got, want, exact = (np.asarray(x, np.float64) for x in (got, want, exact))
+    tol = atol + rtol * np.abs(want)
+    return np.abs(got - want) > np.maximum(tol, 2.0 * np.abs(want - exact))
+
+
+def lanes_off(tables: dict, uv: torch.Tensor, wi: torch.Tensor,
+              wo: torch.Tensor, got, want, exact):
+    """The lanes where ``got`` and ``want``, two float32 evaluations [N, 3]
+    (numpy) of ``eval_irawan`` on ``uv``, ``wi`` and ``wo``, disagree
+    (float32_disagreement against ``exact``, a float64 evaluation), and
+    the ulp_sensitivity of each."""
+    idx = np.nonzero(float32_disagreement(got, want, exact).any(-1))[0]
+    sel = torch.as_tensor(idx, dtype=torch.long)
+    return idx, ulp_sensitivity(tables, uv[sel], wi[sel],
+                                wo[sel]).cpu().numpy()

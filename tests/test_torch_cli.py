@@ -1,27 +1,25 @@
 """The port's command line, ``python -m sdmm_tpu_torch``, on the CPU at 16x12
-and a few spp: ``render`` writes the image (EXR, or .npy), stats.json in
-the reference's schema and, for sdmm, checkpoints/model_NNNNN.asdmm, and the
-image equals what render_wavefront or SDMMTrainer(...).run gives on the same
-loaded scene and seed (ppg, sdmm with the reservoir or the asynchronous
-EM, a render checkpointed and resumed); the classic integrators (direct,
-ao, field, motion, adaptive, multichannel) with their -D properties and
+and a few spp: ``render`` writes the image (EXR, or .npy) and stats.json in
+the reference's schema, and the image equals what render_wavefront gives
+on the same loaded scene and seed; the classic integrators (direct, ao,
+field, motion, adaptive, multichannel) with their -D properties and
 stats.json keys; ``compare`` prints all_metrics' keys; ``import`` writes a
 scene that builds; every option the port does not hold yet raises
-NotImplementedError naming its ROADMAP item."""
+NotImplementedError naming its ROADMAP item. The guided renders (sdmm,
+ppg, the trainer's options, a checkpointed and resumed render) and the
+module entry point are in tests/test_torch_cli_sdmm.py and
+tests/test_torch_cli_guiding.py, files of few tests that the tier-1
+scheduler (``--dist loadfile``, files with the most tests first) runs
+after the long reference files."""
 
 import json
-import os
 import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
 
 from sdmm_tpu_torch import cli
-from sdmm_tpu_torch.guiding import io as tio
-from sdmm_tpu_torch.guiding.trainer import SDMMTrainer, TrainerConfig
 from sdmm_tpu_torch.render.wavefront import render_wavefront
 from sdmm_tpu_torch.scene.xml_loader import load_scene
 from sdmm_tpu_torch.utils.exr import read_exr
@@ -99,39 +97,6 @@ def test_render_path_integrators(box, tmp_path, integrator, ext):
     assert stats["mean"] == pytest.approx(float(want.mean()))
 
 
-def test_render_sdmm(box, tmp_path):
-    out = tmp_path / "sdmm" / "img.exr"
-    npy = tmp_path / "film.npy"
-    _render(box, out, "--integrator", "sdmm", "--spp", "8", "--npy", str(npy),
-            "--dump-iterations")
-    builder = load_scene(box)
-    scene, cfg = builder.build(device="cpu")
-    tr = SDMMTrainer(scene, cfg, TrainerConfig(seed=77), device="cpu")
-    want, iters = tr.run(total_spp=8)
-    np.testing.assert_array_equal(read_exr(str(out)),
-                                  want.astype(np.float32))
-    np.testing.assert_array_equal(np.load(npy), want)
-    stats = json.loads((out.parent / "stats.json").read_text())
-    assert len(stats) == len(tr.stats) == 2
-    timed = ("elapsed_seconds", "rendering_seconds", "training_seconds",
-             "ttuv")  # wall clock, or a product with it
-    for st, ref in zip(stats, tr.stats):
-        assert st.keys() == ref.keys()
-        assert {k: v for k, v in st.items() if k not in timed} == \
-            {k: v for k, v in ref.items() if k not in timed}
-    ckpt = out.parent / "checkpoints" / "model_00002.asdmm"
-    tree, sdmm, init, meta = tio.load_checkpoint(str(ckpt), device="cpu")
-    assert meta["iteration"] == 2 and tree.n_leaves == tr.tree.n_leaves
-    for a, b in zip(sdmm, tr.sdmm):
-        assert torch.equal(a, b)
-    for i, it in enumerate(iters):
-        n = np.maximum(it["weight"], 1.0)[:, None]
-        np.testing.assert_array_equal(
-            read_exr(str(out.parent / f"iteration{i:05d}.exr")),
-            (it["image"] / n).reshape(12, 16, 3).astype(np.float32))
-        assert (out.parent / f"iteration_sqr{i:05d}.exr").exists()
-
-
 def test_compare_prints_all_metrics(tmp_path, capsys):
     from sdmm_tpu_torch.utils.exr import write_exr
 
@@ -193,78 +158,6 @@ def test_samplers_and_rfilters_render(tmp_path, extra, monkeypatch):
                  for f in (films[0], base))
     assert within_se(got, want), (got, want)
     assert np.isfinite(np.load(tmp_path / "x.npy")).all()
-
-
-def test_render_ppg(box, tmp_path):
-    """--integrator ppg: PPGTrainer's budget-doubling render (1 + 2 + 1
-    spp), stats.json its per-iteration stats."""
-    from sdmm_tpu_torch.guiding.ppg import PPGConfig, PPGTrainer
-
-    out = tmp_path / "ppg" / "img.npy"
-    _render(box, out, "--integrator", "ppg", "--spp", "4")
-    scene, cfg = load_scene(box).build(device="cpu")
-    tr = PPGTrainer(scene, cfg, PPGConfig(seed=77), device="cpu")
-    want, iters = tr.run(total_spp=4)
-    assert [it["spp"] for it in iters] == [1, 2, 1]
-    np.testing.assert_array_equal(np.load(out), want)
-    stats = json.loads((out.parent / "stats.json").read_text())
-    assert [{k: v for k, v in st.items() if k != "seconds"} for st in stats] \
-        == [{k: v for k, v in st.items() if k != "seconds"}
-            for st in tr.stats]
-
-
-@pytest.mark.parametrize("define,option,spp", [
-    ("reservoirCapacity=64", {"reservoir_capacity": 64}, 4),
-    ("optimizeAsync=true", {"optimize_async": True}, 8)],
-    ids=["reservoir", "async"])
-def test_render_sdmm_options(box, tmp_path, define, option, spp):
-    """-D reservoirCapacity and -D optimizeAsync reach TrainerConfig: the
-    image equals SDMMTrainer's with the option (the reservoir fills in the
-    first iteration's optimize; the async EM is adopted in the second)."""
-    out = tmp_path / "opt" / "img.npy"
-    _render(box, out, "--integrator", "sdmm", "--spp", str(spp), "-D",
-            define)
-    scene, cfg = load_scene(box).build(device="cpu")
-    tr = SDMMTrainer(scene, cfg, TrainerConfig(seed=77, **option),
-                     device="cpu")
-    want, _ = tr.run(total_spp=spp)
-    np.testing.assert_array_equal(np.load(out), want)
-    if tr.reservoir is not None:
-        assert int(tr.reservoir["valid"].sum()) > 0
-
-
-def test_checkpoint_then_resume(box, tmp_path):
-    """--checkpoint writes a full checkpoint at 2 spp (2 spp an
-    iteration); --resume continues it to 4 spp; the image equals the
-    uninterrupted 4-spp render (both train in the first iteration only)."""
-    ck = tmp_path / "full.npz"
-    spi = ["--integrator", "sdmm", "--samples-per-iteration", "2"]
-    _render(box, tmp_path / "a" / "img.npy", *spi, "--spp", "2",
-            "--checkpoint", str(ck))
-    assert ck.exists()
-    out = tmp_path / "b" / "img.npy"
-    _render(box, out, *spi, "--spp", "4", "--resume", str(ck))
-    scene, cfg = load_scene(box).build(device="cpu")
-    tr = SDMMTrainer(scene, cfg, TrainerConfig(seed=77,
-                                               samples_per_iteration=2),
-                     device="cpu")
-    want, _ = tr.run(total_spp=4)
-    np.testing.assert_array_equal(np.load(out), want)
-    stats = json.loads((out.parent / "stats.json").read_text())
-    assert [st["iteration"] for st in stats] == [0, 1]
-
-
-def test_module_entry_point(box, tmp_path):
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT)
-    out = tmp_path / "m.exr"
-    res = subprocess.run(
-        [sys.executable, "-m", "sdmm_tpu_torch", "render", box, "-o",
-         str(out), "--integrator", "gt", "--spp", "2", "--device", "cpu"],
-        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
-    assert "Rendered" in res.stdout
-    assert read_exr(str(out)).shape == (12, 16, 3)
 
 
 CLASSIC = {

@@ -5,10 +5,15 @@ Tolerances as in tests/test_em_pallas.py: weights rtol 2e-4, mean and
 covariance statistics rtol 2e-4 / 3e-4 with atol 4e-4 of the statistic's
 magnitude (signed tangent columns cancel across samples); M-step weights
 and means rtol 1e-4, reconstructed covariances rtol 1e-3 (batched eigh).
-The case against the Pallas kernel in interpret mode (~2 minutes of CPU)
-is in tests/test_torch_em_kernel.py, a file of few tests that the tier-1
-scheduler runs late; the kernel-vs-twin cases are in
-tests/test_torch_gpu.py."""
+This file holds the work list's edge cases; files of few tests, which the
+tier-1 scheduler (``--dist loadfile``, files with the most tests first)
+runs after the long reference files, hold the comparisons that compile a
+reference: the twin against the XLA e_step, the sort-and-tile glue and
+the non-finite posteriors (tests/test_torch_em_reference.py), the M-step
+and the whole EM step (tests/test_torch_em_mstep.py), and the twin
+against the Pallas kernel in interpret mode (tests/test_torch_em_kernel.py,
+~2 minutes of CPU); the kernel-vs-twin cases are in
+tests/test_torch_gpu_em.py."""
 
 import os
 import sys
@@ -24,7 +29,6 @@ from torch_parity import make_mixture_state, t, to_np  # noqa: E402
 from sdmm_tpu.guiding import em as jem  # noqa: E402
 from sdmm_tpu.guiding import mixture as jmix  # noqa: E402
 from sdmm_tpu.ops import em_pallas as jep  # noqa: E402
-from sdmm_tpu_torch.guiding import em as tem  # noqa: E402
 from sdmm_tpu_torch.guiding import mixture as tmix  # noqa: E402
 from sdmm_tpu_torch.ops import em_suffstats as tes  # noqa: E402
 
@@ -84,11 +88,6 @@ def _plain_twin_matches(reference):
         np.testing.assert_array_equal(to_np(a), to_np(b))
 
 
-@pytest.mark.parametrize("reference", ["e_step"])
-def test_plain_twin_matches_reference(reference):
-    _plain_twin_matches(reference)
-
-
 def _check_work_list(order, leaf_start, tile_off, count, leaf, L, tile):
     """Every tile covers a run of one leaf, at most ``tile`` long, and the
     tiles of each leaf cover its run exactly once, in order; the sorted
@@ -110,36 +109,6 @@ def _check_work_list(order, leaf_start, tile_off, count, leaf, L, tile):
                                 zip(start[mine], end[mine])] or [[]])
         np.testing.assert_array_equal(cover, np.arange(ls[lf], ls[lf + 1]))
         assert (leaf[order[ls[lf]:ls[lf + 1]]] == lf).all()
-
-
-def test_sort_and_tile_and_pack_params_match():
-    """The sorted order and work list against the reference's
-    sort_and_tile with its padding stripped: the same samples in the same
-    order, the same counts, weight sums within rtol 1e-6."""
-    js, ts, pos, d, w, leaf = _problem(1, L=4, S=3000)
-    jsamp, jtl, jws, jcnt = jep.sort_and_tile(
-        jnp.asarray(pos), jnp.asarray(d), jnp.asarray(w), jnp.asarray(leaf),
-        4, 3000)
-    rows, order, ls, toff, cnt = tes.sort_and_tile(
-        t(pos), t(d), t(w), torch.as_tensor(leaf), 4)
-    np.testing.assert_array_equal(to_np(cnt), np.asarray(jcnt))
-    # The reference's rows without padding: each leaf's tiles in order, the
-    # first count[leaf] slots of them.
-    jsamp = np.asarray(jsamp).reshape(8, -1, jep.TILE)
-    jtl, jcnt = np.asarray(jtl), np.asarray(jcnt)
-    ref = np.concatenate([jsamp[:, jtl == lf].reshape(8, -1)[:, :jcnt[lf]]
-                          for lf in range(4)], axis=1)
-    n_valid = int(jcnt.sum())
-    o = to_np(order)[:n_valid]
-    np.testing.assert_array_equal(to_np(rows)[o].T, ref)
-    ws = np.add.reduceat(w[o].astype(np.float64), to_np(ls)[:4]) \
-        * (np.asarray(jcnt) > 0)
-    np.testing.assert_allclose(ws, np.asarray(jws), rtol=1e-6)
-    _check_work_list(order, ls, toff, cnt, leaf, 4, tes.TILE)
-    np.testing.assert_allclose(
-        to_np(tes.pack_params(ts, tmix.prepare(ts))),
-        np.asarray(jep.pack_params(js, jmix.prepare(js))), rtol=1e-4,
-        atol=1e-5)
 
 
 @pytest.mark.parametrize("case", ["sizes", "all invalid", "empty"])
@@ -191,95 +160,3 @@ def test_empty_and_single_leaf():
     sc2 = to_np(sc[2])
     np.testing.assert_allclose(sc2, np.swapaxes(sc2, -1, -2), rtol=0,
                                atol=1e-6 * np.abs(sc2).max())
-
-
-def _m_step_inputs(seed=0):
-    L = 6
-    js, ts, pos, d, w, leaf = _problem(seed, L=L, S=6000)
-    jprep = jmix.prepare(js)
-    stats = jem.e_step(js, jprep, jnp.asarray(pos), jnp.asarray(d),
-                       jnp.asarray(w), jnp.asarray(leaf), L)
-    rs = np.random.RandomState(seed)
-    active = rs.rand(L) < 0.8
-    active[0] = True
-    iters = rs.randint(0, 6, size=L).astype(np.int32)
-    em0 = jem.init_em_state(L, 16)._replace(iterations=jnp.asarray(iters))
-    leaf_ext = (0.5 + rs.rand(L, 3)).astype(np.float32)
-    return js, ts, jprep, stats, active, em0, leaf_ext
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_m_step_matches_on_identical_statistics(seed):
-    js, ts, jprep, stats, active, em0, leaf_ext = _m_step_inputs(seed)
-    # Break one component so the kill rule fires on both sides.
-    sc = np.asarray(stats[2]).copy()
-    sc[0, 3] = -50.0 * np.eye(5) * np.abs(sc[0, 3]).max()
-    stats = (stats[0], stats[1], jnp.asarray(sc), stats[3], stats[4])
-    cfg = jem.EMConfig()
-    jn, jemn = jem.m_step(js, jprep, em0, *stats[:4], jnp.asarray(active),
-                          cfg, leaf_ext=jnp.asarray(leaf_ext))
-    tem0 = tem.EMState(*(t(x, torch.int32) if x.dtype == jnp.int32 else t(x)
-                         for x in em0))
-    tn, temn = tem.m_step(ts, tmix.prepare(ts), tem0,
-                          *(t(x) for x in stats[:4]), torch.as_tensor(active),
-                          tem.EMConfig(), leaf_ext=t(leaf_ext))
-    jw, tw = np.asarray(jn.weight), to_np(tn.weight)
-    # Same kill pattern, same weights, means and covariances.
-    np.testing.assert_array_equal(tw > 0, jw > 0)
-    assert (np.asarray(js.weight) > 0).sum() > (jw > 0).sum()  # a kill
-    np.testing.assert_allclose(tw, jw, rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(to_np(tn.mean), np.asarray(jn.mean),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(to_np(tn.cov), np.asarray(jn.cov), rtol=1e-3,
-                               atol=1e-3 * np.abs(np.asarray(jn.cov)).max())
-    np.testing.assert_array_equal(to_np(temn.iterations),
-                                  np.asarray(jemn.iterations))
-    np.testing.assert_allclose(to_np(temn.stats_w), np.asarray(jemn.stats_w),
-                               rtol=1e-4, atol=1e-7)
-
-
-def test_em_step_matches():
-    js, ts, pos, d, w, leaf = _problem(3, L=5, S=4000)
-    active = np.array([True, True, False, True, True])
-    jn, _, jcnt = jem.em_step(js, jem.init_em_state(5, 16), jnp.asarray(pos),
-                              jnp.asarray(d), jnp.asarray(w),
-                              jnp.asarray(leaf), jnp.asarray(active))
-    tn, _, tcnt = tem.em_step(ts, tem.init_em_state(5, 16), t(pos), t(d),
-                              t(w), torch.as_tensor(leaf),
-                              torch.as_tensor(active), device="cpu")
-    np.testing.assert_array_equal(to_np(tcnt), np.asarray(jcnt))
-    np.testing.assert_allclose(to_np(tn.weight), np.asarray(jn.weight),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(to_np(tn.mean), np.asarray(jn.mean),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(to_np(tn.cov), np.asarray(jn.cov), rtol=1e-3,
-                               atol=1e-3 * np.abs(np.asarray(jn.cov)).max())
-
-
-def test_twin_drops_non_finite_posteriors_as_the_reference():
-    """A valid sample whose pdf overflows (at the mean of a component of
-    covariance 1e-16·I) and one whose posterior total has no finite
-    reciprocal: the twin drops both posteriors, so every statistic stays
-    finite, and matches the reference's XLA e_step (the kernel against the
-    twin on this batch is in tests/test_torch_gpu.py)."""
-    from torch_parity import posterior_fault_batch
-
-    weight, mean, cov, pos, d, w, leaf, L = posterior_fault_batch()
-    ts = tmix.SDMM(weight=t(weight), mean=t(mean), cov=t(cov))
-    prep = tmix.prepare(ts)
-    pdf, _, _ = tmix.posterior_and_log(
-        ts.weight[leaf[:2]], ts.mean[leaf[:2]], prep.inv_chol[leaf[:2]],
-        prep.inv_det_chol[leaf[:2]], prep.rot[leaf[:2]], t(pos[:2]),
-        t(d[:2]))
-    total = (ts.weight[leaf[:2]] * pdf).sum(-1)
-    assert not torch.isfinite(pdf[0]).all()
-    assert 0.0 < float(total[1]) and torch.isinf(1.0 / total[1])
-    ours = tes.e_step_plain(ts, prep, t(pos), t(d), t(w),
-                            torch.as_tensor(leaf), L)
-    for x in ours[:4]:
-        assert torch.isfinite(x).all()
-    js = jmix.SDMM(weight=jnp.asarray(weight), mean=jnp.asarray(mean),
-                   cov=jnp.asarray(cov))
-    ref = jem.e_step(js, jmix.prepare(js), jnp.asarray(pos), jnp.asarray(d),
-                     jnp.asarray(w), jnp.asarray(leaf), L)
-    _check_stats(ours, ref)

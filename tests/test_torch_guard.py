@@ -1,12 +1,15 @@
 """Guards of the PyTorch port's ground rules: it never imports JAX or the
 reference package, its entry points run on the card unless the caller asks
 for the CPU (no silent fallback), options outside the ported slice raise,
-and chip_smoke.py refuses to run without a GPU."""
+and chip_smoke.py refuses to run without a GPU. The guards that start a
+process or render are in tests/test_torch_guard_processes.py and
+tests/test_torch_guard_renders.py, files of few tests that the tier-1
+scheduler (``--dist loadfile``, files with the most tests first) runs
+after the long reference files."""
 
 import ast
 import os
 import pathlib
-import subprocess
 import sys
 
 import pytest
@@ -36,26 +39,6 @@ PORT_FILES = sorted((ROOT / "sdmm_tpu_torch").rglob("*.py")) + [
 def no_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-
-
-def test_import_leaves_jax_and_reference_out():
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import sdmm_tpu_torch\n"
-        "for m in pkgutil.walk_packages(sdmm_tpu_torch.__path__, "
-        "'sdmm_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'sdmm_tpu' or m.startswith('sdmm_tpu.')]\n"
-        "print(len([m for m in sys.modules if m.startswith('sdmm_tpu_torch')]),"
-        " bad)\n"
-        "sys.exit(1 if bad else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) > 20  # every module was imported
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -167,32 +150,6 @@ def test_intersect_kernels_take_cuda_tensors_alone(no_gpu, monkeypatch):
         twf.render_wavefront(big_scene, big_cfg, spp=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         big.build()
-
-
-def test_unported_path_options_raise():
-    """Subsurface scattering, bump maps and point lights are ported: has_sss
-    and has_bump render on the CPU (the box has no subsurface instance, so
-    the dipole term adds nothing), and sample_direct takes a scene with a
-    point light."""
-    scene, cfg = _scene()
-    plain = twf.render_pool(scene, torch.Generator().manual_seed(0), 64, 1,
-                            8, 8, device="cpu")
-    sss = twf.render_pool(scene, torch.Generator().manual_seed(0), 64, 1, 8,
-                          8, device="cpu", has_sss=True)
-    assert torch.equal(plain["image"], sss["image"])
-    out = twf.render_pool(scene, torch.Generator().manual_seed(0), 64, 1, 8,
-                          8, device="cpu", has_bump=True)
-    assert (out["weight"] == 1).all() and torch.isfinite(out["image"]).all()
-    from sdmm_tpu_torch.scene import emitters as temit
-
-    b = make_box(tscene, tshapes, 8, 8)
-    b.add_point_light([0.0, 1.5, 0.0], [5.0, 5.0, 5.0])
-    lit, _ = b.build(device="cpu")
-    gen = torch.Generator().manual_seed(1)
-    rec = temit.sample_direct(lit, torch.rand((256, 3), generator=gen),
-                              torch.rand(256, generator=gen),
-                              torch.rand((256, 2), generator=gen))
-    assert rec["delta"].any() and (~rec["delta"]).any()
 
 
 @pytest.mark.parametrize("option", [{"n_components": 4},
@@ -343,25 +300,6 @@ def test_fused_gates_refuse_media_and_subsurface(feature):
     assert not tguided.guided_fused_supported(scene, cfg, gs)
 
 
-def test_chip_smoke_refuses_without_gpu(no_gpu, tmp_path):
-    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
-                         cwd=tmp_path, capture_output=True, text=True,
-                         timeout=120)
-    assert out.returncode != 0
-    assert '"ok": true' not in out.stdout
-
-
-def test_chip_smoke_alone_fails(tmp_path):
-    """Copied out of the repository, the script cannot run."""
-    (tmp_path / "chip_smoke.py").write_text(
-        (ROOT / "chip_smoke.py").read_text())
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
-                         env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0
-    assert '"ok": true' not in out.stdout
-
-
 def _xml(tmp_path, body=""):
     path = tmp_path / "scene.xml"
     path.write_text(
@@ -371,39 +309,6 @@ def _xml(tmp_path, body=""):
         '<transform name="toWorld"><translate z="-4"/></transform></shape>'
         f'{body}</scene>')
     return str(path)
-
-
-def test_textured_scene_needs_the_card_or_the_cpu(no_gpu, tmp_path,
-                                                  monkeypatch):
-    """A scene with plastic, a bitmap, a point light and an env map:
-    cli.main (gt and sdmm) on a machine without a card raises unless
-    --device cpu is given, and renders with it (torch.cuda.is_available
-    patched false, so the check holds on any machine)."""
-    import numpy as np
-
-    from chip_smoke import write_png
-    from sdmm_tpu_torch import cli
-    from sdmm_tpu_torch.utils.exr import write_exr
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    write_png(tmp_path / "t.png", np.arange(48, dtype=np.uint8).reshape(
-        4, 4, 3) * 5)
-    write_exr(str(tmp_path / "e.exr"), np.ones((4, 8, 3), np.float32))
-    xml = _xml(tmp_path, '<shape type="rectangle"><bsdf type="plastic">'
-                         '<texture type="bitmap" name="diffuseReflectance">'
-                         '<string name="filename" value="t.png"/></texture>'
-                         '</bsdf></shape><emitter type="point"/><emitter '
-                         'type="envmap"><string name="filename" '
-                         'value="e.exr"/></emitter>')
-    for integ in ("gt", "sdmm"):
-        out = str(tmp_path / f"{integ}.npy")
-        args = ["render", xml, "-o", out, "--spp", "1", "--integrator",
-                integ]
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            cli.main(args)
-        assert not os.path.exists(out)
-        cli.main(args + ["--device", "cpu"])
-        assert np.isfinite(np.load(out)).all()
 
 
 def test_png_decoder_never_falls_back_to_the_placeholder(tmp_path):

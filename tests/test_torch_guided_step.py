@@ -1,13 +1,15 @@
-"""Port parity: the fused guided bounce's tables and helpers (ops/bounce.py,
-ops/guided_step.py), the shade table's packing, and shade on the packed
-table against shade on the rows, sdmm_tpu_torch vs sdmm_tpu on the same
-numpy inputs. Tolerances: tables rtol 1e-6 (the same float32 3x3 inverse,
-LU in both); helpers rtol 1e-5.
+"""Port parity: the fused guided bounce's emitter fields and helpers
+(ops/bounce.py, ops/guided_step.py), sdmm_tpu_torch vs sdmm_tpu on the
+same numpy inputs; helpers rtol 1e-5.
 
-The trace and shade twins against the reference kernels in interpret mode,
-and the frozen-model pool render_pool_guided_fused against the reference's
-XLA pool, are in tests/test_torch_guided_step_kernels.py (~2 minutes of
-CPU, in a file of few tests that the tier-1 scheduler runs late).
+Files of few tests, which the tier-1 scheduler (``--dist loadfile``,
+files with the most tests first) runs after the long reference files,
+hold the rest: the tables (tests/test_torch_guided_step_tables.py), the
+shade table's packing and shade on the packed table
+(tests/test_torch_guided_step_pack.py), and the trace and shade twins
+against the reference kernels in interpret mode with the frozen-model pool
+render_pool_guided_fused against the reference's XLA pool
+(tests/test_torch_guided_step_kernels.py, ~2 minutes of CPU).
 """
 
 import os
@@ -19,22 +21,15 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from torch_parity import (  # noqa: E402
-    jax_scene_arrays, lane_wave, make_box, make_mixture_state, to_np,
-)
+from torch_parity import lane_wave, make_box, to_np  # noqa: E402
 
-from sdmm_tpu.guiding import mixture as jmix  # noqa: E402
 from sdmm_tpu.ops import bounce_pallas as bp  # noqa: E402
-from sdmm_tpu.ops import guided_pallas as jgp  # noqa: E402
 from sdmm_tpu.scene import scene as jscene  # noqa: E402
 from sdmm_tpu.scene import shapes as jshapes  # noqa: E402
 from sdmm_tpu_torch.bsdf import fresnel as tfresnel  # noqa: E402
 from sdmm_tpu_torch.core import frame as tframe  # noqa: E402
 from sdmm_tpu_torch.core import warp as twarp  # noqa: E402
-from sdmm_tpu_torch.guiding import convert  # noqa: E402
 from sdmm_tpu_torch.ops import bounce as bo  # noqa: E402
-from sdmm_tpu_torch.ops import guided_sample as gso  # noqa: E402
-from sdmm_tpu_torch.ops import guided_step as gst  # noqa: E402
 from sdmm_tpu_torch.scene import scene as tscene  # noqa: E402
 from sdmm_tpu_torch.scene import shapes as tshapes  # noqa: E402
 
@@ -62,28 +57,6 @@ def test_em_tri_fields_match_reference(extra):
 
     np.testing.assert_array_equal(to_np(tem.tri_pdf_over_area(ts)),
                                   np.asarray(jem.tri_pdf_over_area(js)))
-
-
-@pytest.mark.parametrize("extra", [False, True])
-def test_build_tables_match_reference(extra):
-    js, ts, _ = _scenes(extra)
-    ts_j = tscene.scene_from_numpy(jax_scene_arrays(js), device="cpu")
-    for port in (bo.build_tables(ts), bo.build_tables(ts_j)):
-        for a, b in zip(port, bp.build_tables(js)):
-            b = np.asarray(b)
-            assert a.shape == b.shape and a.dtype == torch.float32
-            np.testing.assert_allclose(to_np(a), b, rtol=1e-6,
-                                       atol=1e-6 * np.abs(b).max())
-    assert bo.build_tables(ts)[0].shape[0] == bo.TRI_ROWS == bp.TRI_ROWS
-
-
-def test_build_tables_pads_past_the_unroll_limit():
-    js, _ = make_box(jscene, jshapes, 8, 8, True).build(pad_tris_to=100)
-    ts = tscene.scene_from_numpy(jax_scene_arrays(js), device="cpu")
-    tri = to_np(bo.build_tables(ts)[0])
-    assert tri.shape == (bo.TRI_ROWS, 128) == np.asarray(
-        bp.build_tables(js)[0]).shape
-    assert not tri[:, 100:].any()
 
 
 def _helper_inputs(seed=0, n=4096):
@@ -178,65 +151,3 @@ def test_woop_tri_twin_matches_reference():
             else:
                 np.testing.assert_allclose(to_np(a), np.asarray(b),
                                            rtol=1e-5, atol=1e-5)
-
-
-def _reference_table(L, seed):
-    """The reference's pack_guided_rows of a seeded mixture state, carried
-    to the port as numpy (convert's array bridge): [L, N_ROWS] float32."""
-    ms = make_mixture_state(seed=seed, L=L)
-    js = jmix.SDMM(weight=jnp.asarray(ms["weight"]),
-                   mean=jnp.asarray(ms["mean"]), cov=jnp.asarray(ms["cov"]))
-    rows = jgp.pack_guided_rows(jmix.prepare(js), js.weight,
-                                jnp.asarray(ms["initialized"]))
-    return torch.as_tensor(convert._np(rows).T.copy()), ms["initialized"]
-
-
-def test_pack_shade_table_round_trips_reference_rows():
-    L = 64
-    table, initialized = _reference_table(L, seed=4)
-    t16 = table.to(torch.bfloat16)
-    packed = gst.pack_shade_table(table)
-    assert packed.dtype == torch.bfloat16
-    assert packed.shape == (L, gso.PACK_COLS) and packed.is_contiguous()
-    # Every row and every component's three words start on 16 bytes.
-    assert (gso.PACK_COLS * 2) % 16 == 0 and (gso.PACK_STRIDE * 2) % 16 == 0
-    bits = packed.view(torch.int16)
-    assert torch.equal(gso.unpack_sample_table(packed).view(torch.int16),
-                       t16.view(torch.int16))
-    comp = bits.reshape(L, gso.K, gso.PACK_STRIDE)
-    ref = t16.view(torch.int16)
-    # The kernel's blocks: values 0-15 (two words) and 16-21 (one word).
-    assert torch.equal(comp[:, :, :16].reshape(L, -1),
-                       ref[:, :gso.K * 22].reshape(L, gso.K, 22)[:, :, :16]
-                       .reshape(L, -1))
-    assert torch.equal(comp[:, :, 16:22],
-                       ref[:, :gso.K * 22].reshape(L, gso.K, 22)[:, :, 16:])
-    # The init flag in component 0's first pad; every other pad is 0.
-    assert torch.equal(comp[:, 0, gso.PACK_INIT], ref[:, gso.N_ROWS - 1])
-    assert torch.equal(packed.float()[:, gso.PACK_INIT] > 0.5,
-                       torch.as_tensor(initialized))
-    pads = comp[:, :, 22:].clone()
-    pads[:, 0, 0] = 0
-    assert not pads.any()
-
-
-def test_shade_on_packed_table_equals_shade_on_rows():
-    _, ts, tcfg = _scenes(True)
-    tri, _, env = bo.build_tables(ts)
-    n, L = 2048, 64
-    state, meta, rand = (torch.as_tensor(a) for a in
-                         lane_wave(n, seed=12, max_depth=MAX_DEPTH))
-    st, hit = gst.trace(state, meta, tri, env, TYPES)
-    table, _ = _reference_table(L, seed=5)
-    leaf = torch.as_tensor(np.random.RandomState(6).randint(0, L, n)
-                           .astype(np.int32))
-    cpos = ((hit[0:3].T - ts.aabb_lo) / 2.0).T.contiguous()
-    packed = gst.shade(st, meta, hit, cpos, leaf,
-                       gst.pack_shade_table(table), rand, TYPES, MAX_DEPTH,
-                       RR_DEPTH, FRACTION)
-    rows = gst.shade_plain(st, meta, hit, cpos,
-                           table.to(torch.bfloat16)[leaf.long()].T.float(),
-                           rand, TYPES, MAX_DEPTH, RR_DEPTH, FRACTION)
-    for a, b in zip(packed, rows):  # bit for bit, NaN radiance included
-        assert bool(((a == b) | (a.isnan() & b.isnan())).all())
-    assert 0 < int(rows[2][9].sum())  # guided samples were drawn

@@ -7,7 +7,7 @@ against sdmm_tpu/bsdf/irawan.py), on the same numpy inputs:
 - eval_irawan on the reference's tables at the same uv, wi and wo (rtol
   1e-5, atol 1e-6, or on an ill-conditioned lane no further than twice
   the reference's own float32 error, measured against a float64
-  evaluation: torch_parity.irawan_agreement), and the BSDF dispatch's
+  evaluation: irawan.float32_disagreement), and the BSDF dispatch's
   Irawan branches (eval_pdf_full with the cosine pdf, sample_full with its
   cosine sampling and weight f/pdf) on a scene the reference built, the
   sampled directions and pdfs at tests/test_torch_bsdf.py's rtol 1e-4,
@@ -33,8 +33,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_parity import (  # noqa: E402
-    TEST_WEAVE, TEST_WEAVE_PARAMS, film_mean_se, irawan_agreement,
-    irawan_norm_draws, jax_scene_arrays, make_irawan_box, to_np, within_se,
+    TEST_WEAVE, TEST_WEAVE_PARAMS, film_mean_se, irawan_norm_draws,
+    jax_scene_arrays, make_irawan_box, to_np, within_se,
 )
 
 from sdmm_tpu.bsdf import bsdf as jbsdf  # noqa: E402
@@ -140,7 +140,7 @@ def test_eval_irawan_and_dispatch_match_reference(reference):
                else torch.tensor(v) for k, v in tab.items()}
         exact = to_np(tirawan.eval_irawan(
             t64, *(torch.as_tensor(x).double() for x in (uv, wi, wo))))
-        bad = irawan_agreement(got, want, exact)
+        bad = tirawan.float32_disagreement(got, want, exact)
         assert not bad.any(), (name, np.argwhere(bad)[:5], got[bad],
                                want[bad])
         assert (want > 0).mean() > 0.5 and np.isfinite(got).all()
@@ -169,7 +169,8 @@ def test_eval_irawan_and_dispatch_match_reference(reference):
         {k: v.double() if v.is_floating_point() else v
          for k, v in tirawan.device_tables(ts).items()},
         *(torch.as_tensor(x).double() for x in (uv, wi, wo))))
-    assert not irawan_agreement(to_np(tf), np.asarray(jf), exact).any()
+    assert not tirawan.float32_disagreement(to_np(tf), np.asarray(jf),
+                                            exact).any()
     rs = np.random.RandomState(4)
     u0, u1 = (rs.rand(n).astype(np.float32) for _ in range(2))
     u2 = rs.rand(n, 2).astype(np.float32)
@@ -198,8 +199,8 @@ def test_eval_irawan_and_dispatch_match_reference(reference):
          for k, v in tirawan.device_tables(ts).items()},
         torch.as_tensor(uv).double(), torch.as_tensor(wi).double(),
         tbs["wo"].double())) / np.maximum(to_np(tbs["pdf"]), 1e-20)[:, None]
-    assert not irawan_agreement(ws, np.asarray(jbs["weight"]), exact_w,
-                                rtol=1e-4, atol=1e-5).any()
+    assert not tirawan.float32_disagreement(
+        ws, np.asarray(jbs["weight"]), exact_w, rtol=1e-4, atol=1e-5).any()
 
 
 def test_irawan_box_renders_match_reference(reference):

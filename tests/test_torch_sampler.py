@@ -6,7 +6,9 @@ against scipy); the per-pixel rotations, which the reference draws from
 its key, are held to their properties: stratification, low discrepancy,
 and pixels that decorrelate. Mitchell-Netravali and Catmull-Rom take
 Mitsuba's 2-pixel radius, where the reference halves it (ROADMAP §C): they
-are held to the reference's formula at that radius."""
+are held to the reference's formula at that radius. On the box, the image
+mean of renderer.render under each sampler and rfilter keeps the
+independent/box image's."""
 
 import os
 import sys
@@ -17,14 +19,19 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from torch_parity import to_np  # noqa: E402
+from torch_parity import (  # noqa: E402
+    film_mean_se, make_box, to_np, within_se,
+)
 
 from sdmm_tpu.core import sampler as jsamp  # noqa: E402
 from sdmm_tpu.render import film as jfilm  # noqa: E402
 from sdmm_tpu.render import rfilters as jrf  # noqa: E402
 from sdmm_tpu_torch.core import sampler as tsamp  # noqa: E402
 from sdmm_tpu_torch.render import film as tfilm  # noqa: E402
+from sdmm_tpu_torch.render import renderer as trenderer  # noqa: E402
 from sdmm_tpu_torch.render import rfilters as trf  # noqa: E402
+from sdmm_tpu_torch.scene import scene as tscene  # noqa: E402
+from sdmm_tpu_torch.scene import shapes as tshapes  # noqa: E402
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -168,3 +175,26 @@ def test_filtered_splats_match(name, mitsuba_radius):
                                    atol=2e-5)
     # Every sample deposits total weight 1.
     np.testing.assert_allclose(float(got[2].sum()), len(pix), rtol=1e-5)
+
+
+def _stats(out):
+    return film_mean_se(out["raw"], out["sqr"], out["weight"])
+
+
+@pytest.mark.parametrize("sampler,rfilter", [
+    ("stratified", "box"), ("halton", "box"), ("sobol", "box"),
+    ("independent", "tent"), ("independent", "gaussian"),
+    ("independent", "mitchell"), ("independent", "catmullrom"),
+    ("independent", "lanczos")])
+def test_samplers_and_rfilters_keep_the_mean(sampler, rfilter):
+    """On the plain box the image mean under each sampler and filter lies
+    within 4 standard errors of the independent/box image's."""
+    ts, tcfg = make_box(tscene, tshapes).build(device="cpu")
+    base = _stats(trenderer.render(ts, tcfg, spp=32, seed=8, device="cpu"))
+    out = trenderer.render(ts, tcfg, spp=32, seed=9, sampler=sampler,
+                           rfilter=rfilter, device="cpu")
+    assert np.isfinite(out["image"]).all()
+    if rfilter == "box":
+        assert (out["weight"] == 32).all()
+    got = _stats(out)
+    assert within_se(got, base), (got, base)

@@ -6,8 +6,10 @@ agree in expectation: image means within 10% (the seed-to-seed spread of
 either pool at 16 spp on 16x16 pixels is ~5%). The optimize step on
 identical samples gives the identical tree and EM weights/means within
 rtol 1e-3. The short training runs against the reference's are in
-tests/test_torch_trainer_runs.py (a file of few tests that the tier-1
-scheduler runs late)."""
+tests/test_torch_trainer_runs.py, the collected samples and the scan route
+in tests/test_torch_trainer_samples.py: this file and those hold few
+tests, so that the tier-1 scheduler (``--dist loadfile``, files with the
+most tests first) runs them after the long reference files."""
 
 import os
 import sys
@@ -140,33 +142,3 @@ def test_render_pool_guided_matches_reference_in_mean(trained):
     vj = float(out_j["n_vertices"]) / (W * H * 16)
     vt = float(out_t["n_vertices"]) / (W * H * 16)
     assert abs(vt - vj) / vj < 0.1, (vt, vj)
-
-
-def test_collected_training_samples_are_consistent(trained):
-    _, tt, _, _ = trained
-    out = tguided.render_pool_guided(
-        tt.scene, tt.guide_state(), torch.Generator().manual_seed(5),
-        n_lanes=512, spp=4, width=W, height=H, max_depth=4, rr_depth=4,
-        collect_cap=4096, device="cpu")
-    s = out["samples"]
-    v = to_np(s["valid"])
-    assert 0 < v.sum() <= int(out["n_emitted"])
-    assert (to_np(s["weight"])[v] >= 0).all()
-    assert (to_np(s["weight"])[~v] == -1.0).all()
-    assert to_np(s["terminal"])[v].sum() <= W * H * 4  # ≤ 1 per path
-    assert not to_np(s["terminal"])[~v].any()
-
-
-def test_images_above_the_pool_limit_take_the_scan(monkeypatch):
-    """Above SCAN_PIXELS (2^20, lowered here) every iteration, training
-    and frozen, takes the scan tracer and never the pool."""
-    def no_pool(*a, **k):
-        raise AssertionError("the lane pool ran")
-
-    monkeypatch.setattr(ttrainer, "SCAN_PIXELS", W * H - 1)
-    monkeypatch.setattr(ttrainer, "render_pool_guided", no_pool)
-    _, tt = _trainers(train_fraction=0.5)
-    img, iters = tt.run(total_spp=16)
-    assert len(iters) == 2 and np.isfinite(img).all() and img.mean() > 0
-    assert tt.stats[0]["optimized_nodes_count"] > 0
-    assert (iters[1]["weight"] == 8).all()

@@ -1,25 +1,23 @@
-"""Port parity: the unguided pools with NEE (render/wavefront.py) and the
-bounce kernel's twin, sdmm_tpu_torch vs sdmm_tpu.
+"""The unguided pools with NEE (render/wavefront.py) and the bounce
+kernel's twin in the port: the twin skips a tile whose lanes are done,
+and render_wavefront routes every CPU render to the eager pool.
 
-Whole renders draw their own random numbers, so they agree in
-expectation: NEE against BSDF sampling alone within the port within 5%,
-and the port's fused pools on the CPU (their plain twins) against its
-eager pool at 64 spp within 6% (tests/test_bounce_pallas.py:310,350), each
-landing exactly spp samples on every pixel. The bounce twin against the
-reference's kernel, and the eager pool against the reference's, are in
-tests/test_torch_wavefront_kernels.py (a file of few tests that the tier-1
-scheduler runs late).
+Files of few tests, which the tier-1 scheduler (``--dist loadfile``,
+files with the most tests first) runs after the long reference files,
+hold the renders: NEE against BSDF sampling and the fused pools' twins
+against the eager pool (tests/test_torch_wavefront_pools.py), and the
+bounce twin against the reference's kernel with the eager pool against
+the reference's (tests/test_torch_wavefront_kernels.py).
 """
 
 import os
 import sys
 
 import numpy as np
-import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from torch_parity import make_box, path_wave, to_np  # noqa: E402
+from torch_parity import make_box, path_wave  # noqa: E402
 
 from sdmm_tpu.scene import scene as jscene  # noqa: E402
 from sdmm_tpu.scene import shapes as jshapes  # noqa: E402
@@ -60,13 +58,6 @@ def _port_pool(spp, nee=True, seed=1):
                            bsdf_types=tcfg.bsdf_types, device="cpu")
 
 
-@pytest.fixture(scope="module")
-def eager64():
-    out = _port_pool(64)
-    assert (to_np(out["weight"]) == 64).all() and out["pool"] == "eager"
-    return out
-
-
 def test_bounce_twin_tile_skip():
     _, ts, _ = _box()
     tri, em, env = bo.build_tables(ts)
@@ -75,36 +66,6 @@ def test_bounce_twin_tile_skip():
                            RR_DEPTH, (0,), torch.zeros(1, dtype=torch.int32))
     assert torch.equal(me, meta) and not sp.any()
     assert torch.equal(st.nan_to_num(), state.nan_to_num())
-
-
-def test_render_pool_nee_matches_bsdf_sampling(eager64):
-    out_b = _port_pool(512, nee=False, seed=7)
-    assert (to_np(out_b["weight"]) == 512).all()
-    m_n, m_b = _mean(eager64), _mean(out_b)
-    assert abs(m_n - m_b) / m_b < 0.05, (m_n, m_b)
-
-
-@pytest.mark.parametrize("pool", ["sorted2", "striped"])
-def test_fused_pool_twins_match_eager_pool(eager64, pool):
-    _, ts, tcfg = _box()
-    kw = dict(spp=64, width=W, height=H, max_depth=MAX_DEPTH,
-              rr_depth=RR_DEPTH, bsdf_types=tcfg.bsdf_types, device="cpu")
-    if pool == "sorted2":
-        out = twf.render_pool_fused_sorted2(ts, 3, spp_pilot=16, **kw)
-        assert 0 < out["alive_tile_steps"] <= out["total_tile_steps"]
-    else:
-        out = twf.render_pool_fused_striped(ts, 3, **kw)
-    assert out["pool"] == pool
-    assert (to_np(out["weight"]) == 64).all()  # every pixel exactly spp
-    img = to_np(out["image"]) / 64
-    assert np.isfinite(img).all()
-    m_f, m_p = float(img.mean()), _mean(eager64)
-    assert abs(m_f - m_p) / m_p < 0.06, (m_f, m_p)
-    # Vertices: the fused pools count after the back-face cull, the eager
-    # pool before it (as the reference pools do); the box has no back faces
-    # in view, so the two agree in expectation.
-    nv_f, nv_p = float(out["n_vertices"]), float(eager64["n_vertices"])
-    assert abs(nv_f - nv_p) / nv_p < 0.03, (nv_f, nv_p)
 
 
 def test_render_wavefront_routes_on_the_cpu():

@@ -5,6 +5,7 @@ import numpy as np
 import torch
 
 from sdmm_tpu_torch.guiding import mixture as tmix
+from sdmm_tpu_torch.ops import guided_sample as tgs
 
 
 def compose(translate, scale, rx=0.0, ry=0.0):
@@ -423,6 +424,28 @@ def make_mixture_state(seed=0, L=8, K=16):
             "cov": cov.astype(np.float32), "initialized": initialized}
 
 
+def guided_rows(st, weight=None, initialized=None):
+    """The port's [353, L] guided-sampling rows of a make_mixture_state
+    state (``weight`` and ``initialized`` replace the state's)."""
+    w = st["weight"] if weight is None else weight
+    ini = st["initialized"] if initialized is None else initialized
+    ts = tmix.SDMM(weight=t(w), mean=t(st["mean"]), cov=t(st["cov"]))
+    return tgs.pack_guided_rows(tmix.prepare(ts), ts.weight,
+                                torch.as_tensor(ini))
+
+
+def guided_lanes(seed, L, N):
+    """Guided-sampling lanes: leaf ids, positions, unit BSDF directions and
+    uniforms, float32 numpy."""
+    rs = np.random.RandomState(seed)
+    leaf = rs.randint(0, L, size=N).astype(np.int32)
+    pos = rs.rand(N, 3).astype(np.float32)
+    wob = rs.randn(N, 3).astype(np.float32)
+    wob /= np.linalg.norm(wob, axis=-1, keepdims=True)
+    u = rs.rand(N, 3).astype(np.float32)
+    return leaf, pos, wob, u
+
+
 def lane_wave(n, seed=0, n_pix=256, max_depth=5):
     """A wave of n lanes for the fused bounce kernels, as numpy: state
     [16, n] (a quarter camera rays into the box, the rest from random
@@ -596,14 +619,3 @@ def make_irawan_box(scene_mod, shapes_mod, irawan_mod, width=16, height=16,
     soup, _, em = b.soups[2][:3]
     b.soups[2] = (soup, cloth, em) + tuple(b.soups[2][3:])
     return b
-
-
-def irawan_agreement(got, want, exact, rtol=1e-5, atol=1e-6):
-    """Lanes where ``got`` and ``want`` (two float32 evaluations) differ
-    by more than atol + rtol·|want| and by more than twice ``want``'s own
-    distance from ``exact`` (a float64 evaluation): an ill-conditioned
-    lane (a half vector at a yarn's edge, a grazing fiber) is held to the
-    float32 error it has in either package."""
-    got, want, exact = (np.asarray(x, np.float64) for x in (got, want, exact))
-    tol = atol + rtol * np.abs(want)
-    return np.abs(got - want) > np.maximum(tol, 2.0 * np.abs(want - exact))
