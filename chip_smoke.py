@@ -166,6 +166,12 @@ Phases (any failure raises and the script exits non-zero):
      ao, field, multichannel, adaptive and motion, Irawan's card values
      against the CPU twin's, and a COLLADA import. One
      "geometry_classic:" JSON line.
+ 13. the light-path integrators on the card (phase_light_paths): ptracer,
+     vpl, bdpt, photonmapper and sppm through cli.main at 640x360 on the
+     Cornell box (mt_sweep) against gt, bdpt on the box with a mirror and
+     a glass sphere and ptracer and photonmapper on the large scene
+     (clas_cull), and gather_radiance on the card against the CPU. One
+     "light_paths:" JSON line.
 Phases 5, 7, 10 and 11 run their training under EmCensus, which counts the
 E-step's valid samples with a non-finite posterior by cause and the NaN
 entries of its stats_w; any NaN fails the run.
@@ -3131,6 +3137,200 @@ def phase_geometry_classic(dev, smi, width=640, height=360, n_fibers=1024,
     print("geometry_classic:", json.dumps(report), flush=True)
 
 
+DELTA_SPHERES = (([-0.45, 0.4, 0.2], 0.35, "mirror"),
+                 ([0.5, 0.35, -0.1], 0.3, "glass"))  # centre, radius
+
+
+def write_delta_xml(path, width, height, spp):
+    """The Cornell box without its blocks plus a mirror (Cu conductor) and
+    a glass (dielectric, IOR 1.5) sphere of make_sphere's default 32 x 64
+    tessellation (7,948 triangles, so clas_cull): the scene of the
+    reference's BDPT test with delta BSDFs."""
+    write_cornell_xml(path, width, height, spp, blocks=False)
+    bsdfs = {"mirror": '<bsdf type="conductor"/>',
+             "glass": '<bsdf type="dielectric"><float name="intIOR" '
+                      'value="1.5"/></bsdf>'}
+    shapes = "".join(
+        f'  <shape type="sphere"><point name="center" x="{c[0]}" '
+        f'y="{c[1]}" z="{c[2]}"/><float name="radius" value="{r}"/>'
+        f'{bsdfs[kind]}</shape>\n' for c, r, kind in DELTA_SPHERES)
+    with open(path) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(text.replace("</scene>", shapes + "</scene>"))
+
+
+def _gather_card_vs_cpu(dev, xml, n=4096):
+    """gather_radiance on the card against the CPU on the same photons,
+    grid and gather points: photons traced and gridded on the CPU, the
+    first hits of n camera rays, all copied to the card. Returns the
+    report; every point must agree within rtol 1e-5 / atol 1e-6."""
+    from sdmm_tpu_torch.bsdf import bsdf as bsdf_mod
+    from sdmm_tpu_torch.core.frame import to_local
+    from sdmm_tpu_torch.render import intersect as isect
+    from sdmm_tpu_torch.render import photonmap
+    from sdmm_tpu_torch.render.volpath import shading_frame
+    from sdmm_tpu_torch.scene.sensor import generate_rays
+    from sdmm_tpu_torch.scene.xml_loader import load_scene
+
+    scene, cfg = load_scene(xml).build(device="cpu")
+    types = cfg.bsdf_types or None
+    gen = torch.Generator().manual_seed(7)
+    n_paths = 1 << 15
+    photons = photonmap.trace_photons(scene, gen, n_paths, bsdf_types=types,
+                                      device="cpu")
+    photons["power"] = photons["power"] / n_paths
+    radius = 0.02 * photonmap.scene_diagonal(scene)
+    grid = photonmap.build_photon_grid(scene, photons, radius)
+    pix = torch.rand((n, 2), generator=gen) * torch.tensor(
+        [float(cfg.width), float(cfg.height)])
+    ro, rd = generate_rays(scene, pix, cfg.width, cfg.height)
+    hit = isect.intersect(scene, ro, rd)
+    it = isect.surface_interaction(scene, ro, rd, hit)
+    params = bsdf_mod.gather_params(scene, it["bsdf"], it["uv"], types=types)
+    frame = shading_frame(params, it["ns"], -rd)
+    args = (photons, grid, it["p"], to_local(*frame, -rd), frame, params,
+            torch.full((n,), radius * radius))
+
+    def to(x):
+        if isinstance(x, dict):
+            return {k: to(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(to(v) for v in x)
+        return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+    want = photonmap.gather_radiance(scene, *args, bsdf_types=types)
+    got = photonmap.gather_radiance(None, *to(args), bsdf_types=types).cpu()
+    err = (got - want).abs()
+    off = (err > 1e-6 + 1e-5 * want.abs()).any(-1)
+    rep = {"points": n, "lit": int((want > 0).all(-1).sum()),
+           "off": int(off.sum()), "max_abs_err": float(err.max()),
+           "max_rel_err": float((err / want.abs().clamp_min(1e-6)).max())}
+    check(rep["off"] == 0 and rep["lit"] > n // 4,
+          f"gather_radiance: card and CPU differ on {rep['off']} of {n} "
+          "points")
+    return rep
+
+
+def phase_light_paths(dev, smi, width=640, height=360):
+    """Phase 13: the light-path integrators on the card, through cli.main
+    at 640x360. On the Cornell box without its blocks (cornell.xml,
+    mt_sweep): gt at 16 spp is the reference; ptracer and bdpt at 4 spp
+    within 3% of it; photonmapper (2^17 photon paths, 4 spp) within
+    [0.90, 1.06] of it; sppm (4 passes of 2^16 photon paths) within
+    [0.88, 1.10]; vpl at 4 spp within 25% and above direct at 4 spp. On
+    the box with a mirror and a glass sphere (write_delta_xml, 7,948
+    triangles, clas_cull): bdpt at 4 spp within 7% of gt at 16 spp. On the
+    large scene of phase 8 without the blocks (127,000 triangles,
+    clas_cull): ptracer and photonmapper at 4 spp against gt at 16 spp, in
+    the same bands. gather_radiance on 4,096 gather points on the card
+    against the CPU (_gather_card_vs_cpu). Each call's wall, mean and
+    launches of rows 7 and 8 print on its own line; one "light_paths:"
+    JSON line sums them up with the card's name and power limit."""
+    import tempfile
+
+    from sdmm_tpu_torch import cli
+
+    t_phase = time.time()
+    rows = ("mt_sweep", "clas_cull")
+    report = {"card": smi, "seconds": {}, "launches": {}, "means": {},
+              "rel": {}}
+    sec, means, launches = (report["seconds"], report["means"],
+                            report["launches"])
+    counters = _counts()
+
+    def ratio(name, ref, lo, hi):
+        r = means[name] / means[ref]
+        report["rel"][name] = r - 1.0
+        check(lo < r < hi, f"light paths: {name}'s mean {means[name]:.5f} "
+              f"is {r:.4f} of {ref}'s {means[ref]:.5f}, outside "
+              f"({lo}, {hi})")
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.time()
+        box = os.path.join(tmp, "cornell.xml")
+        delta = os.path.join(tmp, "delta.xml")
+        large = os.path.join(tmp, "large.xml")
+        # Without the blocks: make_cube winds a cube's top face inward, so
+        # gt's strict normals cull the short block's top where the light
+        # paths, two-sided, light it (both packages alike; ROADMAP C).
+        write_cornell_xml(box, width, height, 16, blocks=False)
+        write_delta_xml(delta, width, height, 16)
+        write_cornell_xml(large, width, height, 16, obj="spheres.obj",
+                          blocks=False)
+        write_spheres_obj(os.path.join(tmp, "spheres.obj"), large_spheres())
+        sec["write"] = time.time() - t0
+
+        def run(name, xml, integrator, spp, *args):
+            out = os.path.join(tmp, name, "image.npy")
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            check(cli.main(["render", xml, "-o", out, "--device", str(dev),
+                            "--integrator", integrator, "--spp", str(spp),
+                            *args]) is None, f"cli {name}: non-zero return")
+            torch.cuda.synchronize()
+            sec[name] = time.time() - t0
+            launches[name] = {k: counters[k].launches for k in rows}
+            img = np.load(out)
+            check(np.isfinite(img).all() and img.shape == (height, width, 3),
+                  f"cli {name}: image not finite or misshapen")
+            means[name] = float(img.mean())
+            with open(os.path.join(tmp, name, "stats.json")) as f:
+                stats = json.load(f)
+            check(stats["integrator"] == integrator
+                  and abs(stats["mean"] - means[name]) <= 1e-6 * means[name],
+                  f"cli {name}: stats.json")
+            print(f"light paths: cli {name}: {sec[name]:.3f} s, mean "
+                  f"{means[name]:.5f}, launches {launches[name]}",
+                  flush=True)
+            return stats
+
+        run("gt", box, "gt", 16)
+        stats = run("ptracer", box, "ptracer", 4)
+        check(stats["n_paths"] >= 4 * width * height, "ptracer: n_paths")
+        ratio("ptracer", "gt", 0.97, 1.03)
+        run("bdpt", box, "bdpt", 4)
+        ratio("bdpt", "gt", 0.97, 1.03)
+        run("photonmapper", box, "photonmapper", 4)
+        ratio("photonmapper", "gt", 0.90, 1.06)
+        run("sppm", box, "sppm", 4, "-D", "maxPasses=4")
+        ratio("sppm", "gt", 0.88, 1.10)
+        run("direct", box, "direct", 4)
+        run("vpl", box, "vpl", 4)
+        ratio("vpl", "gt", 0.75, 1.25)
+        check(means["vpl"] > 1.02 * means["direct"],
+              "vpl: no more light than direct alone")
+        for name in ("ptracer", "bdpt", "photonmapper", "sppm", "vpl"):
+            check(launches[name]["mt_sweep"] > 0
+                  and launches[name]["clas_cull"] == 0,
+                  f"{name} on the box: mt_sweep idle or clas_cull launched")
+
+        run("delta_gt", delta, "gt", 16)
+        run("delta_bdpt", delta, "bdpt", 4)
+        ratio("delta_bdpt", "delta_gt", 0.93, 1.07)
+        run("large_gt", large, "gt", 16)
+        run("large_ptracer", large, "ptracer", 4)
+        ratio("large_ptracer", "large_gt", 0.97, 1.03)
+        run("large_photonmapper", large, "photonmapper", 4)
+        ratio("large_photonmapper", "large_gt", 0.90, 1.06)
+        for name in ("delta_bdpt", "large_ptracer", "large_photonmapper"):
+            check(launches[name]["clas_cull"] > 0
+                  and launches[name]["mt_sweep"] == 0,
+                  f"{name}: clas_cull idle or mt_sweep launched")
+
+        t0 = time.time()
+        report["gather_card_vs_cpu"] = _gather_card_vs_cpu(dev, box)
+        sec["gather_card_vs_cpu"] = time.time() - t0
+        print(f"light paths: gather_radiance card vs CPU: "
+              f"{report['gather_card_vs_cpu']}", flush=True)
+    sec["phase"] = time.time() - t_phase
+    print("light_paths:", json.dumps(report), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3183,6 +3383,7 @@ def main():
     phase_media(dev, smi)
     phase_guiding_extras(dev, smi)
     phase_geometry_classic(dev, smi)
+    phase_light_paths(dev, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

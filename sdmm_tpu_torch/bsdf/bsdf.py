@@ -160,6 +160,29 @@ def gather_params(scene, bsdf_idx: torch.Tensor, uv=None,
     return p
 
 
+def repeat_params(params: dict, reps: int) -> dict:
+    """``params`` of N lanes as ``reps`` copies of them, lane-major within
+    each copy ([reps · N], row r · N + i is lane i), so that one evaluation
+    covers several directions per lane. The weave tables (``iw``) are the
+    scene's and stay as they are."""
+    n = params["type"].shape[0]
+
+    def rep(p):
+        out = {}
+        for k, v in p.items():
+            if k == "iw":
+                out[k] = v
+            elif isinstance(v, dict):
+                out[k] = rep(v)
+            elif isinstance(v, torch.Tensor) and v.ndim and v.shape[0] == n:
+                out[k] = v.repeat(reps, *([1] * (v.ndim - 1)))
+            else:
+                out[k] = v
+        return out
+
+    return rep(params)
+
+
 def eval_proc_texture(scene, pidx: torch.Tensor, uv: torch.Tensor):
     """Every procedural kind evaluated on the batch and selected by the
     row's kind. ``uv`` may be the widened [N, 6] row of

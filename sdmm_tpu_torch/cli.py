@@ -20,10 +20,14 @@ through ``PPGTrainer``; the classic integrators of ``render/classic.py``:
 (``maxError``; ``--spp`` is the most a pixel takes) and ``multichannel``
 (``fields``: one EXR a field beside the output, then the first field as the
 output), each reading its properties from the scene's integrator and
-``-D``. The others keep their place in the argument list and raise
-``NotImplementedError``, naming the ROADMAP item that ports them. Renders
-run on the card unless ``--device cpu`` is given. Stats go next to the
-output as stats.json; an sdmm render also writes its guiding model to
+``-D``; the light-path integrators: ``ptracer`` (``render/ptracer.py``),
+``vpl`` (``lightPaths``, ``maxDepth``), ``bdpt`` (``render/bdpt.py``, in
+waves of BDPT_WAVE samples), ``photonmapper`` (``globalPhotons``), and
+``ppm`` and ``sppm`` (``maxPasses``, ``photonCount``, ``alpha``) through
+``render/photonmap.py``. The others keep their place in the argument list
+and raise ``NotImplementedError``, naming the ROADMAP item that ports them.
+Renders run on the card unless ``--device cpu`` is given. Stats go next to
+the output as stats.json; an sdmm render also writes its guiding model to
 checkpoints/model_NNNNN.asdmm. ``import`` converts a COLLADA file to a
 scene XML and OBJ meshes (the output also as ``-o``), then builds the
 written scene on ``--device`` and prints its triangle count.
@@ -43,8 +47,12 @@ INTEGRATORS = ["gt", "volpath", "path", "sdmm", "ppg", "direct", "ao",
                "irrcache", "motion"]
 # The integrators still to port, by ROADMAP item.
 UNPORTED_INTEGRATORS = {name: "A12" for name in (
-    "ptracer", "vpl", "photonmapper", "ppm", "sppm", "pssmlt", "mlt",
-    "erpt", "bdpt", "irrcache")}
+    "pssmlt", "mlt", "erpt", "irrcache")}
+LIGHT_PATH_INTEGRATORS = ("ptracer", "vpl", "bdpt", "photonmapper", "ppm",
+                          "sppm")
+# BDPT's samples a wave on the CLI: a whole 640x360 image in one wave (the
+# reference's default is 2^15, eight waves a sample there).
+BDPT_WAVE = 1 << 18
 
 
 def _parse_defines(pairs):
@@ -135,6 +143,9 @@ def cmd_render(args):
         image = _render_classic(integrator, scene, cfg, builder, overrides,
                                 spp, sampler, rfilter, out, out_dir, t0,
                                 device)
+    elif integrator in LIGHT_PATH_INTEGRATORS:
+        image = _render_light_paths(integrator, scene, cfg, builder,
+                                    overrides, spp, out_dir, t0, device)
     else:
         nee = integrator in ("gt", "volpath")
         if not cfg.has_medium and sampler == "independent" \
@@ -233,6 +244,58 @@ def _render_classic(integrator, scene, cfg, builder, overrides, spp, sampler,
                        device=device)["image"]
         stats.update(seconds=time.time() - t0, mean=float(image.mean()))
     _write_stats(out_dir, stats)
+    return image
+
+
+def _render_light_paths(integrator, scene, cfg, builder, overrides, spp,
+                        out_dir, t0, device):
+    """One of the light-path integrators with the reference's properties
+    and defaults; writes the reference's stats.json and returns the
+    image."""
+    import numpy as np
+
+    props = dict(builder.integrator)
+    props.update(overrides)
+    extra = {}
+    if integrator == "ptracer":
+        from .render.ptracer import render_ptracer
+
+        res = render_ptracer(scene, cfg, spp=spp, seed=builder.seed,
+                             device=device)
+        extra["n_paths"] = res["n_paths"]
+    elif integrator == "vpl":
+        from .render.ptracer import render_vpl
+
+        res = render_vpl(scene, cfg, spp=spp, seed=builder.seed,
+                         n_light_paths=int(props.get("lightPaths", 32)),
+                         vpl_depth=int(props.get("maxDepth", 4)),
+                         device=device)
+    elif integrator == "bdpt":
+        from .render.bdpt import render_bdpt
+
+        res = render_bdpt(scene, cfg, spp=spp, seed=builder.seed,
+                          rays_per_wave=BDPT_WAVE, device=device)
+    elif integrator == "photonmapper":
+        from .render.photonmap import render_photonmap
+
+        res = render_photonmap(
+            scene, cfg, spp=spp, seed=builder.seed,
+            n_photon_paths=int(props.get("globalPhotons", 1 << 17)),
+            device=device)
+    else:
+        # ppm and sppm share the progressive driver, which re-jitters the
+        # camera points every pass.
+        from .render.photonmap import render_sppm
+
+        res = render_sppm(
+            scene, cfg, seed=builder.seed,
+            iterations=int(props.get("maxPasses", max(spp // 4, 4))),
+            photon_paths_per_iter=int(props.get("photonCount", 1 << 16)),
+            alpha=float(props.get("alpha", 0.7)), device=device)
+    image = res["image"]
+    _write_stats(out_dir, {"integrator": integrator, "spp": spp,
+                           "seconds": time.time() - t0, **extra,
+                           "mean": float(np.asarray(image).mean())})
     return image
 
 

@@ -10,7 +10,10 @@ and a sample reservoir (``tensors_from_numpy``), and for a scene:
 ``scene_from_arrays`` builds the port's ``SceneData`` from any scene with
 the reference's field layout, its Irawan weave tables (the normalisation
 constant as it was drawn there) and keyframed motion included, so that
-both packages then render the same scene.
+both packages then render the same scene. The light-path integrators'
+state goes the same way: a photon map and its grid
+(``photons_from_arrays``, ``photon_grid_from_arrays``) and a VPL set
+(``vpls_from_arrays``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from . import mixture as mix
 from .em import EMState
 from .stree import STree
@@ -78,6 +82,36 @@ def scene_from_arrays(scene, device="cuda"):
 
     arrays = scene if isinstance(scene, dict) else scene._asdict()
     return scene_from_numpy({k: _np(v) for k, v in arrays.items()}, device)
+
+
+def photons_from_arrays(photons: dict, device="cuda") -> dict:
+    """A photon map (``trace_photons``' dict: p, wi, n, power, valid) of
+    either package as the port's tensors on ``device``."""
+    return tensors_from_numpy({k: _np(v) for k, v in photons.items()},
+                              resolve_device(device))
+
+
+def photon_grid_from_arrays(grid: dict, device="cuda") -> dict:
+    """A photon grid (``build_photon_grid``'s dict: order, cids, dims, lo,
+    inv_cell) of either package as the port's on ``device``: order as
+    int64, cids and dims int32, lo float32, inv_cell a Python float."""
+    dev = resolve_device(device)
+    return {"order": torch.as_tensor(_np(grid["order"]).astype(np.int64),
+                                     device=dev),
+            "cids": torch.as_tensor(_np(grid["cids"]).astype(np.int32),
+                                    device=dev).contiguous(),
+            "dims": torch.as_tensor(_np(grid["dims"]).astype(np.int32),
+                                    device=dev),
+            "lo": torch.as_tensor(_np(grid["lo"]).astype(np.float32),
+                                  device=dev),
+            "inv_cell": float(_np(grid["inv_cell"]))}
+
+
+def vpls_from_arrays(vpls: dict, device="cuda") -> dict:
+    """A VPL set (``generate_vpls``' dict: p, n, wi, beta, kind, bsdf, uv,
+    valid) of either package as the port's tensors on ``device``."""
+    return tensors_from_numpy({k: _np(v) for k, v in vpls.items()},
+                              resolve_device(device))
 
 
 def trainer_state_to_numpy(tr) -> dict:

@@ -22,7 +22,7 @@ from ..core.frame import coordinate_system, to_local, to_world
 from ..scene import emitters
 from ..scene.scene import scene_to
 from . import intersect as isect
-from .volpath import RAY_EPS, mi_weight, shading_frame
+from .volpath import RAY_EPS, mi_weight, shading_frame, spawn
 
 FIELDS = ("position", "relPosition", "distance", "geoNormal", "shNormal",
           "uv", "albedo", "shapeIndex", "primIndex")
@@ -40,12 +40,6 @@ def _uniforms(rand, generator, n, k, dev):
     if tuple(rand.shape) != (n, k):
         raise ValueError(f"rand must be [{n}, {k}], got {tuple(rand.shape)}")
     return rand.to(dev)
-
-
-def _spawn(it, d):
-    """A ray origin off the hit on the side of ``d``."""
-    return it["p"] + it["ng"] * torch.where(
-        (it["ng"] * d).sum(-1) > 0, RAY_EPS, -RAY_EPS)[:, None]
 
 
 def trace_direct(scene, generator, ro, rd, emitter_samples: int = 1,
@@ -86,7 +80,7 @@ def trace_direct(scene, generator, ro, rd, emitter_samples: int = 1,
         f, pdf_b = bsdf_mod.eval_pdf_full(params, wi_local, wo_l,
                                           types=bsdf_types)
         cand = on_surface & ls["valid"] & (ls["pdf"] > 0.0)
-        occ = isect.occluded(scene, _spawn(it, ls["d"]), ls["d"],
+        occ = isect.occluded(scene, spawn(it["p"], it["ng"], ls["d"]), ls["d"],
                              ls["dist"] * (1.0 - 1e-3))
         w = torch.where(ls["delta"], 1.0,
                         mi_weight(ls["pdf"] * w_lum, pdf_b * w_bsdf))
@@ -102,7 +96,7 @@ def trace_direct(scene, generator, ro, rd, emitter_samples: int = 1,
                                   u[:, 2:4], types=bsdf_types)
         wo_world = to_world(s_ax, t_ax, n_ax, bs["wo"])
         good = hit["valid"] & (bs["weight"] > 0.0).any(-1)
-        o2 = _spawn(it, wo_world)
+        o2 = spawn(it["p"], it["ng"], wo_world)
         hit2 = isect.intersect(scene, o2, wo_world)
         it2 = isect.surface_interaction(scene, o2, wo_world, hit2)
         le2 = emitters.eval_emitter(scene, it2, -wo_world)

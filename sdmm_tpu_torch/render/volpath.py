@@ -23,6 +23,13 @@ from ..scene.scene import (BSDF_DIELECTRIC, BSDF_HK, BSDF_NULL,
 RAY_EPS = 1e-4  # spawn offset along the geometric normal
 
 
+def spawn(p, ng, d):
+    """A ray origin off the surface point ``p`` (geometric normal ``ng``) on
+    the side of ``d``."""
+    return p + ng * torch.where((ng * d).sum(-1) > 0, RAY_EPS,
+                                -RAY_EPS)[:, None]
+
+
 def mi_weight(pdf_a, pdf_b):
     """Power heuristic (beta = 2), as the reference's miWeight."""
     a2 = pdf_a * pdf_a

@@ -111,9 +111,9 @@ def test_compare_prints_all_metrics(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--integrator", "bdpt"], "A12"),
-    (["--integrator", "ptracer"], "A12"),
     (["--integrator", "pssmlt"], "A12"),
+    (["--integrator", "mlt"], "A12"),
+    (["--integrator", "irrcache"], "A12"),
 ])
 def test_unported_options_raise(tmp_path, extra, item):
     path = tmp_path / "box.xml"
