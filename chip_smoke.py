@@ -172,6 +172,13 @@ Phases (any failure raises and the script exits non-zero):
      a glass sphere and ptracer and photonmapper on the large scene
      (clas_cull), and gather_radiance on the card against the CPU. One
      "light_paths:" JSON line.
+ 14. the Metropolis integrators and the irradiance cache on the card
+     (phase_mcmc_irrcache): pssmlt, erpt, mlt and irrcache through cli.main
+     at 640x360 on the Cornell box (mt_sweep) against gt, mlt on the box
+     with a mirror and a glass sphere (clas_cull), mlt on the box lit by a
+     constant environment alone (the fallback to pssmlt), pssmlt on the
+     large scene (clas_cull), and eval_path and interpolate on the card
+     against the CPU. One "mcmc_irrcache:" JSON line.
 Phases 5, 7, 10 and 11 run their training under EmCensus, which counts the
 E-step's valid samples with a non-finite posterior by cause and the NaN
 entries of its stats_w; any NaN fails the run.
@@ -3331,6 +3338,244 @@ def phase_light_paths(dev, smi, width=640, height=360):
     print("light_paths:", json.dumps(report), flush=True)
 
 
+# Lanes of phase 14's 65,536 PSS vectors whose eval_path value may leave
+# 1e-4 relative between the card and the CPU: 1 on the H100 (at most
+# 1.5e-4 relative; rounding that differs between the devices moves a
+# path's later vertices).
+EVAL_PATH_OFF_LANES = 2
+# Points of phase 14's 4,096 whose interpolated irradiance may leave rtol
+# 1e-5 between the card and the CPU (none on the H100).
+INTERPOLATE_OFF_POINTS = 0
+
+
+def write_env_xml(path, width, height, spp):
+    """The Cornell box without its blocks, its light a black rectangle and
+    the scene lit by a constant environment alone (through the open
+    front): a scene with no area emitter, where mlt falls back to
+    pssmlt."""
+    write_cornell_xml(path, width, height, spp, blocks=False)
+    with open(path) as f:
+        text = f.read()
+    start = text.index('<emitter type="area">')
+    end = text.index("</emitter>", start) + len("</emitter>")
+    text = text[:start] + text[end:]
+    with open(path, "w") as f:
+        f.write(text.replace("</scene>", '  <emitter type="constant"><rgb '
+                             'name="radiance" value="1"/></emitter>\n'
+                             "</scene>"))
+
+
+def _eval_path_card_vs_cpu(dev, xml, n=65536, depth=6):
+    """pssmlt.eval_path on the card against the CPU on n equal PSS vectors:
+    pix equal on every lane, value within 1e-4 relative (atol 1e-6) on all
+    but EVAL_PATH_OFF_LANES lanes."""
+    from sdmm_tpu_torch.render import pssmlt
+    from sdmm_tpu_torch.scene.xml_loader import load_scene
+
+    scene, cfg = load_scene(xml).build(device="cpu")
+    u = torch.rand((n, pssmlt.pss_dims(depth)),
+                   generator=torch.Generator().manual_seed(11))
+    out = {}
+    for d in ("cpu", dev):
+        out[str(d)] = {k: v.cpu() for k, v in pssmlt.eval_path(
+            scene, u, cfg.width, cfg.height, max_depth=depth,
+            bsdf_types=cfg.bsdf_types or None, fov_axis=cfg.fov_axis,
+            device=d).items()}
+    want, got = out["cpu"], out[str(dev)]
+    err = (got["value"] - want["value"]).abs()
+    off = (err > 1e-6 + 1e-4 * want["value"].abs()).any(-1)
+    rep = {"lanes": n, "lit": int((want["lum"] > 0).sum()),
+           "pix_equal": bool(torch.equal(got["pix"], want["pix"])),
+           "off": int(off.sum()), "max_abs_err": float(err.max()),
+           "max_rel_err": float((err / want["value"].abs().clamp_min(1e-6))
+                                .max())}
+    check(rep["pix_equal"] and rep["off"] <= EVAL_PATH_OFF_LANES
+          and rep["lit"] > n // 4,
+          f"eval_path: card and CPU differ on {rep['off']} of {n} lanes "
+          f"(allowed {EVAL_PATH_OFF_LANES}), pix equal {rep['pix_equal']}")
+    return rep
+
+
+def _interpolate_card_vs_cpu(dev, xml, n=4096):
+    """irrcache.interpolate on the card against the CPU over one cache
+    built on the card (the full table, its final gather on the card), at
+    the first hits of n camera rays: E within rtol 1e-5 / atol 1e-7 and
+    covered equal on all but INTERPOLATE_OFF_POINTS points."""
+    from sdmm_tpu_torch.render import intersect as isect
+    from sdmm_tpu_torch.render import irrcache
+    from sdmm_tpu_torch.scene.scene import scene_to
+    from sdmm_tpu_torch.scene.sensor import generate_rays
+    from sdmm_tpu_torch.scene.xml_loader import load_scene
+
+    scene, cfg = load_scene(xml).build(device=dev)
+    cache = irrcache.build_cache(
+        scene, torch.Generator(device=dev).manual_seed(3), cfg.width,
+        cfg.height, bsdf_types=cfg.bsdf_types or None,
+        max_depth=cfg.max_depth, fov_axis=cfg.fov_axis, device=dev)
+    pix = torch.rand((n, 2), generator=torch.Generator().manual_seed(4),
+                     ) * torch.tensor([float(cfg.width), float(cfg.height)])
+    cpu = scene_to(scene, "cpu")
+    ro, rd = generate_rays(cpu, pix, cfg.width, cfg.height)
+    it = isect.surface_interaction(cpu, ro, rd, isect.intersect(cpu, ro, rd))
+    want = irrcache.interpolate({k: v.cpu() for k, v in cache.items()}, cpu,
+                                it["p"], it["ns"], 48)
+    got = [t.cpu() for t in irrcache.interpolate(
+        cache, scene, it["p"].to(dev), it["ns"].to(dev), 48)]
+    err = (got[0] - want[0]).abs()
+    off = (err > 1e-7 + 1e-5 * want[0].abs()).any(-1) | (got[1] != want[1])
+    rep = {"points": n, "records": int(cache["valid"].sum()),
+           "covered": int(want[1].sum()), "off": int(off.sum()),
+           "max_abs_err": float(err.max())}
+    check(rep["off"] <= INTERPOLATE_OFF_POINTS and rep["covered"] > n // 2,
+          f"interpolate: card and CPU differ on {rep['off']} of {n} points")
+    return rep
+
+
+def phase_mcmc_irrcache(dev, smi, width=640, height=360):
+    """Phase 14: the Metropolis integrators and the irradiance cache on the
+    card, through cli.main at 640x360 and the scene's max depth (10). On
+    the Cornell box without its blocks (mt_sweep): gt at 16 spp is the
+    reference; pssmlt within 5%, erpt within 8%, mlt within 10% and
+    irrcache within 15% of it, each at 4 spp. On the box with a mirror and
+    a glass sphere (write_delta_xml, clas_cull): mlt at 4 spp within 15%
+    of gt at 16 spp. On the block-less box lit by a constant environment
+    alone (write_env_xml): mlt must print the reference CLI's fallback
+    line and render through pssmlt, within 5% of gt. On the large scene of
+    phase 8 without the blocks (clas_cull): pssmlt within 5% of gt. Each
+    call prints its wall, mean against gt, launches of rows 7 and 8, b and
+    (pssmlt) the acceptance rate; then eval_path and interpolate on the
+    card against the CPU. One "mcmc_irrcache:" JSON line."""
+    import contextlib
+    import io
+    import tempfile
+
+    from sdmm_tpu_torch import cli
+    from sdmm_tpu_torch.render import pssmlt
+
+    t_phase = time.time()
+    rows = ("mt_sweep", "clas_cull")
+    report = {"card": smi, "seconds": {}, "launches": {}, "means": {},
+              "rel": {}, "b": {}, "acceptance": {}}
+    sec, means, launches = (report["seconds"], report["means"],
+                            report["launches"])
+    counters = _counts()
+    real_pssmlt, last = pssmlt.render_pssmlt, {}
+
+    def recording(*a, **k):
+        last.update(real_pssmlt(*a, **k))
+        return last
+
+    def ratio(name, ref, band):
+        r = means[name] / means[ref]
+        report["rel"][name] = r - 1.0
+        check(abs(r - 1.0) < band, f"mcmc: {name}'s mean {means[name]:.5f} "
+              f"is {r:.4f} of {ref}'s {means[ref]:.5f}, outside {band}")
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    pssmlt.render_pssmlt = recording
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            t0 = time.time()
+            box = os.path.join(tmp, "cornell.xml")
+            delta = os.path.join(tmp, "delta.xml")
+            env = os.path.join(tmp, "env.xml")
+            large = os.path.join(tmp, "large.xml")
+            write_cornell_xml(box, width, height, 16, blocks=False)
+            write_delta_xml(delta, width, height, 16)
+            write_env_xml(env, width, height, 16)
+            write_cornell_xml(large, width, height, 16, obj="spheres.obj",
+                              blocks=False)
+            write_spheres_obj(os.path.join(tmp, "spheres.obj"),
+                              large_spheres())
+            sec["write"] = time.time() - t0
+
+            def run(name, xml, integrator, spp):
+                out = os.path.join(tmp, name, "image.npy")
+                for c in counters.values():
+                    c.launches = 0
+                last.clear()
+                printed = io.StringIO()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                with contextlib.redirect_stdout(printed):
+                    code = cli.main(["render", xml, "-o", out, "--device",
+                                     str(dev), "--integrator", integrator,
+                                     "--spp", str(spp)])
+                torch.cuda.synchronize()
+                sec[name] = time.time() - t0
+                check(code is None, f"cli {name}: non-zero return")
+                launches[name] = {k: counters[k].launches for k in rows}
+                img = np.load(out)
+                check(np.isfinite(img).all()
+                      and img.shape == (height, width, 3),
+                      f"cli {name}: image not finite or misshapen")
+                means[name] = float(img.mean())
+                with open(os.path.join(tmp, name, "stats.json")) as f:
+                    stats = json.load(f)
+                check(stats["integrator"] == integrator
+                      and abs(stats["mean"] - means[name])
+                      <= 1e-6 * means[name], f"cli {name}: stats.json")
+                if "b" in stats:
+                    report["b"][name] = stats["b"]
+                    check(stats["b"] > 0, f"cli {name}: b = {stats['b']}")
+                if "acceptance" in last:
+                    report["acceptance"][name] = last["acceptance"]
+                print(f"mcmc: cli {name}: {sec[name]:.3f} s, mean "
+                      f"{means[name]:.5f}, launches {launches[name]}, b "
+                      f"{stats.get('b')}, acceptance "
+                      f"{last.get('acceptance')}", flush=True)
+                return printed.getvalue()
+
+            run("gt", box, "gt", 16)
+            run("pssmlt", box, "pssmlt", 4)
+            ratio("pssmlt", "gt", 0.05)
+            run("erpt", box, "erpt", 4)
+            ratio("erpt", "gt", 0.08)
+            run("mlt", box, "mlt", 4)
+            ratio("mlt", "gt", 0.10)
+            run("irrcache", box, "irrcache", 4)
+            ratio("irrcache", "gt", 0.15)
+            run("env_gt", env, "gt", 16)
+            text = run("env_mlt", env, "mlt", 4)
+            check("falling back to pssmlt" in text
+                  and "env_mlt" in report["acceptance"],
+                  "mlt on the environment-lit box: no pssmlt fallback")
+            ratio("env_mlt", "env_gt", 0.05)
+            for name in ("pssmlt", "erpt", "mlt", "irrcache", "env_mlt"):
+                check(launches[name]["mt_sweep"] > 0
+                      and launches[name]["clas_cull"] == 0,
+                      f"{name} on the box: mt_sweep idle or clas_cull "
+                      "launched")
+            run("delta_gt", delta, "gt", 16)
+            run("delta_mlt", delta, "mlt", 4)
+            ratio("delta_mlt", "delta_gt", 0.15)
+            run("large_gt", large, "gt", 16)
+            run("large_pssmlt", large, "pssmlt", 4)
+            ratio("large_pssmlt", "large_gt", 0.05)
+            for name in ("delta_mlt", "large_pssmlt"):
+                check(launches[name]["clas_cull"] > 0
+                      and launches[name]["mt_sweep"] == 0,
+                      f"{name}: clas_cull idle or mt_sweep launched")
+
+            t0 = time.time()
+            report["eval_path_card_vs_cpu"] = _eval_path_card_vs_cpu(dev,
+                                                                     box)
+            sec["eval_path_card_vs_cpu"] = time.time() - t0
+            print(f"mcmc: eval_path card vs CPU: "
+                  f"{report['eval_path_card_vs_cpu']}", flush=True)
+            t0 = time.time()
+            report["interpolate_card_vs_cpu"] = _interpolate_card_vs_cpu(
+                dev, box)
+            sec["interpolate_card_vs_cpu"] = time.time() - t0
+            print(f"mcmc: interpolate card vs CPU: "
+                  f"{report['interpolate_card_vs_cpu']}", flush=True)
+    finally:
+        pssmlt.render_pssmlt = real_pssmlt
+    sec["phase"] = time.time() - t_phase
+    print("mcmc_irrcache:", json.dumps(report), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3384,6 +3629,7 @@ def main():
     phase_guiding_extras(dev, smi)
     phase_geometry_classic(dev, smi)
     phase_light_paths(dev, smi)
+    phase_mcmc_irrcache(dev, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -24,13 +24,17 @@ output), each reading its properties from the scene's integrator and
 ``vpl`` (``lightPaths``, ``maxDepth``), ``bdpt`` (``render/bdpt.py``, in
 waves of BDPT_WAVE samples), ``photonmapper`` (``globalPhotons``), and
 ``ppm`` and ``sppm`` (``maxPasses``, ``photonCount``, ``alpha``) through
-``render/photonmap.py``. The others keep their place in the argument list
-and raise ``NotImplementedError``, naming the ROADMAP item that ports them.
-Renders run on the card unless ``--device cpu`` is given. Stats go next to
-the output as stats.json; an sdmm render also writes its guiding model to
-checkpoints/model_NNNNN.asdmm. ``import`` converts a COLLADA file to a
-scene XML and OBJ meshes (the output also as ``-o``), then builds the
-written scene on ``--device`` and prints its triangle count.
+``render/photonmap.py``; the Metropolis integrators: ``pssmlt``
+(``pLarge``) and ``erpt`` (``chainLength``) through ``render/pssmlt.py``,
+and ``mlt`` through ``render/mlt.py``, which falls back to ``pssmlt`` on a
+scene without area emitters or where no bootstrap path finds one (b = 0);
+and ``irrcache`` (``resolution``, ``quality``, ``indirectOnly``) through
+``render/irrcache.py``. Renders run on the card unless ``--device cpu`` is
+given. Stats go next to the output as stats.json; an sdmm render also
+writes its guiding model to checkpoints/model_NNNNN.asdmm. ``import``
+converts a COLLADA file to a scene XML and OBJ meshes (the output also as
+``-o``), then builds the written scene on ``--device`` and prints its
+triangle count.
 """
 
 from __future__ import annotations
@@ -45,9 +49,6 @@ INTEGRATORS = ["gt", "volpath", "path", "sdmm", "ppg", "direct", "ao",
                "field", "ptracer", "vpl", "photonmapper", "ppm", "sppm",
                "pssmlt", "mlt", "erpt", "bdpt", "adaptive", "multichannel",
                "irrcache", "motion"]
-# The integrators still to port, by ROADMAP item.
-UNPORTED_INTEGRATORS = {name: "A12" for name in (
-    "pssmlt", "mlt", "erpt", "irrcache")}
 LIGHT_PATH_INTEGRATORS = ("ptracer", "vpl", "bdpt", "photonmapper", "ppm",
                           "sppm")
 # BDPT's samples a wave on the CLI: a whole 640x360 image in one wave (the
@@ -72,7 +73,7 @@ def cmd_render(args):
     import numpy as np
 
     from .core.device import resolve_device
-    from .scene.xml_loader import load_scene, unported
+    from .scene.xml_loader import load_scene
     from .utils.exr import write_exr
 
     device = resolve_device(args.device)
@@ -83,9 +84,6 @@ def cmd_render(args):
         overrides["integrator"] = args.integrator
     builder = load_scene(args.scene, overrides)
     integrator = args.integrator or builder.integrator.get("type", "volpath")
-    if integrator in UNPORTED_INTEGRATORS:
-        raise unported(f"the {integrator} integrator",
-                        UNPORTED_INTEGRATORS[integrator])
     sampler = args.sampler or builder.sampler
     rfilter = args.rfilter or builder.rfilter
     scene, cfg = builder.build(device=device)
@@ -146,6 +144,9 @@ def cmd_render(args):
     elif integrator in LIGHT_PATH_INTEGRATORS:
         image = _render_light_paths(integrator, scene, cfg, builder,
                                     overrides, spp, out_dir, t0, device)
+    elif integrator in ("pssmlt", "mlt", "erpt", "irrcache"):
+        image = _render_mcmc_irrcache(integrator, scene, cfg, builder,
+                                      overrides, spp, out_dir, t0, device)
     else:
         nee = integrator in ("gt", "volpath")
         if not cfg.has_medium and sampler == "independent" \
@@ -292,6 +293,67 @@ def _render_light_paths(integrator, scene, cfg, builder, overrides, spp,
             iterations=int(props.get("maxPasses", max(spp // 4, 4))),
             photon_paths_per_iter=int(props.get("photonCount", 1 << 16)),
             alpha=float(props.get("alpha", 0.7)), device=device)
+    image = res["image"]
+    _write_stats(out_dir, {"integrator": integrator, "spp": spp,
+                           "seconds": time.time() - t0, **extra,
+                           "mean": float(np.asarray(image).mean())})
+    return image
+
+
+def _flag(value) -> bool:
+    """A boolean property: a bool as it is, a string true when it reads
+    "true" (any case)."""
+    return value.lower() == "true" if isinstance(value, str) else bool(value)
+
+
+def _render_mcmc_irrcache(integrator, scene, cfg, builder, overrides, spp,
+                          out_dir, t0, device):
+    """pssmlt, erpt, mlt (with the reference's fallback to pssmlt) or
+    irrcache with the reference's properties and defaults; writes the
+    reference's stats.json (b for the Metropolis integrators) and returns
+    the image."""
+    import numpy as np
+
+    props = dict(builder.integrator)
+    props.update(overrides)
+    extra = {}
+    if integrator == "irrcache":
+        from .render.irrcache import render_irrcache
+
+        res = render_irrcache(
+            scene, cfg, spp=spp, seed=builder.seed,
+            gather_res=int(props.get("resolution", 14)),
+            kappa=float(props.get("quality", 1.0)),
+            indirect_only=_flag(props.get("indirectOnly", False)),
+            device=device)
+    else:
+        from .render import pssmlt as psm
+
+        if integrator == "erpt":
+            res = psm.render_erpt(
+                scene, cfg, spp=spp, seed=builder.seed,
+                chain_length=int(props.get("chainLength", 32)),
+                device=device)
+        else:
+            res = None
+            if integrator == "mlt":
+                from .render.mlt import render_mlt
+
+                if scene.em_tri_idx.numel() > 0:
+                    res = render_mlt(scene, cfg, spp=spp, seed=builder.seed,
+                                     device=device)
+                if res is None or res["b"] <= 0.0:
+                    # Environment transport lies outside the path-space
+                    # subspace; pssmlt's primary-sample mutations carry it.
+                    print("mlt: no area-emitter bootstrap paths (b == 0); "
+                          "falling back to pssmlt for env transport")
+                    res = None
+            if res is None:
+                res = psm.render_pssmlt(
+                    scene, cfg, spp=spp, seed=builder.seed,
+                    p_large=float(props.get("pLarge", 0.3)),
+                    mutations="kelemen", device=device)
+        extra["b"] = res["b"]
     image = res["image"]
     _write_stats(out_dir, {"integrator": integrator, "spp": spp,
                            "seconds": time.time() - t0, **extra,

@@ -13,7 +13,9 @@ constant as it was drawn there) and keyframed motion included, so that
 both packages then render the same scene. The light-path integrators'
 state goes the same way: a photon map and its grid
 (``photons_from_arrays``, ``photon_grid_from_arrays``) and a VPL set
-(``vpls_from_arrays``).
+(``vpls_from_arrays``), and so does the MCMC and caching state: a set of
+MLT paths (``mlt_paths_from_arrays``) and an irradiance cache
+(``irrcache_from_arrays``).
 """
 
 from __future__ import annotations
@@ -112,6 +114,34 @@ def vpls_from_arrays(vpls: dict, device="cuda") -> dict:
     valid) of either package as the port's tensors on ``device``."""
     return tensors_from_numpy({k: _np(v) for k, v in vpls.items()},
                               resolve_device(device))
+
+
+def mlt_paths_from_arrays(paths: dict, device="cuda") -> dict:
+    """A set of MLT paths (``mlt.empty_paths``' dict: pos, ns, ng, uv,
+    bsdf, delta, emitter, length, spos, valid, rgb, wlum) of either package
+    as the port's tensors on ``device``: bsdf, emitter and length int32,
+    delta and valid bool, the rest float32."""
+    dev = resolve_device(device)
+    out = tensors_from_numpy({k: _np(v) for k, v in paths.items()}, dev)
+    for k in ("bsdf", "emitter", "length"):
+        out[k] = out[k].to(torch.int32)
+    for k in ("delta", "valid"):
+        out[k] = out[k].to(torch.bool)
+    return out
+
+
+def irrcache_from_arrays(cache: dict, device="cuda") -> dict:
+    """An irradiance cache (``irrcache.build_cache``'s dict: pos, n, E, R,
+    valid, cell_idx, cell, grid_res) of either package as the port's
+    tensors on ``device``: valid bool, cell_idx and grid_res int32, the
+    rest float32."""
+    dev = resolve_device(device)
+    out = tensors_from_numpy({k: _np(v) for k, v in cache.items()}, dev)
+    out["valid"] = out["valid"].to(torch.bool)
+    out["cell_idx"] = out["cell_idx"].to(torch.int32)
+    out["grid_res"] = out["grid_res"].to(torch.int32)
+    out["cell"] = out["cell"].to(torch.float32)
+    return out
 
 
 def trainer_state_to_numpy(tr) -> dict:

@@ -61,12 +61,6 @@ DIELECTRIC_IOR = {
 }
 
 
-def unported(what: str, item: str) -> NotImplementedError:
-    """The error for ``what``, which ROADMAP item ``item`` ports."""
-    return NotImplementedError(
-        f"{what} is not ported to sdmm_tpu_torch yet (ROADMAP {item})")
-
-
 def _subst(text: str, variables: dict) -> str:
     def repl(m):
         name = m.group(1)

@@ -4,8 +4,7 @@ the reference's schema, and the image equals what render_wavefront gives
 on the same loaded scene and seed; the classic integrators (direct, ao,
 field, motion, adaptive, multichannel) with their -D properties and
 stats.json keys; ``compare`` prints all_metrics' keys; ``import`` writes a
-scene that builds; every option the port does not hold yet raises
-NotImplementedError naming its ROADMAP item. The guided renders (sdmm,
+scene that builds. The guided renders (sdmm,
 ppg, the trainer's options, a checkpointed and resumed render) and the
 module entry point are in tests/test_torch_cli_sdmm.py and
 tests/test_torch_cli_guiding.py, files of few tests that the tier-1
@@ -108,21 +107,6 @@ def test_compare_prints_all_metrics(tmp_path, capsys):
     printed = json.loads(capsys.readouterr().out)
     want = all_metrics(a.astype(np.float32), b.astype(np.float32))
     assert printed == want
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--integrator", "pssmlt"], "A12"),
-    (["--integrator", "mlt"], "A12"),
-    (["--integrator", "irrcache"], "A12"),
-])
-def test_unported_options_raise(tmp_path, extra, item):
-    path = tmp_path / "box.xml"
-    path.write_text(BOX)  # the sampler type is a scene variable
-    args = extra if "sampler=" in " ".join(extra) else \
-        extra + ["-D", "sampler=independent"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        _render(str(path), tmp_path / "x.exr", *args)
-    assert not (tmp_path / "x.exr").exists()
 
 
 @pytest.mark.parametrize("extra", [
