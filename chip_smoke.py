@@ -179,6 +179,29 @@ Phases (any failure raises and the script exits non-zero):
      constant environment alone (the fallback to pssmlt), pssmlt on the
      large scene (clas_cull), and eval_path and interpolate on the card
      against the CPU. One "mcmc_irrcache:" JSON line.
+ 15. the schedulers, the K != 16 route and the intersectors no entry
+     point reaches by default (phase_schedulers): (a) SDMMTrainer with
+     n_components = 8 on the Cornell box at 640x360, 16 spp, within 5% of
+     render_wavefront at 64 spp; guided_sample and the E-step kernels 0
+     launches by design, mt_sweep launched, 0 NaN stats_w; (b) the four
+     bounce pools (fused, blocked, sorted, shuffled) at 8 spp, each within
+     POOL_SE joint standard errors (and POOL_REL) of
+     render_pool_fused_sorted2 at 64 spp, with row 6's launches a pool;
+     (c) the guided sorted2 and striped pools frozen at a K = 16 model
+     trained to 16 spp, each so near render_pool_guided_fused at 16 spp,
+     with rows 3-4's launches; (d) on the large scene, 2^18
+     queries through bvh.traverse, the round loop (render/clas.intersect)
+     and clas_cull (Woop's arithmetic, where the other two run
+     Möller–Trumbore's): hit ids and valid equal but on equal-distance
+     ties and grazes within float32 rounding of an edge or a triangle's
+     plane (counted by _hit_classes; the grazes no more than the measured
+     ROUTE_GRAZES), occluded equal but where the closest hits within t_max
+     differ so, each route's ms, and the native BVH build's seconds; (e)
+     the statistics report, which the process then does not print again
+     at exit. One
+     "schedulers:" JSON line and the phase's wall.
+The SDMM_TPU_* switches are cleared at the start: every phase takes the
+default routes.
 Phases 5, 7, 10 and 11 run their training under EmCensus, which counts the
 E-step's valid samples with a non-finite posterior by cause and the NaN
 entries of its stats_w; any NaN fails the run.
@@ -1270,13 +1293,14 @@ def twin_hits(scene, ro, rd, t_max):
     return {"t": t, "tri": tri, "u": u, "v": v, "valid": tri >= 0}
 
 
-def query_rays(scene, n, seed, dev, width=640, height=360):
+def query_rays(scene, n, seed, dev, width=640, height=360, hits=None):
     """n queries of three interleaved kinds: camera rays through random
     points of a width x height image; secondary rays from the camera rays'
     hits in uniformly random directions; occlusion queries from those hits
     toward emitter samples, t_max 0.999 of the distance (the eager pool's
-    shadow rays). A query whose camera ray missed stays a camera ray.
-    Returns contiguous (ro, rd, t_max) and each query's kind (0, 1, 2)."""
+    shadow rays). A query whose camera ray missed stays a camera ray. The
+    camera rays' hits come from ``hits`` (default ``twin_hits``). Returns
+    contiguous (ro, rd, t_max) and each query's kind (0, 1, 2)."""
     from sdmm_tpu_torch.render.intersect import surface_interaction
     from sdmm_tpu_torch.render.volpath import RAY_EPS
     from sdmm_tpu_torch.scene import emitters
@@ -1288,7 +1312,8 @@ def query_rays(scene, n, seed, dev, width=640, height=360):
         scene, u[:, 0:2] * torch.tensor([width, height], device=dev), width,
         height)
     inf = torch.full((n,), 3.4e38, device=dev)
-    it = surface_interaction(scene, ro, rd, twin_hits(scene, ro, rd, inf))
+    it = surface_interaction(scene, ro, rd,
+                             (hits or twin_hits)(scene, ro, rd, inf))
     kind = torch.where(it["valid"], torch.arange(n, device=dev) % 3, 0)
     z = 2.0 * u[:, 2] - 1.0
     r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
@@ -3576,10 +3601,304 @@ def phase_mcmc_irrcache(dev, smi, width=640, height=360):
     print("mcmc_irrcache:", json.dumps(report), flush=True)
 
 
+def _pool_mean(out):
+    """A pool's image mean and its standard error, from its film. The
+    channels are taken as fully correlated, which bounds the error from
+    above."""
+    w = out["weight"].double().clamp_min(1.0)[:, None]
+    mean = out["image"].double() / w
+    var = ((out["sqr"].double() / w - mean * mean).clamp_min(0.0) / w)
+    sd = var.sqrt().mean(-1)
+    return (float(mean.mean()),
+            float(torch.sqrt((sd * sd).sum()) / sd.numel()))
+
+
+# Phase 15's pools agree with their references within POOL_SE joint
+# standard errors, and never further apart than POOL_REL.
+POOL_SE = 4.0
+POOL_REL = 0.02
+# Phase 15(d): the most queries on which two routes' closest hits may
+# differ by a float32 graze, as measured on one H100 (the large scene,
+# 2^18 queries from seed 31); ties are not capped.
+ROUTE_GRAZES = {"bvh vs clas_cull": 2, "round_loop vs clas_cull": 3,
+                "bvh vs round_loop": 1, "bvh_occ vs clas_cull_occ": 1,
+                "round_loop_occ vs clas_cull_occ": 1}
+
+
+def _pool_agrees(m, se, m_ref, se_ref):
+    """Whether a pool's mean lies within POOL_SE joint standard errors of
+    its reference's, and within POOL_REL of it."""
+    return (abs(m - m_ref) <= POOL_SE * float(np.hypot(se, se_ref))
+            and abs(m / m_ref - 1.0) < POOL_REL)
+
+
+def _hit_classes(scene, ro, rd, got, want, t_lim):
+    """Where two closest-hit records disagree (valid or triangle id), the
+    class of each query, from a float64 Möller–Trumbore test of both
+    triangles: "tie", both hit within 1e-6 relative of each other (a shared
+    edge or vertex); "graze", either route's triangle has the ray within
+    float32 rounding of one of its edges or of its plane (the barycentric
+    margin below 16 ulp of float32 times |tvec||p| / |det| or |d||q| /
+    |det|, the size of the rounding of u and v), or its hit within
+    rounding of t_lim or of the least distance EPS; "other". Returns the
+    counts and the number of queries, and prints the first "other"
+    queries."""
+    from sdmm_tpu_torch.ops.bounce import EPS
+
+    diff = (got["valid"] != want["valid"]) | (got["tri"] != want["tri"])
+    out = {"queries": int(ro.shape[0]), "differ": int(diff.sum()),
+           "tie": 0, "graze": 0, "other": 0}
+    if not bool(diff.any()):
+        return out
+    o, d, lim = ro[diff].double(), rd[diff].double(), t_lim[diff].double()
+    ulp = 16 * 2.0 ** -24
+
+    def mt64(tri):
+        i = tri[diff].clamp_min(0).long()
+        v0, e1, e2 = (a[i].double() for a in (scene.tri_v0, scene.tri_e1,
+                                              scene.tri_e2))
+        p = torch.linalg.cross(d, e2)
+        det = (e1 * p).sum(-1)
+        inv = 1.0 / torch.where(det.abs() > 1e-300, det, 1.0)
+        tv = o - v0
+        u = (tv * p).sum(-1) * inv
+        q = torch.linalg.cross(tv, e1)
+        v = (d * q).sum(-1) * inv
+        t = (e2 * q).sum(-1) * inv
+        edge = torch.minimum(torch.minimum(u, v), 1.0 - u - v).abs()
+        nrm = torch.linalg.vector_norm
+        bound = ulp * torch.maximum(nrm(tv, dim=-1) * nrm(p, dim=-1),
+                                    nrm(d, dim=-1) * nrm(q, dim=-1)) \
+            * inv.abs()
+        t_err = ulp * nrm(e2, dim=-1) * nrm(q, dim=-1) * inv.abs()
+        ok = tri[diff] >= 0
+        near_t = ((t - lim).abs() <= torch.maximum(1e-6 * lim.abs(), t_err)) \
+            | ((t - EPS).abs() <= t_err)
+        return t, ok, ok & ((edge <= bound) | near_t), edge, det
+
+    ta, oka, ga, ea, da = mt64(got["tri"])
+    tb, okb, gb, eb, db = mt64(want["tri"])
+    tie = oka & okb & ((ta - tb).abs() <= 1e-6 * tb.abs())
+    graze = ~tie & (ga | gb)
+    out["tie"] = int(tie.sum())
+    out["graze"] = int(graze.sum())
+    out["other"] = out["differ"] - out["tie"] - out["graze"]
+    rest = (~tie & ~graze).nonzero()[:, 0][:8]
+    idx = diff.nonzero()[:, 0][rest]
+    for j, i in zip(rest.tolist(), idx.tolist()):
+        print(f"  other: query {i}: got valid {bool(got['valid'][i])} tri "
+              f"{int(got['tri'][i])} t {float(got['t'][i]):.9g}; want valid "
+              f"{bool(want['valid'][i])} tri {int(want['tri'][i])} t "
+              f"{float(want['t'][i]):.9g}; float64 t {float(ta[j]):.9g} / "
+              f"{float(tb[j]):.9g}, edge {float(ea[j]):.3g} / "
+              f"{float(eb[j]):.3g}, det {float(da[j]):.3g} / "
+              f"{float(db[j]):.3g}", flush=True)
+    return out
+
+def phase_schedulers(dev, smi, large, width=640, height=360,
+                     n_queries=1 << 18):
+    """Phase 15: the K = 8 training run, the four bounce pools, the guided
+    sorted2 and striped pools, the BVH and the round loop on the card (see
+    the module docstring). One "schedulers:" JSON line."""
+    from sdmm_tpu_torch import native
+    from sdmm_tpu_torch.guiding.trainer import SDMMTrainer, TrainerConfig
+    from sdmm_tpu_torch.ops import clas_cull as ccull
+    from sdmm_tpu_torch.render import bvh, clas
+    from sdmm_tpu_torch.render import guided as tg
+    from sdmm_tpu_torch.render import wavefront as wf
+    from sdmm_tpu_torch.render.intersect import intersect
+    from sdmm_tpu_torch.utils import stats
+
+    t_phase = time.time()
+    counters = _counts()
+    report = {"card": smi, "seconds": {}, "launches": {}, "means": {},
+              "rel": {}}
+    sec, launches, means = (report["seconds"], report["launches"],
+                            report["means"])
+
+    def run(name, fn, *a, **k):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        sec[name] = time.time() - t0
+        launches[name] = {n: c.launches for n, c in counters.items()
+                          if c.launches}
+        return out
+
+    scene, cfg = cornell_box(width, height, dev)
+    gt = run("gt_64", wf.render_wavefront, scene, cfg, spp=64, seed=11,
+             device=dev)
+    means["gt_64"] = float(gt["image"].mean())
+
+    # (a) K = 8: the mixture route and the twin's E-step math on the card.
+    tr = SDMMTrainer(scene, cfg, TrainerConfig(n_components=8), device=dev)
+    img, _ = run("sdmm_k8", tr.run, 16)
+    means["sdmm_k8"] = float(img.mean())
+    la = launches["sdmm_k8"]
+    nan_w = int(torch.isnan(tr.em.stats_w).sum())
+    print(f"schedulers: K = 8, 16 spp: {sec['sdmm_k8']:.2f} s, mean "
+          f"{means['sdmm_k8']:.5f} vs gt {means['gt_64']:.5f}, active leaves "
+          f"{int(tr.initialized.sum())}; launches guided_sample "
+          f"{la.get('guided_sample', 0)} and E-step "
+          f"{la.get('em_suffstats', 0)} (0 by design: K != 16), mt_sweep "
+          f"{la.get('mt_sweep', 0)}; NaN stats_w {nan_w}", flush=True)
+    check(np.isfinite(img).all() and img.shape == (height, width, 3),
+          "schedulers: the K = 8 image is not finite")
+    check(int(tr.initialized.sum()) > 0, "schedulers: K = 8 trained no leaf")
+    check(la.get("guided_sample", 0) == 0 and la.get("em_suffstats", 0) == 0,
+          "schedulers: K = 8 launched a K = 16 kernel")
+    check(la.get("mt_sweep", 0) > 0, "schedulers: K = 8 took no mt_sweep")
+    check(nan_w == 0, "schedulers: K = 8 stats_w hold NaN")
+    report["rel"]["sdmm_k8"] = means["sdmm_k8"] / means["gt_64"] - 1.0
+    check(abs(report["rel"]["sdmm_k8"]) < 0.05,
+          "schedulers: the K = 8 image disagrees with gt")
+
+    # (b) The four bounce pools against sorted2.
+    kw = dict(width=width, height=height, max_depth=cfg.max_depth,
+              rr_depth=cfg.rr_depth, fov_axis=cfg.fov_axis,
+              bsdf_types=tuple(cfg.bsdf_types), device=dev)
+    ref = run("sorted2_64", wf.render_pool_fused_sorted2, scene, 5, spp=64,
+              **kw)
+    means["sorted2_64"], se_ref = _pool_mean(ref)
+    for name, fn, extra in (
+            ("fused", wf.render_pool_fused, dict(n_lanes=1 << 18)),
+            ("blocked", wf.render_pool_fused_blocked, {}),
+            ("sorted", wf.render_pool_fused_sorted, dict(spp_pilot=2)),
+            ("shuffled", wf.render_pool_fused_shuffled, {})):
+        out = run(name, fn, scene, 6, spp=8, **kw, **extra)
+        m, se = _pool_mean(out)
+        means[name] = m
+        report["rel"][name] = m / means["sorted2_64"] - 1.0
+        nb = launches[name].get("bounce", 0)
+        print(f"schedulers: {name} pool, 8 spp: {sec[name]:.3f} s, "
+              f"{out['steps']} steps, mean {m:.5f} (se {se:.2e}) vs sorted2 "
+              f"{means['sorted2_64']:.5f} (se {se_ref:.2e}), rel "
+              f"{report['rel'][name]:+.4f}; bounce launches {nb}", flush=True)
+        check(float(out["weight"].sum()) == width * height * 8
+              and float(out["weight"].min()) == 8.0,
+              f"schedulers: the {name} pool did not spend 8 spp a pixel")
+        check(nb > 0 and set(launches[name]) == {"bounce"},
+              f"schedulers: the {name} pool's launches {launches[name]}")
+        check(_pool_agrees(m, se, means["sorted2_64"], se_ref),
+              f"schedulers: the {name} pool disagrees with sorted2")
+
+    # (c) The guided sorted2 and striped pools on a frozen K = 16 model.
+    tr16 = SDMMTrainer(scene, cfg, TrainerConfig(), device=dev)
+    run("sdmm_k16", tr16.run, 16)
+    gs = tr16.guide_state()
+    gkw = dict(spp=16, width=width, height=height, max_depth=cfg.max_depth,
+               rr_depth=cfg.rr_depth, bsdf_types=tuple(cfg.bsdf_types),
+               fov_axis=cfg.fov_axis, device=dev)
+    out = run("guided_fused", tg.render_pool_guided_fused, tr16.scene, gs,
+              torch.Generator(device=dev).manual_seed(21),
+              n_lanes=1 << 17, **gkw)
+    means["guided_fused"], se_ref = _pool_mean(out)
+    for name, fn, extra in (
+            ("guided_sorted2", tg.render_pool_guided_sorted2,
+             dict(spp_pilot=4)),
+            ("guided_striped", tg.render_pool_guided_striped, {})):
+        out = run(name, fn, tr16.scene, gs,
+                  torch.Generator(device=dev).manual_seed(22), **gkw, **extra)
+        m, se = _pool_mean(out)
+        means[name] = m
+        report["rel"][name] = m / means["guided_fused"] - 1.0
+        la = launches[name]
+        print(f"schedulers: {name} pool, 16 spp: {sec[name]:.3f} s, "
+              f"{out['steps']} steps, mean {m:.5f} (se {se:.2e}) vs fused "
+              f"{means['guided_fused']:.5f} (se {se_ref:.2e}), rel "
+              f"{report['rel'][name]:+.4f}; trace {la.get('trace', 0)}, "
+              f"shade {la.get('shade', 0)} launches", flush=True)
+        check(float(out["weight"].sum()) == width * height * 16
+              and float(out["weight"].min()) == 16.0,
+              f"schedulers: the {name} pool did not spend 16 spp a pixel")
+        check(la.get("trace", 0) > 0 and la.get("shade", 0) > 0
+              and set(la) == {"trace", "shade"},
+              f"schedulers: the {name} pool's launches {la}")
+        check(_pool_agrees(m, se, means["guided_fused"], se_ref),
+              f"schedulers: the {name} pool disagrees with the fused pool")
+
+    # (d) The large scene through the BVH, the round loop and clas_cull.
+    n = n_queries
+    ro, rd, t_max, kind = query_rays(large, n, 31, dev, hits=intersect)
+    inf = torch.full((n,), 3.4e38, device=dev)
+    hits = {"bvh": run("bvh", bvh.traverse, large, ro, rd),
+            "round_loop": run("round_loop", clas.intersect, large, ro, rd),
+            "clas_cull": run("clas_cull", ccull.intersect, large, ro, rd,
+                             inf)}
+    report["differ"] = {}
+
+    def agree(name, got, want, sub, t_lim):
+        """Count the queries where two routes' closest hits differ, by
+        class (``_hit_classes``); fail on any but ties and grazes, and on
+        more grazes than ROUTE_GRAZES[name]."""
+        cls = _hit_classes(large, ro[sub], rd[sub], got, want, t_lim)
+        report["differ"][name] = cls
+        print(f"schedulers: {name} on {int(sub.sum())} queries: {cls} "
+              f"(grazes allowed {ROUTE_GRAZES[name]})", flush=True)
+        check(cls["other"] == 0, f"schedulers: {name}: hits differ off "
+              "equal-distance ties and edge grazes")
+        check(cls["graze"] <= ROUTE_GRAZES[name], f"schedulers: {name}: "
+              f"{cls['graze']} grazes, {ROUTE_GRAZES[name]} allowed")
+
+    everyone = torch.ones(n, dtype=torch.bool, device=dev)
+    for name in ("bvh", "round_loop"):
+        agree(f"{name} vs clas_cull", hits[name], hits["clas_cull"],
+              everyone, inf)
+        print(f"schedulers: {name} {sec[name] * 1e3:.1f} ms, clas_cull "
+              f"{sec['clas_cull'] * 1e3:.1f} ms", flush=True)
+    agree("bvh vs round_loop", hits["bvh"], hits["round_loop"], everyone,
+          inf)
+    occ = kind == 2
+    o_ro, o_rd, o_tm = ro[occ].contiguous(), rd[occ].contiguous(), \
+        t_max[occ].contiguous()
+    occs = {"bvh_occ": run("bvh_occ", bvh.traverse, large, o_ro, o_rd, o_tm,
+                           any_hit=True),
+            "round_loop_occ": run("round_loop_occ", clas.occluded, large,
+                                  o_ro, o_rd, o_tm),
+            "clas_cull_occ": run("clas_cull_occ", ccull.occluded, large,
+                                 o_ro, o_rd, o_tm)}
+    print(f"schedulers: occluded on {int(occ.sum())} queries, "
+          f"{int(occs['clas_cull_occ'].sum())} occluded; ms "
+          f"{ {k: round(sec[k] * 1e3, 1) for k in occs} }", flush=True)
+    # Where two routes' occluded answers differ, their closest hits within
+    # t_max must differ by a tie or a graze, or lie at t_max's rounding.
+    t_hits = {"bvh_occ": bvh.traverse(large, o_ro, o_rd, o_tm),
+              "round_loop_occ": clas.intersect(large, o_ro, o_rd, o_tm),
+              "clas_cull_occ": ccull.intersect(large, o_ro, o_rd, o_tm)}
+    for name in ("bvh_occ", "round_loop_occ"):
+        sub = torch.zeros(n, dtype=torch.bool, device=dev)
+        sub[occ] = occs[name] != occs["clas_cull_occ"]
+        pick = sub[occ]
+        agree(f"{name} vs clas_cull_occ",
+              {k: v[pick] for k, v in t_hits[name].items()},
+              {k: v[pick] for k, v in t_hits["clas_cull_occ"].items()},
+              sub, o_tm[pick])
+    verts = torch.stack([large.tri_v0, large.tri_v0 + large.tri_e1,
+                         large.tri_v0 + large.tri_e2], 1).cpu().numpy()
+    t0 = time.time()
+    tree = native.bvh_build_native(verts)
+    sec["native_bvh_build"] = time.time() - t0
+    print(f"schedulers: native BVH build of {len(verts)} triangles "
+          f"{sec['native_bvh_build']:.3f} s, {len(tree['lo'])} nodes",
+          flush=True)
+
+    # (e) The statistics report, here and not at exit: the last line stays
+    # the result.
+    print("statistics report:\n" + stats.take_report().rstrip(), flush=True)
+    report["wall"] = time.time() - t_phase
+    print("schedulers: " + json.dumps(report), flush=True)
+    print(f"schedulers: phase 15 took {report['wall']:.2f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    for k in [k for k in os.environ if k.startswith("SDMM_TPU_")]:
+        del os.environ[k]  # the default routes in every phase
     from sdmm_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3630,6 +3949,7 @@ def main():
     phase_geometry_classic(dev, smi)
     phase_light_paths(dev, smi)
     phase_mcmc_irrcache(dev, smi)
+    phase_schedulers(dev, smi, large)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

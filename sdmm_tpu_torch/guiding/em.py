@@ -4,13 +4,16 @@ sdmm_tpu/guiding/em.py).
 The E-step is one pass over the global sample buffer: per-sample
 responsibilities against the sample's own leaf mixture, summed per (leaf,
 component) into 21 sufficient statistics (``ops.em_suffstats``: the CUDA
-kernel on the card, the plain twin on the CPU). The M-step runs on the
+kernel on the card, the plain twin on the CPU; mixtures of K != 16
+components and SDMM_TPU_NO_EM_KERNEL=1 take the twin's math on the card,
+``use_em_kernel``). The M-step runs on the
 whole [L, K] array with masks for inactive leaves and dead components,
 including the batched-eigh PSD repair and the kill rule.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -220,6 +223,16 @@ def m_step(
     return new_sdmm, new_em
 
 
+def use_em_kernel(sdmm) -> bool:
+    """Whether the E-step takes ``em_suffstats.e_step`` (the kernels on
+    the card, the twin on the CPU): the kernel is specialised to K = 16
+    components, and SDMM_TPU_NO_EM_KERNEL=1 asks for the twin's math on
+    the card, as the reference's ``_use_pallas_e_step`` routes. Otherwise
+    ``e_step_plain`` runs on any device."""
+    return (sdmm.weight.shape[-1] == em_suffstats.K
+            and os.environ.get("SDMM_TPU_NO_EM_KERNEL") != "1")
+
+
 def em_step(sdmm, em, pos, d, weight, leaf, active, cfg: EMConfig = EMConfig(),
             leaf_ext=None, device: str | torch.device = "cuda"):
     """Full EM iteration: prepare → E-step → M-step on ``device``.
@@ -235,7 +248,9 @@ def em_step(sdmm, em, pos, d, weight, leaf, active, cfg: EMConfig = EMConfig(),
         mv(x) for x in (pos, d, weight, leaf, active, leaf_ext))
     n_leaves = sdmm.weight.shape[0]
     prep = mix.prepare(sdmm)
-    sw, sm, sc, ws, cnt = em_suffstats.e_step(
+    e_step = em_suffstats.e_step if use_em_kernel(sdmm) \
+        else em_suffstats.e_step_plain
+    sw, sm, sc, ws, cnt = e_step(
         sdmm, prep, pos, d, weight, leaf, n_leaves, batch_size=cfg.batch_size)
     new_sdmm, new_em = m_step(sdmm, prep, em, sw, sm, sc, ws, active, cfg,
                               leaf_ext=leaf_ext)

@@ -16,11 +16,18 @@ next iteration (``optimize_async``), learned-BSDF product sampling
 ``pooled_training=False``, and every iteration of an image above 2^20
 pixels, take the scan tracer ``trace_wave_guided`` over fixed waves of
 camera rays instead. Per-iteration images are combined by inverse
-variance.
+variance. Mixtures of ``n_components`` != 16 take the reference's route for
+such a K: no kernel table, so guided lanes condition and sample through the
+mixture (``render.guided.mixture_route``), both fused gates stay shut, and
+the E-step runs the twin's math on any device (``em.use_em_kernel``).
+Every iteration feeds the trainer's counters and the global ones of
+``utils/stats.py``, which the process reports at exit;
+SDMM_TPU_TIME_OPTIMIZE=1 prints the seconds of ``optimize``'s stages.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -36,7 +43,7 @@ from ..render.guided import (
 )
 from ..scene.scene import scene_to
 from ..scene.sensor import generate_rays
-from ..utils.stats import trainer_counters
+from ..utils import stats as stats_mod
 from . import em as em_mod
 from . import init as init_mod
 from . import mixture as mix
@@ -95,9 +102,6 @@ class SDMMTrainer:
         self.cfg = c = cfg or TrainerConfig()
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported")
-        if c.n_components != gso.K:
-            raise NotImplementedError(
-                f"guided sampling is specialised to K = {gso.K} components")
         self.scene = scene_to(scene, self.device)
         if render_cfg.has_sss and not render_cfg.sss_baked:
             from ..render.subsurface import bake_subsurface
@@ -105,7 +109,7 @@ class SDMMTrainer:
             self.scene = bake_subsurface(self.scene, render_cfg, seed=c.seed,
                                          device=self.device)
         self.render_cfg = render_cfg
-        self.counters = trainer_counters()
+        self.counters = stats_mod.trainer_counters()
 
         lo = self.scene.aabb_lo.cpu().numpy().astype(np.float64)
         hi = self.scene.aabb_hi.cpu().numpy().astype(np.float64)
@@ -182,9 +186,15 @@ class SDMMTrainer:
             tables=self.tables, aabb_lo=self.scene.aabb_lo,
             inv_norm=1.0 / self.spatial_norm,
             kernel_table=gso.pack_guided_rows(
-                prep_c, sdmm_c.weight, self.initialized).T.contiguous(),
+                prep_c, sdmm_c.weight, self.initialized).T.contiguous()
+            if self.sdmm.weight.shape[1] == gso.K else None,
             learned=self.learned,
         )
+
+    def _count(self, name: str, v: float, base: float):
+        """Feed the trainer's counter ``name`` and the global one."""
+        self.counters[name].add(v, base)
+        stats_mod.GLOBAL[name].add(v, base)
 
     def _apply_copies(self, copies):
         """Propagate mixture state to fresh leaf slots after tree splits
@@ -258,7 +268,8 @@ class SDMMTrainer:
         w, h = rc.width, rc.height
         n_pix = w * h
         gs = self.guide_state()
-        table = gso.pack_sample_table(gs.kernel_table)
+        table = None if gs.kernel_table is None else \
+            gso.pack_sample_table(gs.kernel_table)
         gen = _seeded(dev, c.seed, self.iteration)
         wave = min(c.rays_per_wave, n_pix)
         n_waves = -(-n_pix // wave)
@@ -299,10 +310,10 @@ class SDMMTrainer:
         n_paths = max(1, n_paths)
         n_vertices = float(out["n_vertices"])
         self._last_mean_path_length = n_vertices / n_paths
-        self.counters["avg_path_length"].add(n_vertices, n_paths)
+        self._count("avg_path_length", n_vertices, n_paths)
         self._last_samples_count = 0
-        self.counters["avg_found_conditional"].add(
-            float(out["n_cond_ok"]), max(1, int(out["n_cond_try"])))
+        self._count("avg_found_conditional", float(out["n_cond_ok"]),
+                    max(1, int(out["n_cond_try"])))
         return out["image"], out["sqr"], out["weight"], []
 
     def _compact(self, mask, rcap, *arrays):
@@ -347,8 +358,9 @@ class SDMMTrainer:
         c = self.cfg
         L = c.max_leaves
         dev = self.device
-        cnt = self.counters
-        cnt["avg_found_conditional"].add(
+        mark = self._stage_timer()
+        self._count(
+            "avg_found_conditional",
             float(sum(float(s.get("n_cond_ok", 0.0)) for s in sample_batches)),
             max(1, int(sum(float(s.get("n_cond_try", 0.0))
                            for s in sample_batches))))
@@ -362,19 +374,24 @@ class SDMMTrainer:
         valid = torch.cat([s["valid"] for s in sample_batches])
         n_paths = max(1, self.render_cfg.width * self.render_cfg.height
                       * c.samples_per_iteration)
-        cnt["avg_path_length"].add(n_vertices, n_paths)
+        self._count("avg_path_length", n_vertices, n_paths)
         self._last_samples_count = int(valid.sum())
         self._last_mean_path_length = n_vertices / n_paths
+
+        mark("concat")
 
         # Leaf counts for split decisions (device → host).
         leaf = find_leaf(self.tables, pos).long()
         counts = torch.zeros(L, dtype=torch.int32, device=dev).index_add_(
             0, leaf, valid.to(torch.int32)).cpu().numpy()
+        mark("counts")
         copies = self.tree.refit(counts)
         if copies:
             self.tables = self.tree.device_tables(dev)
             self._apply_copies(copies)
             leaf = find_leaf(self.tables, pos).long()
+
+        mark("refit")
 
         # Jittered cross-leaf replicas: one for the path-terminal vertex,
         # one more for weight > 1000; a replica keeps the ORIGINAL position
@@ -420,6 +437,7 @@ class SDMMTrainer:
             leaf = torch.cat(parts["leaf"])
             valid = torch.cat(parts["v"])
 
+        mark("jitter")
         # Prioritized replay: merge into the fixed-capacity reservoir and fit
         # the EM on its decayed, roulette-thinned contents.
         if self.reservoir is not None:
@@ -435,6 +453,7 @@ class SDMMTrainer:
             valid = self.reservoir["valid"]
             leaf = find_leaf(self.tables, self.reservoir["lookup_pos"]).long()
 
+        mark("reservoir")
         counts_dev = torch.zeros(L, dtype=torch.int32, device=dev).index_add_(
             0, leaf, valid.to(torch.int32))
         self.cum_counts[:] = self.tree.leaf_counts[:L]
@@ -455,16 +474,36 @@ class SDMMTrainer:
                 self.sdmm = init_mod.reseed_spatial_means(
                     self.sdmm, centers, newly & has, n_spatial=2)
                 self.reseeded_leaves += int((newly & has).sum())
+        mark("gate")
         n_inner = 2 if self.iteration < c.double_em_until else 1
         leaf_ext = self.tables["leaf_hi"] - self.tables["leaf_lo"]
         for _ in range(n_inner):
             self.sdmm, self.em, _ = em_mod.em_step(
                 self.sdmm, self.em, pos, d, wgt, leaf.to(torch.int32), active,
                 c.em, leaf_ext=leaf_ext, device=dev)
+        mark("em")
         self.prep = mix.prepare(self.sdmm)
         self.initialized = self.initialized | active
         self._bump_model_version()
         return int(active.sum())
+
+    def _stage_timer(self):
+        """``mark(name)`` of ``optimize``'s stages: with
+        SDMM_TPU_TIME_OPTIMIZE=1 it prints the seconds since the last mark
+        (the card synchronised first), as the reference does; else it does
+        nothing."""
+        if os.environ.get("SDMM_TPU_TIME_OPTIMIZE") != "1":
+            return lambda name: None
+        t = [time.perf_counter()]
+
+        def mark(name):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            now = time.perf_counter()
+            print(f"  opt[{name}] {now - t[0]:.3f}s", flush=True)
+            t[0] = now
+
+        return mark
 
     def restore(self, path: str):
         """Resume from a full checkpoint (io.save_full_checkpoint, either
@@ -475,6 +514,10 @@ class SDMMTrainer:
         from . import io as gio
 
         state, iters = gio.load_full_checkpoint(path, self.device)
+        if state["sdmm"].weight.shape[1] != self.cfg.n_components:
+            raise ValueError(
+                f"{path}: {state['sdmm'].weight.shape[1]} components, the "
+                f"trainer has n_components = {self.cfg.n_components}")
         self.tree = state["tree"]
         self.tables = self.tree.device_tables(self.device)
         self.sdmm = state["sdmm"]

@@ -222,7 +222,9 @@ suffstats.launches = 0
 def e_step(sdmm, prep, pos, d, weight, leaf, n_leaves: int,
            batch_size: int = 1 << 16):
     """E-step statistics (see ``e_step_plain`` for the outputs). CUDA
-    tensors go through the kernels, CPU tensors through the twin."""
+    tensors go through the kernels, CPU tensors through the twin; the
+    kernels take K = 16 components (``guiding.em.use_em_kernel`` sends
+    other K to ``e_step_plain``)."""
     if pos.device.type == "cpu":
         return e_step_plain(sdmm, prep, pos, d, weight, leaf, n_leaves,
                             batch_size)

@@ -29,7 +29,8 @@ import torch
 
 from . import _build
 
-K = 16  # components per leaf
+K = 16  # components per leaf of the kernel's table (the layout and the
+# plain functions take K from their inputs' shapes)
 ROWS_PER_K = 22
 # Per-component row layout (offsets within a component's 22-row block):
 #  0      weight * prep.valid
@@ -51,8 +52,9 @@ _SINC_EPS = 1e-4
 
 def pack_guided_rows(prep, weight: torch.Tensor,
                      initialized: torch.Tensor) -> torch.Tensor:
-    """[L]-leaf conditioning table → [N_ROWS, L] attribute-major rows
-    (the reference layout; the kernel takes its transpose, [L, N_ROWS])."""
+    """[L]-leaf conditioning table → [K·ROWS_PER_K + 1, L] attribute-major
+    rows (the reference layout; the kernel takes the transpose of the K =
+    16 table, [L, N_ROWS])."""
     w = weight * prep.valid.to(weight.dtype)
     mic = prep.marg_inv_chol
     pm = prep.premult.reshape(*prep.premult.shape[:-2], 6)
@@ -66,8 +68,8 @@ def pack_guided_rows(prep, weight: torch.Tensor,
         prep.rot[..., 0, 2], prep.rot[..., 1, 2], prep.rot[..., 2, 2],
         cc[..., 0, 0], cc[..., 1, 0], cc[..., 1, 1],
     ], dim=0)  # [22, L, K]
-    L = weight.shape[0]
-    rows = per_k.permute(2, 0, 1).reshape(K * ROWS_PER_K, L)
+    L, k = weight.shape
+    rows = per_k.permute(2, 0, 1).reshape(k * ROWS_PER_K, L)
     return torch.cat([rows, initialized.to(torch.float32)[None, :]],
                      dim=0).to(torch.float32)
 
@@ -79,16 +81,17 @@ def pack_sample_table(table, dtype=torch.float32):
     flag in the pad slot PACK_INIT, the other pads 0."""
     t = table.to(dtype)
     L = t.shape[0]
-    out = torch.zeros((L, K, PACK_STRIDE), dtype=dtype, device=t.device)
-    out[:, :, :ROWS_PER_K] = t[:, :K * ROWS_PER_K].reshape(L, K, ROWS_PER_K)
-    out[:, 0, PACK_INIT] = t[:, N_ROWS - 1]
-    return out.reshape(L, PACK_COLS)
+    k = (t.shape[1] - 1) // ROWS_PER_K
+    out = torch.zeros((L, k, PACK_STRIDE), dtype=dtype, device=t.device)
+    out[:, :, :ROWS_PER_K] = t[:, :k * ROWS_PER_K].reshape(L, k, ROWS_PER_K)
+    out[:, 0, PACK_INIT] = t[:, -1]
+    return out.reshape(L, k * PACK_STRIDE)
 
 
 def unpack_sample_table(packed):
     """Inverse of ``pack_sample_table``: [L, PACK_COLS] → [L, N_ROWS] in
     the packed table's dtype."""
-    comp = packed.reshape(packed.shape[0], K, PACK_STRIDE)
+    comp = packed.reshape(packed.shape[0], -1, PACK_STRIDE)
     return torch.cat([comp[:, :, :ROWS_PER_K].reshape(packed.shape[0], -1),
                       comp[:, 0, PACK_INIT:PACK_INIT + 1]], dim=1)
 
@@ -147,7 +150,8 @@ def guided_sample_plain(rows_t: torch.Tensor, pos: torch.Tensor,
     pdf_guide [N], pdf_bsdf [N], guide_valid [N]).
     """
     n = rows_t.shape[1]
-    r = rows_t[: K * ROWS_PER_K].reshape(K, ROWS_PER_K, n)
+    k = (rows_t.shape[0] - 1) // ROWS_PER_K
+    r = rows_t[: k * ROWS_PER_K].reshape(k, ROWS_PER_K, n)
     px, py, pz = pos[0], pos[1], pos[2]
     d0 = px - r[:, 1]
     d1 = py - r[:, 2]
@@ -185,7 +189,7 @@ def guided_sample_plain(rows_t: torch.Tensor, pos: torch.Tensor,
 
     # Component selection by CDF.
     cdf = torch.cumsum(wnorm, dim=0)
-    sel = (u[0][None] > cdf).sum(dim=0).clamp_max(K - 1)
+    sel = (u[0][None] > cdf).sum(dim=0).clamp_max(k - 1)
     idx = sel[None].long()
 
     def pick(a):
@@ -222,7 +226,7 @@ def guided_sample_plain(rows_t: torch.Tensor, pos: torch.Tensor,
              ).sum(dim=0)
     pdf_b = (wnorm * _log_map_pdf(fs, ft, mu, bk, i00, i10, i11, inv_det)
              ).sum(dim=0)
-    init = rows_t[N_ROWS - 1] > 0.5
+    init = rows_t[-1] > 0.5
     return torch.stack(g, dim=0), g_ok, pdf_g, pdf_b, cond_valid & init
 
 

@@ -24,19 +24,26 @@ one step per bounce, whose training vertices' incident radiance comes from
 a backward recursion over the steps; the trainer takes it for
 ``pooled_training=False`` and above 2^20 pixels. It samples through the
 same kernel and carries media and the dipole exitance as the pool does.
-With a learned-BSDF table in the guide state (``GuideState.learned``) both
-take the reference's product route instead of the kernel: every lane
-conditions its leaf's mixture (``create_conditional``) and draws from it
-with explicit uniforms, and lanes whose BSDF has a learned mixture draw
-from the product of the two (``mixture.product``, h = 0.3), with the
+With a learned-BSDF table in the guide state (``GuideState.learned``), or
+mixtures of K != 16 components (``GuideState.kernel_table`` None: the
+kernel is specialised to 16, as the reference's is), both take the
+reference's mixture route instead of the kernel: every lane conditions its
+leaf's mixture (``create_conditional``) and draws from it with explicit
+uniforms; with a learned table, lanes whose BSDF has a learned mixture
+draw from the product of the two (``mixture.product``, h = 0.3), with the
 product's pdf in the MIS.
 ``render_pool_guided_fused`` is the frozen-model pool on the fused
 ``ops.guided_step`` kernels (trace + shade). NEE is compiled out (MIS weight
 1 on emitter hits), as in the reference package's guided path.
+``render_pool_guided_sorted2`` and ``render_pool_guided_striped`` run the
+same kernels pixel-stationary: the first sorts the pixels by the path
+vertices a pilot pass measured, the second binds lane i to pixel i.
+SDMM_TPU_NO_FUSED=1 shuts ``guided_fused_supported``, as in the reference.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -63,7 +70,8 @@ PDF_CLAMP = 0.1  # one-sample MIS pdf clamp of the recorded training weights
 
 class GuideState(NamedTuple):
     """Device-side guiding cache: mixtures, leaf tables, the packed
-    [L, 353] conditioning table the guided-sampling kernel reads and the
+    [L, 353] conditioning table the guided-sampling kernel reads (None for
+    mixtures of K != 16 components, which take the mixture route) and the
     learned-BSDF table of product sampling (None: no product)."""
 
     sdmm: mix.SDMM  # [L, K]
@@ -72,7 +80,7 @@ class GuideState(NamedTuple):
     tables: dict  # STree device tables
     aabb_lo: torch.Tensor  # [3] world-space scene AABB min
     inv_norm: float  # 1 / spatial normalization
-    kernel_table: torch.Tensor  # [L, 353] (pack_guided_rows(...).T)
+    kernel_table: torch.Tensor | None  # [L, 353] (pack_guided_rows(...).T)
     learned: dict | None = None  # learned_bsdf.build_learned_table
 
     def to(self, device) -> "GuideState":
@@ -96,28 +104,44 @@ def canonical(gs: GuideState, p: torch.Tensor) -> torch.Tensor:
     return (p - gs.aabb_lo) * gs.inv_norm
 
 
-def _learned_sampler(gs: GuideState, packed, leaf, c_pos, it, frame,
+def mixture_route(gs: GuideState) -> bool:
+    """Whether guided lanes take the mixture route instead of the
+    ``guided_sample`` kernel: a learned-BSDF table, or mixtures of
+    K != 16 components (no kernel table)."""
+    return gs.learned is not None or gs.kernel_table is None
+
+
+def _mixture_sampler(gs: GuideState, packed, leaf, c_pos, it, frame,
                      wi_local, delta_only, ug, up, bsdf_fraction):
-    """Guided sampling with learned-BSDF products (the reference's route,
-    no kernel): condition the leaf mixtures on ``c_pos``, draw from them
-    with the uniforms ``ug`` [N, 3] and, on lanes whose BSDF has a learned
-    mixture, from the product with its top-2 pruned conditional with
-    ``up`` [N, 3]. Returns (d_guide, g_ok, guide_ok, guide_valid, h,
-    use_product, pdf) where pdf(wo_world) is the guided pdf of the MIS."""
+    """Guided sampling on the mixture route (the reference's, no kernel):
+    condition the leaf mixtures on ``c_pos`` and draw from them with the
+    uniforms ``ug`` [N, 3]; with a learned-BSDF table, lanes whose BSDF
+    has a learned mixture draw from the product with its top-2 pruned
+    conditional with ``up`` [N, 3] (None without a table). Returns
+    (d_guide, g_ok, guide_ok, guide_valid, h, use_product, pdf) where
+    pdf(wo_world) is the guided pdf of the MIS."""
     weight_g, prep_g, use_guide = mix.unpack_conditioning(
         packed[leaf.long()], gs.sdmm.weight.shape[-1])
     cond = mix.create_conditional(prep_g, weight_g, c_pos)
     guide_valid = use_guide & cond.valid
     guide_ok = guide_valid & ~delta_only
+    h = torch.where(guide_ok, bsdf_fraction, 1.0)
+    d_guide, g_ok = mix.conditional_sample_from_uniforms(cond, ug[:, 0],
+                                                         ug[:, 1:3])
+    if gs.learned is None:
+        use_product = torch.zeros_like(guide_ok)
+
+        def pdf(wo_world):
+            return torch.where(guide_ok, mix.conditional_pdf(cond, wo_world),
+                               0.0)
+
+        return d_guide, g_ok, guide_ok, guide_valid, h, use_product, pdf
     learned_cond, has_dmm = to_world_conditional(
         gs.learned, it["bsdf"], *frame, wi_local)
     prod = mix.product(cond, mix.prune_conditional(learned_cond,
                                                    PRODUCT_TOP_K))
     use_product = guide_ok & has_dmm & prod.valid
-    h = torch.where(guide_ok, bsdf_fraction, 1.0)
     h = torch.where(use_product, 0.3, h)
-    d_guide, g_ok = mix.conditional_sample_from_uniforms(cond, ug[:, 0],
-                                                         ug[:, 1:3])
     d_prod, p_ok = mix.conditional_sample_from_uniforms(prod, up[:, 0],
                                                         up[:, 1:3])
     d_guide = torch.where(use_product[:, None], d_prod, d_guide)
@@ -161,7 +185,8 @@ def trace_wave_guided(
     n = ro.shape[0]
     dev = ro.device
     learned = gs.learned is not None
-    if learned:
+    mixture = mixture_route(gs)
+    if mixture:
         packed = mix.pack_conditioning(gs.prep, gs.sdmm.weight,
                                        gs.initialized)
     elif sample_table is None:
@@ -222,11 +247,11 @@ def trace_wave_guided(
         bs = bsdf_mod.sample_full(params, wi_local, u0, u1, u2,
                                   types=bsdf_types)
         wo_bsdf_world = to_world(s_ax, t_ax, n_ax, bs["wo"])
-        if learned:
+        if mixture:
             d_guide, g_ok, guide_ok, guide_valid, h, _, pdf_fn = \
-                _learned_sampler(gs, packed, leaf, c_pos, it,
+                _mixture_sampler(gs, packed, leaf, c_pos, it,
                                  (s_ax, t_ax, n_ax), wi_local, delta_only,
-                                 ug, up, bsdf_fraction)
+                                 ug, up if learned else None, bsdf_fraction)
             take_bsdf = (u_sel < h) | ~guide_ok
         else:
             d_guide, g_ok, pdf_g, pdf_b, guide_valid = gso.guided_sample(
@@ -241,7 +266,7 @@ def trace_wave_guided(
         wo_local = torch.where(tb, bs["wo"], to_local(s_ax, t_ax, n_ax,
                                                       d_guide))
         wo_world = torch.where(tb, wo_bsdf_world, d_guide)
-        if learned:
+        if mixture:
             gmm_pdf = pdf_fn(wo_world)
         sampled_delta = take_bsdf & bs["delta"]
         f_eval, bsdf_pdf_eval = bsdf_mod.eval_pdf_full(
@@ -367,7 +392,8 @@ def render_pool_guided(
     scene = scene_to(scene, dev)
     gs = gs.to(dev)
     learned = gs.learned is not None
-    if learned:
+    mixture = mixture_route(gs)
+    if mixture:
         packed = mix.pack_conditioning(gs.prep, gs.sdmm.weight,
                                        gs.initialized)
     else:
@@ -491,11 +517,11 @@ def render_pool_guided(
                                   types=bsdf_types)
         wo_bsdf_world = to_world(s_ax, t_ax, n_ax, bs["wo"])
 
-        if learned:
+        if mixture:
             d_guide, g_ok, guide_ok, guide_valid, h, use_product, pdf_fn = \
-                _learned_sampler(gs, packed, leaf, c_pos, it,
+                _mixture_sampler(gs, packed, leaf, c_pos, it,
                                  (s_ax, t_ax, n_ax), wi_local, delta_only,
-                                 ug, up, bsdf_fraction)
+                                 ug, up if learned else None, bsdf_fraction)
             take_bsdf = (u_sel < h) | ~guide_ok
             n_product = n_product + (on_surface & in_img & use_product).sum()
         else:
@@ -519,7 +545,7 @@ def render_pool_guided(
         tb = take_bsdf[:, None]
         wo_local = torch.where(tb, bs["wo"], wo_guide_local)
         wo_world = torch.where(tb, wo_bsdf_world, d_guide)
-        if learned:
+        if mixture:
             gmm_pdf = pdf_fn(wo_world)
         sampled_delta = take_bsdf & bs["delta"]
 
@@ -662,10 +688,12 @@ def guided_fused_supported(scene, cfg, gs: GuideState) -> bool:
     BSDF types only, no bump map, a triangle table within MAX_TRIS, no env
     map, no delta light, no texture, no medium, no subsurface scattering
     and a pixel index that fits the meta word (the terms of
-    ``render.wavefront.fused_supported`` but NEE's), and no learned-BSDF
-    table (product sampling takes the eager pool)."""
+    ``render.wavefront.fused_supported`` but NEE's), a kernel table (K =
+    16) and no learned-BSDF table (product sampling takes the eager pool).
+    SDMM_TPU_NO_FUSED=1 shuts it."""
     return bool(
-        gs.kernel_table is not None
+        os.environ.get("SDMM_TPU_NO_FUSED") != "1"
+        and gs.kernel_table is not None
         and gs.learned is None
         and len(cfg.bsdf_types) > 0
         and all(t in bo.SUPPORTED_TYPES for t in cfg.bsdf_types)
@@ -709,18 +737,10 @@ def render_pool_guided_fused(
     training vertices)."""
     if n_lanes <= 0:
         raise ValueError("n_lanes must be positive")
-    dev = resolve_device(device)
-    scene = scene_to(scene, dev)
-    gs = gs.to(dev)
-    n_pix = width * height
-    if n_pix > bo._PIX_MASK:
-        raise ValueError(f"{n_pix} pixels do not fit the lane meta word")
-    if max_depth > bo._DEPTH_MASK + 1:
-        raise ValueError(f"max_depth {max_depth} > {bo._DEPTH_MASK + 1}")
+    dev, scene, gs, n_pix, tri_rows, env_row, shade_table = _guided_setup(
+        scene, gs, width, height, max_depth, device)
     total = n_pix * spp
     N = n_lanes
-    tri_rows, _, env_row = bo.build_tables(scene)
-    shade_table = gst.pack_shade_table(gs.kernel_table)
     types = tuple(bsdf_types)
 
     film = torch.zeros((n_pix, 7), device=dev)
@@ -793,3 +813,201 @@ def render_pool_guided_fused(
         "n_cond_try": sums[1],
         "n_cond_ok": sums[2],
     }
+
+
+RT_SHADE = 16  # the reference's shade lane tile, in rows of 128 lanes
+RT_TRACE = 64  # its trace lane tile (16 past MAX_UNROLL_TRIS triangles)
+
+
+def guided_sorted2_layout(n_pix: int, n_tris: int):
+    """The guided sorted2 pool's lanes: (tile, n_lanes), tile the larger
+    of the reference's trace and shade lane tiles at this size."""
+    r0 = -(-n_pix // 128)
+    r = -(-r0 // RT_SHADE) * RT_SHADE
+    rt = RT_SHADE if n_tris > bo.MAX_UNROLL_TRIS else RT_TRACE
+    while r % rt:
+        rt //= 2
+    tile = max(rt, RT_SHADE) * 128
+    return tile, -(-n_pix // tile) * tile
+
+
+class _PixelPool(NamedTuple):
+    """What a pixel-stationary guided pool's phases share."""
+
+    scene: object
+    gs: GuideState
+    generator: torch.Generator
+    width: int
+    height: int
+    fov_axis: str
+    tile: int  # lanes a tile
+    tri_rows: torch.Tensor
+    env_row: torch.Tensor
+    shade_table: torch.Tensor
+    types: tuple
+    max_depth: int
+    rr_depth: int
+    bsdf_fraction: float
+
+
+def _run_pixel_phase(p: _PixelPool, pix_of_lane, budget):
+    """One phase of a pixel-stationary guided pool on trace + shade: lane
+    i renders pixel ``pix_of_lane[i]`` for ``budget[i]`` samples (the meta
+    word's pixel field counts them). Between host checks it runs INNER
+    steps on the lanes of the tiles that still have a runnable lane,
+    gathered into one wave: the reference skips a drained tile inside its
+    kernels, the port's kernels take no tile flags, so the host leaves
+    such tiles out. Returns (film [N, SPLAT_ROWS], the per-lane sums of
+    the splats, and steps)."""
+    from .wavefront import _regen  # wavefront imports this module
+
+    dev = pix_of_lane.device
+    n = pix_of_lane.shape[0]
+    px = (pix_of_lane % p.width).float()
+    py = (pix_of_lane // p.width).float()
+    state = torch.zeros((16, n), device=dev)
+    state[5] = 1.0
+    state[6:9] = 1.0
+    state[12] = 1.0
+    meta = torch.where(budget > 0, 0, bo._EXH).to(torch.int32)
+    film = torch.zeros((n, gst.SPLAT_ROWS), device=dev)
+    # Rows 6-15 of a fresh lane: throughput 1, radiance 0, eta² 1.
+    fresh_tail = torch.zeros((10, n), device=dev)
+    fresh_tail[0:3] = 1.0
+    fresh_tail[6] = 1.0
+    n_tiles = n // p.tile
+    steps = 0
+    while True:
+        runnable = ((meta & bo._ALIVE) != 0) | ((meta & bo._EXH) == 0)
+        live = runnable.view(n_tiles, p.tile).any(1)
+        if not bool(live.any()):
+            return film, steps
+        lanes = (live.nonzero()[:, 0, None] * p.tile + torch.arange(
+            p.tile, device=dev)[None]).reshape(-1)
+        m = lanes.shape[0]
+        st, mt, sub_film = state[:, lanes], meta[lanes], film[lanes]
+        spx, spy, sb = px[lanes], py[lanes], budget[lanes]
+        for _ in range(INNER):
+            rnd = torch.rand((2 + gst.RAND_ROWS, m), generator=p.generator,
+                             device=dev)
+            st, mt = _regen(mt, mt & bo._PIX_MASK, sb, rnd, spx, spy,
+                            p.scene, p.width, p.height, p.fov_axis, st,
+                            fresh_tail[:, :m], pdelta=False)
+            st, hit = gst.trace(st, mt, p.tri_rows, p.env_row, p.types)
+            c_pos = canonical(p.gs, hit[0:3].T)
+            leaf = stree.find_leaf(p.gs.tables, c_pos).to(torch.int32)
+            st, mt, splat = gst.shade(
+                st, mt, hit, c_pos.T.contiguous(), leaf, p.shade_table,
+                rnd[2:].contiguous(), p.types, p.max_depth, p.rr_depth,
+                p.bsdf_fraction)
+            sub_film += splat.T
+            steps += 1
+        state[:, lanes], meta[lanes], film[lanes] = st, mt, sub_film
+
+
+def _guided_setup(scene, gs, width, height, max_depth, device):
+    """The fused guided pools' start: the device, the scene and guide
+    state on it, the pixel count, the triangle and env rows and the bf16
+    shade table; raises where the guide state has no K = 16 table or the
+    image or ``max_depth`` does not fit the meta word."""
+    if gs.kernel_table is None:
+        raise ValueError("the fused guided pools need a K = 16 kernel table")
+    dev = resolve_device(device)
+    scene = scene_to(scene, dev)
+    gs = gs.to(dev)
+    n_pix = width * height
+    if n_pix > bo._PIX_MASK:
+        raise ValueError(f"{n_pix} pixels do not fit the lane meta word")
+    if max_depth > bo._DEPTH_MASK + 1:
+        raise ValueError(f"max_depth {max_depth} > {bo._DEPTH_MASK + 1}")
+    tri_rows, _, env_row = bo.build_tables(scene)
+    return dev, scene, gs, n_pix, tri_rows, env_row, gst.pack_shade_table(
+        gs.kernel_table)
+
+
+def _guided_out(film, steps):
+    return {"image": film[:, 0:3], "sqr": film[:, 3:6], "weight": film[:, 6],
+            "n_vertices": film[:, 7].sum(), "steps": steps,
+            "n_cond_try": film[:, 8].sum(), "n_cond_ok": film[:, 9].sum()}
+
+
+def render_pool_guided_sorted2(
+    scene,
+    gs: GuideState,
+    generator: torch.Generator,
+    spp: int,
+    width: int,
+    height: int,
+    spp_pilot: int = 8,
+    max_depth: int = 10,
+    rr_depth: int = 10,
+    bsdf_fraction: float = 0.5,
+    bsdf_types: tuple = (0,),
+    fov_axis: str = "x",
+    device: str | torch.device = "cuda",
+):
+    """Cost-sorted pixel-stationary guided pool on trace + shade: a pilot
+    pass of ``spp_pilot`` spp with lane i on pixel i counts each pixel's
+    path vertices, and the other samples run with the pixels sorted by
+    that cost, so each tile (``guided_sorted2_layout``) holds equal-cost
+    pixels and drains as a unit; drained tiles are left out. The film is a
+    dense per-lane sum, scattered to the pixels once a phase. The same
+    estimator as ``render_pool_guided``; callers pass
+    ``guided_fused_supported`` scenes. Returns its dict (without training
+    vertices)."""
+    if not 0 < spp_pilot < spp:
+        raise ValueError(f"spp_pilot {spp_pilot} must lie in (0, {spp})")
+    dev, scene, gs, n_pix, tri_rows, env_row, table = _guided_setup(
+        scene, gs, width, height, max_depth, device)
+    tile, N = guided_sorted2_layout(n_pix, scene.tri_v0.shape[0])
+    pool = _PixelPool(scene, gs, generator, width, height, fov_axis, tile,
+                      tri_rows, env_row, table, tuple(bsdf_types), max_depth,
+                      rr_depth, bsdf_fraction)
+    lane = torch.arange(N, device=dev)
+    in_image = lane < n_pix
+    pix_a = torch.where(in_image, lane, 0)
+    film_a, steps_a = _run_pixel_phase(pool, pix_a,
+                                       torch.where(in_image, spp_pilot, 0))
+    cost = torch.where(in_image, film_a[:, 7], -1.0)
+    order = torch.argsort(cost, stable=True)
+    valid_b = cost[order] >= 0.0
+    film_b, steps_b = _run_pixel_phase(
+        pool, torch.where(valid_b, order, 0),
+        torch.where(valid_b, spp - spp_pilot, 0))
+    film = torch.zeros((n_pix + 1, gst.SPLAT_ROWS), device=dev)
+    film.index_add_(0, torch.where(in_image, pix_a, n_pix), film_a)
+    film.index_add_(0, torch.where(valid_b, order, n_pix), film_b)
+    return _guided_out(film[:n_pix], steps_a + steps_b)
+
+
+def render_pool_guided_striped(
+    scene,
+    gs: GuideState,
+    generator: torch.Generator,
+    spp: int,
+    width: int,
+    height: int,
+    max_depth: int = 10,
+    rr_depth: int = 10,
+    bsdf_fraction: float = 0.5,
+    bsdf_types: tuple = (0,),
+    fov_axis: str = "x",
+    device: str | torch.device = "cuda",
+):
+    """Pixel-stationary guided pool on trace + shade: lane i owns pixel i
+    for ``spp`` samples (tiles of the reference's RT_TRACE x 128 lanes),
+    so the film update is a dense per-lane add. Callers pass
+    ``guided_fused_supported`` scenes. Returns ``render_pool_guided``'s
+    dict (without training vertices)."""
+    dev, scene, gs, n_pix, tri_rows, env_row, table = _guided_setup(
+        scene, gs, width, height, max_depth, device)
+    tile = RT_TRACE * 128
+    N = -(-n_pix // tile) * tile
+    pool = _PixelPool(scene, gs, generator, width, height, fov_axis, tile,
+                      tri_rows, env_row, table, tuple(bsdf_types), max_depth,
+                      rr_depth, bsdf_fraction)
+    lane = torch.arange(N, device=dev)
+    in_image = lane < n_pix
+    film, steps = _run_pixel_phase(pool, lane,
+                                   torch.where(in_image, spp, 0))
+    return _guided_out(film[:n_pix], steps)

@@ -10,10 +10,19 @@ The route depends on the triangle count alone:
 - above it: the cluster cull ``ops/clas_cull`` over the scene's cluster
   tree and Woop rows (``clas_tree``, ``clas_woop_slot``, ``clas_ids``): on
   the card the kernel ``csrc/clas_cull.cu``, whose any-hit form answers
-  ``occluded``; on the CPU its plain twin.
+  ``occluded``; on the CPU its plain twin (where the reference takes its
+  round loop, ``render/clas.intersect``: the twin gives the same hits and
+  keeps the CPU tests' time);
+- above it with SDMM_TPU_BVH set (any non-empty value), as in the
+  reference: the threaded BVH ``render/bvh.traverse`` on either device.
+
+The reference's SDMM_TPU_PALLAS_ISECT picks a TPU route that has no
+counterpart: the port takes its kernels on the card without it.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -24,12 +33,22 @@ from ..ops.intersect_sweep import INF, mt_sweep
 BRUTE_FORCE_MAX = 1024
 
 
+def use_bvh() -> bool:
+    """SDMM_TPU_BVH (any non-empty value): scenes above BRUTE_FORCE_MAX
+    triangles take the threaded BVH."""
+    return bool(os.environ.get("SDMM_TPU_BVH"))
+
+
 def intersect(scene, ro: torch.Tensor, rd: torch.Tensor, t_max=None):
     """Closest hit. Returns dict with t, tri [int32, -1 = miss], u, v, valid.
     The kernels take contiguous rows: a camera wave's origins are one
     expanded row."""
     ro, rd = ro.contiguous(), rd.contiguous()
     if scene.tri_v0.shape[0] > BRUTE_FORCE_MAX:
+        if use_bvh():
+            from . import bvh
+
+            return bvh.traverse(scene, ro, rd, t_max)
         return clas_cull.intersect(scene, ro, rd, t_max)
     if t_max is None:
         t_max = torch.full((ro.shape[0],), INF, device=ro.device)
@@ -41,6 +60,10 @@ def occluded(scene, ro: torch.Tensor, rd: torch.Tensor,
     """Any hit within (EPS, t_max) [N]. Returns bool [N]."""
     ro, rd = ro.contiguous(), rd.contiguous()
     if scene.tri_v0.shape[0] > BRUTE_FORCE_MAX:
+        if use_bvh():
+            from . import bvh
+
+            return bvh.traverse(scene, ro, rd, t_max, any_hit=True)
         return clas_cull.occluded(scene, ro, rd, t_max)
     return mt_sweep(ro, rd, t_max, scene.tri_v0, scene.tri_e1,
                     scene.tri_e2)["valid"]

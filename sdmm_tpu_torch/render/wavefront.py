@@ -1,6 +1,8 @@
 """The unguided path tracer with next-event estimation: the regenerating
 lane pools and their router (port of sdmm_tpu/render/wavefront.py
-``render_pool``, ``fused_supported``, ``render_pool_fused_sorted2``,
+``render_pool``, ``fused_supported``, ``render_pool_fused``,
+``render_pool_fused_blocked``, ``render_pool_fused_sorted``,
+``render_pool_fused_sorted2``, ``render_pool_fused_shuffled``,
 ``render_pool_fused_striped`` and ``render_wavefront``).
 
 ``render_pool`` is the eager pool: every lane restarts on the next camera
@@ -14,10 +16,22 @@ rest of the samples on equal-cost tiles; each step is one launch of
 film add in place). ``render_pool_fused_striped`` binds lane i to pixel i
 and runs ``ops.bounce.bounce`` with the regeneration in PyTorch.
 ``render_wavefront`` routes as the reference does on its accelerator.
+The other four pools, which no entry point reaches (as in the reference),
+run ``ops.bounce.bounce`` around their own layouts: ``render_pool_fused``
+regenerates from a global counter and scatters the film a step,
+``render_pool_fused_blocked`` maps each lane tile to a 2-D image block and
+skips drained tiles, ``render_pool_fused_sorted`` runs sorted2's pilot and
+cost-sorted schedule on the bounce kernel, ``render_pool_fused_shuffled``
+gives each lane ``groups`` pixels of a random permutation. Their uniforms
+come from a ``torch.Generator`` seeded by ``seed``. SDMM_TPU_NO_FUSED=1
+shuts ``fused_supported``, as in the reference.
 """
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 from ..bsdf import bsdf as bsdf_mod
@@ -251,9 +265,10 @@ def fused_supported(scene, cfg, nee: bool = True) -> bool:
     MAX_EMITTERS emissive triangles, no env map, no delta light, no texture
     and a pixel index that fits the meta word. The kernels read none of the
     textures; the reference's gate lets procedural ones through, this one
-    does not (ROADMAP §C)."""
+    does not (ROADMAP §C). SDMM_TPU_NO_FUSED=1 shuts it."""
     return bool(
-        nee
+        os.environ.get("SDMM_TPU_NO_FUSED") != "1"
+        and nee
         and len(cfg.bsdf_types) > 0
         and all(t in bo.SUPPORTED_TYPES for t in cfg.bsdf_types)
         and not cfg.has_bump
@@ -288,6 +303,50 @@ def _tables(scene):
     return tri_rows, em_rows, env_row, n_em
 
 
+def _regen(meta, count, budget, rnd, px_base, py_base, scene, width, height,
+           fov_axis, state, fresh_tail, pdelta: bool = True):
+    """Regenerate the dead lanes of a pixel-stationary pool on their own
+    pixel (px_base, py_base) while their sample ``count`` is below
+    ``budget``; returns (state, meta). ``pdelta``: a fresh path sets the
+    meta word's previous-bounce-delta bit (the bounce kernel's; the guided
+    kernels keep no such bit)."""
+    alive = (meta & _ALIVE) != 0
+    exh = (meta & _EXH) != 0
+    need = ~alive & ~exh
+    start = need & (count < budget)
+    exh = exh | (need & ~start)
+    ro_n, rd_n = generate_rays(
+        scene, torch.stack([px_base + rnd[0], py_base + rnd[1]], -1),
+        width, height, fov_axis)
+    count = torch.where(start, count + 1, count)
+    state = torch.where(start, torch.cat([ro_n.T, rd_n.T, fresh_tail]),
+                        state)
+    new = (count
+           | torch.where(alive | start, _ALIVE, 0)
+           | torch.where(exh, _EXH, 0)
+           | torch.where(start, 0, meta & (_DEPTH_MASK << _DEPTH_SHIFT)))
+    if pdelta:
+        new = new | torch.where(start, _PDELTA, meta & _PDELTA)
+    return state, new.to(torch.int32)
+
+
+def _runnable(meta):
+    return ((meta & _ALIVE) != 0) | ((meta & _EXH) == 0)
+
+
+def _fused_setup(scene, width, height, max_depth, spp, device):
+    """The fused pools' start: the device, the scene on it, the pixel
+    count and ``_tables``; raises where the image, ``max_depth`` or the
+    count ``spp`` the meta word holds does not fit."""
+    dev = resolve_device(device)
+    scene = scene_to(scene, dev)
+    n_pix = width * height
+    _check_size(n_pix, max_depth)
+    if spp > _PIX_MASK:
+        raise ValueError(f"spp {spp} does not fit the lane meta word")
+    return dev, scene, n_pix, _tables(scene)
+
+
 def render_pool_fused_sorted2(
     scene,
     seed: int,
@@ -314,13 +373,8 @@ def render_pool_fused_sorted2(
     (tiles that ran a bounce), total_tile_steps, pool="sorted2")."""
     if not 0 < spp_pilot < spp:
         raise ValueError(f"spp_pilot {spp_pilot} must lie in (0, {spp})")
-    dev = resolve_device(device)
-    scene = scene_to(scene, dev)
-    n_pix = width * height
-    _check_size(n_pix, max_depth)
-    if spp > _PIX_MASK:
-        raise ValueError(f"spp {spp} does not fit the lane meta word")
-    tri_rows, em_rows, env_row, n_em = _tables(scene)
+    dev, scene, n_pix, (tri_rows, em_rows, env_row, n_em) = _fused_setup(
+        scene, width, height, max_depth, spp, device)
     types = tuple(bsdf_types)
     tile = bo.lane_tile(tri_rows.shape[1])
     n_tiles = -(-n_pix // tile)
@@ -395,67 +449,348 @@ def render_pool_fused_striped(
     ``seed``) are PyTorch. Callers pass ``fused_supported`` scenes.
 
     Returns dict(image, sqr, weight, n_vertices, steps, pool="striped")."""
-    dev = resolve_device(device)
-    scene = scene_to(scene, dev)
-    n_pix = width * height
-    _check_size(n_pix, max_depth)
-    if spp > _PIX_MASK:
-        raise ValueError(f"spp {spp} does not fit the lane meta word")
-    tri_rows, em_rows, env_row, n_em = _tables(scene)
+    dev, scene, n_pix, (tri_rows, em_rows, env_row, n_em) = _fused_setup(
+        scene, width, height, max_depth, spp, device)
     types = tuple(bsdf_types)
     tile = bo.RT * 128
     N = -(-n_pix // tile) * tile
     gen = torch.Generator(device=dev).manual_seed(seed)
     lane = torch.arange(N, device=dev)
-    in_image = lane < n_pix
+    budget = torch.where(lane < n_pix, spp, 0)
     px_base = (lane % width).float()
     py_base = (lane // width).float()
     # Rows 6-15 of a fresh lane: throughput 1, radiance 0, eta² 1, pdf 1.
     fresh_tail = _fresh_state(N, dev)[6:]
-    depth_bits = _DEPTH_MASK << _DEPTH_SHIFT
 
     state = _fresh_state(N, dev)
     meta = torch.full((N,), _PDELTA, dtype=torch.int32, device=dev)
     film = torch.zeros((7, N), device=dev)
     n_vert = torch.zeros((), dtype=torch.float64, device=dev)
     steps = 0
-    while True:
+    while bool(_runnable(meta).any()):
         for _ in range(INNER):
             rnd = torch.rand((2 + bo.RAND_ROWS, N), generator=gen,
                              device=dev)
-            alive = (meta & _ALIVE) != 0
-            exh = (meta & _EXH) != 0
-            count = meta & _PIX_MASK
-
-            # --- Regenerate dead lanes on their own pixel ---
-            need = ~alive & ~exh
-            start = need & (count < spp) & in_image
-            exh = exh | (need & ~start)
-            ro_n, rd_n = generate_rays(
-                scene, torch.stack([px_base + rnd[0], py_base + rnd[1]], -1),
-                width, height, fov_axis)
-            count = torch.where(start, count + 1, count)
-            state = torch.where(start, torch.cat([ro_n.T, rd_n.T, fresh_tail]),
-                                state)
-            meta = (count
-                    | torch.where(alive | start, _ALIVE, 0)
-                    | torch.where(exh, _EXH, 0)
-                    | torch.where(start, _PDELTA, meta & _PDELTA)
-                    | torch.where(start, 0, meta & depth_bits)
-                    ).to(torch.int32)
-
+            state, meta = _regen(meta, meta & _PIX_MASK, budget, rnd,
+                                 px_base, py_base, scene, width, height,
+                                 fov_axis, state, fresh_tail)
             state, meta, splat = bo.bounce(
                 state, meta, rnd[2:].contiguous(), tri_rows, em_rows, env_row,
                 n_em, max_depth, rr_depth, types)
             film += splat[0:7]
             n_vert = n_vert + splat[7].sum(dtype=torch.float64)
             steps += 1
-        if not bool((((meta & _ALIVE) != 0) | ((meta & _EXH) == 0)).any()):
-            break
 
     film = film[:, :n_pix]
     return {"image": film[0:3].T, "sqr": film[3:6].T, "weight": film[6],
             "n_vertices": n_vert, "steps": steps, "pool": "striped"}
+
+
+def render_pool_fused(
+    scene,
+    seed: int,
+    n_lanes: int,
+    spp: int,
+    width: int,
+    height: int,
+    max_depth: int = 10,
+    rr_depth: int = 10,
+    fov_axis: str = "x",
+    bsdf_types: tuple = (0,),
+    device: str | torch.device = "cuda",
+):
+    """The regenerating pool on the bounce kernel: dead lanes restart on
+    the next camera sample of a global counter, one ``ops.bounce.bounce``
+    launch a step, the film scattered by pixel. ``n_lanes`` is a multiple
+    of ``RT`` x 128. Callers pass ``fused_supported`` scenes.
+
+    Returns dict(image, sqr, weight, n_vertices, steps, pool="fused")."""
+    dev, scene, n_pix, (tri_rows, em_rows, env_row, n_em) = _fused_setup(
+        scene, width, height, max_depth, 0, device)
+    if n_lanes <= 0 or n_lanes % (bo.RT * 128):
+        raise ValueError(f"n_lanes {n_lanes} is no positive multiple of "
+                         f"{bo.RT * 128}")
+    types = tuple(bsdf_types)
+    total = n_pix * spp
+    N = n_lanes
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fresh_tail = _fresh_state(N, dev)[6:]
+    depth_bits = _DEPTH_MASK << _DEPTH_SHIFT
+    film = torch.zeros((n_pix, 7), device=dev)
+    cursor = torch.zeros((), dtype=torch.int64, device=dev)
+    state = _fresh_state(N, dev)
+    meta = torch.full((N,), _PDELTA, dtype=torch.int32, device=dev)
+    n_vert = torch.zeros((), dtype=torch.float64, device=dev)
+    steps = 0
+    while bool(_runnable(meta).any()):
+        pix_list, row_list = [], []
+        for _ in range(INNER):
+            rnd = torch.rand((2 + bo.RAND_ROWS, N), generator=gen, device=dev)
+            alive = (meta & _ALIVE) != 0
+            exh = (meta & _EXH) != 0
+            pix = (meta & _PIX_MASK).long()
+            need = ~alive & ~exh
+            g = cursor + torch.cumsum(need.long(), 0) - 1
+            start = need & (g < total)
+            pix_n = torch.where(start, g % n_pix, 0)
+            ro_n, rd_n = generate_rays(
+                scene, torch.stack([(pix_n % width).float() + rnd[0],
+                                    (pix_n // width).float() + rnd[1]], -1),
+                width, height, fov_axis)
+            exh = exh | (need & ~start)
+            cursor = cursor + start.sum()
+            pix = torch.where(start, pix_n, pix)
+            state = torch.where(start, torch.cat([ro_n.T, rd_n.T,
+                                                  fresh_tail]), state)
+            meta = (pix.to(torch.int32)
+                    | torch.where(alive | start, _ALIVE, 0)
+                    | torch.where(exh, _EXH, 0)
+                    | torch.where(start, _PDELTA, meta & _PDELTA)
+                    | torch.where(start, 0, meta & depth_bits)
+                    ).to(torch.int32)
+            state, meta, splat = bo.bounce(
+                state, meta, rnd[2:].contiguous(), tri_rows, em_rows,
+                env_row, n_em, max_depth, rr_depth, types)
+            n_vert = n_vert + splat[7].sum(dtype=torch.float64)
+            pix_list.append(pix)
+            row_list.append(splat[0:7])
+            steps += 1
+        film.index_add_(0, torch.cat(pix_list), torch.cat(row_list, 1).T)
+    return {"image": film[:, 0:3], "sqr": film[:, 3:6], "weight": film[:, 6],
+            "n_vertices": n_vert, "steps": steps, "pool": "fused"}
+
+
+def blocked_layout(width: int, height: int, tile: int):
+    """The blocked pool's lane layout: lane tiles of ``tile`` lanes cover
+    image blocks 128 wide and tile // 128 high. Returns (pix_of_lane,
+    in_image [N] bool, x, y [N] int64, n_tiles) as numpy, lanes past the
+    image on pixel 0."""
+    bw, bh = 128, tile // 128
+    gx = -(-width // bw)
+    gy = -(-height // bh)
+    n_tiles = gx * gy
+    lane = np.arange(n_tiles * tile, dtype=np.int64)
+    t_idx = lane // tile
+    o = lane % tile
+    x = (t_idx % gx) * bw + o % 128
+    y = (t_idx // gx) * bh + o // 128
+    in_image = (x < width) & (y < height)
+    return np.where(in_image, y * width + x, 0), in_image, x, y, n_tiles
+
+
+def render_pool_fused_blocked(
+    scene,
+    seed: int,
+    spp: int,
+    width: int,
+    height: int,
+    max_depth: int = 10,
+    rr_depth: int = 10,
+    fov_axis: str = "x",
+    bsdf_types: tuple = (0,),
+    device: str | torch.device = "cuda",
+):
+    """Pixel-stationary pool on 2-D blocks: each lane tile (``lane_tile``
+    lanes) covers an image block 128 wide, so slow pixels share tiles;
+    the bounce kernel skips a tile none of whose lanes is alive
+    (``tile_alive``). The film is a dense per-lane add, scattered to the
+    pixels once. Callers pass ``fused_supported`` scenes.
+
+    Returns dict(image, sqr, weight, n_vertices, steps, pool="blocked")."""
+    dev, scene, n_pix, (tri_rows, em_rows, env_row, n_em) = _fused_setup(
+        scene, width, height, max_depth, spp, device)
+    types = tuple(bsdf_types)
+    tile = bo.lane_tile(tri_rows.shape[1])
+    pix_np, in_np, x, y, n_tiles = blocked_layout(width, height, tile)
+    N = n_tiles * tile
+    in_image = torch.as_tensor(in_np, device=dev)
+    pix_of_lane = torch.as_tensor(pix_np, device=dev)
+    px_base = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    py_base = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    budget = torch.where(in_image, spp, 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fresh_tail = _fresh_state(N, dev)[6:]
+    state = _fresh_state(N, dev)
+    meta = torch.full((N,), _PDELTA, dtype=torch.int32, device=dev)
+    film = torch.zeros((7, N), device=dev)
+    n_vert = torch.zeros((), dtype=torch.float64, device=dev)
+    steps = 0
+    while bool(_runnable(meta).any()):
+        for _ in range(INNER):
+            rnd = torch.rand((2 + bo.RAND_ROWS, N), generator=gen, device=dev)
+            state, meta = _regen(meta, meta & _PIX_MASK, budget, rnd, px_base,
+                                 py_base, scene, width, height, fov_axis,
+                                 state, fresh_tail)
+            tile_alive = ((meta & _ALIVE) != 0).view(n_tiles, tile).any(1)
+            state, meta, splat = bo.bounce(
+                state, meta, rnd[2:].contiguous(), tri_rows, em_rows,
+                env_row, n_em, max_depth, rr_depth, types,
+                tile_alive=tile_alive.to(torch.int32))
+            film += splat[0:7]
+            n_vert = n_vert + splat[7].sum(dtype=torch.float64)
+            steps += 1
+    out = torch.zeros((n_pix + 1, 7), device=dev)
+    out[torch.where(in_image, pix_of_lane, n_pix)] = film.T
+    out = out[:n_pix]
+    return {"image": out[:, 0:3], "sqr": out[:, 3:6], "weight": out[:, 6],
+            "n_vertices": n_vert, "steps": steps, "pool": "blocked"}
+
+
+def render_pool_fused_sorted(
+    scene,
+    seed: int,
+    spp: int,
+    width: int,
+    height: int,
+    spp_pilot: int = 8,
+    max_depth: int = 10,
+    rr_depth: int = 10,
+    fov_axis: str = "x",
+    bsdf_types: tuple = (0,),
+    device: str | torch.device = "cuda",
+):
+    """sorted2's schedule on the bounce kernel: a pilot pass of
+    ``spp_pilot`` spp with lane i on pixel i counts each pixel's path
+    vertices, the other samples run with the pixels sorted by that cost;
+    regeneration and uniforms are PyTorch, and a tile with no runnable
+    lane is skipped (``tile_alive``). Callers pass ``fused_supported``
+    scenes.
+
+    Returns dict(image, sqr, weight, n_vertices, steps, alive_tile_steps,
+    total_tile_steps, pool="sorted")."""
+    if not 0 < spp_pilot < spp:
+        raise ValueError(f"spp_pilot {spp_pilot} must lie in (0, {spp})")
+    dev, scene, n_pix, (tri_rows, em_rows, env_row, n_em) = _fused_setup(
+        scene, width, height, max_depth, spp, device)
+    types = tuple(bsdf_types)
+    tile = bo.lane_tile(tri_rows.shape[1])
+    n_tiles = -(-n_pix // tile)
+    N = n_tiles * tile
+    lane = torch.arange(N, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fresh_tail = _fresh_state(N, dev)[6:]
+
+    def run_phase(pix_of_lane, budget):
+        px_base = (pix_of_lane % width).float()
+        py_base = (pix_of_lane // width).float()
+        state = _fresh_state(N, dev)
+        meta = torch.full((N,), _PDELTA, dtype=torch.int32, device=dev)
+        film = torch.zeros((8, N), device=dev)
+        ats = torch.zeros((), dtype=torch.int64, device=dev)
+        steps = 0
+        while bool(_runnable(meta).any()):
+            for _ in range(INNER):
+                rnd = torch.rand((2 + bo.RAND_ROWS, N), generator=gen,
+                                 device=dev)
+                state, meta = _regen(meta, meta & _PIX_MASK, budget, rnd,
+                                     px_base, py_base, scene, width, height,
+                                     fov_axis, state, fresh_tail)
+                tile_alive = ((meta & _ALIVE) != 0).view(n_tiles, tile).any(1)
+                ats = ats + tile_alive.sum()
+                state, meta, splat = bo.bounce(
+                    state, meta, rnd[2:].contiguous(), tri_rows, em_rows,
+                    env_row, n_em, max_depth, rr_depth, types,
+                    tile_alive=tile_alive.to(torch.int32))
+                film += splat
+                steps += 1
+        return film, steps, ats
+
+    in_image = lane < n_pix
+    pix_a = torch.where(in_image, lane, 0)
+    film_a, steps_a, ats_a = run_phase(pix_a,
+                                       torch.where(in_image, spp_pilot, 0))
+    cost = torch.where(in_image, film_a[7], -1.0)
+    order = torch.argsort(cost, stable=True)
+    valid_b = cost[order] >= 0.0
+    film_b, steps_b, ats_b = run_phase(
+        torch.where(valid_b, order, 0),
+        torch.where(valid_b, spp - spp_pilot, 0))
+    film = torch.zeros((n_pix + 1, 8), device=dev)
+    film.index_add_(0, torch.where(in_image, pix_a, n_pix), film_a.T)
+    film.index_add_(0, torch.where(valid_b, order, n_pix), film_b.T)
+    film = film[:n_pix]
+    steps = steps_a + steps_b
+    return {"image": film[:, 0:3], "sqr": film[:, 3:6], "weight": film[:, 6],
+            "n_vertices": film[:, 7].sum(), "steps": steps,
+            "alive_tile_steps": int(ats_a + ats_b),
+            "total_tile_steps": steps * n_tiles, "pool": "sorted"}
+
+
+def shuffled_layout(n_pix: int, spp: int, groups: int, tile: int):
+    """The shuffled pool's lane count and per-lane sample budgets: lane i
+    owns the pixels perm[c * N + i] of the slots c < groups that fall in
+    the image, ``spp`` samples each. Returns (N, budget [N]) as numpy."""
+    n_lanes = -(-n_pix // (groups * tile)) * tile
+    lane = np.arange(n_lanes, dtype=np.int64)
+    budget = spp * np.maximum(0, (n_pix - 1 - lane) // n_lanes + 1)
+    return n_lanes, budget
+
+
+def render_pool_fused_shuffled(
+    scene,
+    seed: int,
+    spp: int,
+    width: int,
+    height: int,
+    max_depth: int = 10,
+    rr_depth: int = 10,
+    fov_axis: str = "x",
+    bsdf_types: tuple = (0,),
+    groups: int = 8,
+    device: str | torch.device = "cuda",
+):
+    """Pool with shuffled multi-pixel lanes: lane i renders, one slot at a
+    time, the ``groups`` pixels perm[c * N + i] of a random permutation of
+    the image (``torch.randperm`` of a generator seeded by ``seed``), spp
+    samples each, so a lane's work averages over its pixels. The film is
+    a dense [groups, N, 7] accumulator, un-permuted once. Callers pass
+    ``fused_supported`` scenes.
+
+    Returns dict(image, sqr, weight, n_vertices, steps, pool="shuffled")."""
+    dev, scene, n_pix, (tri_rows, em_rows, env_row, n_em) = _fused_setup(
+        scene, width, height, max_depth, spp * groups, device)
+    types = tuple(bsdf_types)
+    tile = bo.lane_tile(tri_rows.shape[1])
+    N, budget_np = shuffled_layout(n_pix, spp, groups, tile)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(n_pix, generator=gen, device=dev)
+    perm_padded = torch.cat([perm, torch.zeros(groups * N - n_pix,
+                                               dtype=perm.dtype, device=dev)])
+    lane = torch.arange(N, device=dev)
+    budget = torch.as_tensor(budget_np, device=dev)
+    fresh_tail = _fresh_state(N, dev)[6:]
+    state = _fresh_state(N, dev)
+    meta = torch.full((N,), _PDELTA, dtype=torch.int32, device=dev)
+    film = torch.zeros((groups, N, 7), device=dev)
+    n_vert = torch.zeros((), dtype=torch.float64, device=dev)
+    slots = torch.arange(groups, device=dev)[:, None]
+    steps = 0
+    while bool(_runnable(meta).any()):
+        for _ in range(INNER):
+            rnd = torch.rand((2 + bo.RAND_ROWS, N), generator=gen, device=dev)
+            # A drained lane's slot is past the last: it reads the last
+            # slot's pixel (the reference's gather clamps) and stays idle.
+            slot = ((meta & _PIX_MASK).long() // spp).clamp_max(groups - 1)
+            pix_n = perm_padded[slot * N + lane]
+            state, meta = _regen(meta, meta & _PIX_MASK, budget, rnd,
+                                 (pix_n % width).float(),
+                                 (pix_n // width).float(), scene, width,
+                                 height, fov_axis, state, fresh_tail)
+            s = (meta & _PIX_MASK).long()
+            state, meta, splat = bo.bounce(
+                state, meta, rnd[2:].contiguous(), tri_rows, em_rows,
+                env_row, n_em, max_depth, rr_depth, types)
+            n_vert = n_vert + splat[7].sum(dtype=torch.float64)
+            # A path's slot is (s - 1) // spp: s counts its own sample.
+            cur = (s - 1).clamp_min(0) // spp
+            film += (slots == cur[None, :]).float()[:, :, None] \
+                * splat[0:7].T[None]
+            steps += 1
+    flat = film.reshape(groups * N, 7)[:n_pix]
+    out = torch.zeros((n_pix, 7), device=dev)
+    out[perm] = flat
+    return {"image": out[:, 0:3], "sqr": out[:, 3:6], "weight": out[:, 6],
+            "n_vertices": n_vert, "steps": steps, "pool": "shuffled"}
 
 
 def render_wavefront(scene, cfg, spp: int = 16, seed: int = 1234,

@@ -1,6 +1,5 @@
 """Scene container: host-side builder → device SoA tensors (port of
-sdmm_tpu/scene/scene.py without the reference's BVH and kernel-layout
-copies).
+sdmm_tpu/scene/scene.py without the reference's kernel-layout copies).
 
 ``SceneData`` keeps the triangle arrays with their mesh-attribute tables
 (vertex colours, edge heights), the BSDF table with its texture, bump and
@@ -12,10 +11,12 @@ or an equirect map with its NEE tables), the delta lights (point, spot,
 directional, collimated), the media table (homogeneous rows and grid
 densities, each triangle's interior and exterior medium), the dipole
 subsurface instances, the camera, the scene AABB (the guiding
-normalization domain) and the triangle clusters of the cluster-cull
-intersector (``render/clas.py``, ``ops/clas_cull.py``): the reference's
-arrays, plus two that only the port's kernel reads (``PORT_FIELDS``),
-derived from them.
+normalization domain), the triangle clusters of the cluster-cull
+intersector (``render/clas.py``, ``ops/clas_cull.py``) and the threaded BVH
+(``render/bvh.py``; built for every scene, as the reference does: the
+native builder takes 127,012 triangles in well under a second): the
+reference's arrays, plus two that only the port's kernel reads
+(``PORT_FIELDS``), derived from them.
 """
 
 from __future__ import annotations
@@ -161,6 +162,17 @@ class SceneData(NamedTuple):
     # The port's own: derived from the clusters above by scene_from_numpy.
     clas_tree: torch.Tensor  # [2P, 8] tree over the boxes (build_tree)
     clas_woop_slot: torch.Tensor  # [C, Tc, 12] Woop rows by slot (slot_rows)
+    # The threaded BVH (render/bvh.py) and its leaf-ordered triangle copies;
+    # btri_orig maps leaf slots back to original triangle ids (-1 pad).
+    bvh_lo: torch.Tensor  # [M, 3]
+    bvh_hi: torch.Tensor  # [M, 3]
+    bvh_leaf_start: torch.Tensor  # [M] int32 (-1 inner)
+    bvh_leaf_count: torch.Tensor  # [M] int32
+    bvh_miss: torch.Tensor  # [M] int32 escape link (-1 = done)
+    btri_v0: torch.Tensor  # [T', 3]
+    btri_e1: torch.Tensor  # [T', 3]
+    btri_e2: torch.Tensor  # [T', 3]
+    btri_orig: torch.Tensor  # [T'] int32
 
 
 # Fields the reference's SceneData does not have.
@@ -170,7 +182,8 @@ PORT_FIELDS = ("clas_tree", "clas_woop_slot")
 _INT_FIELDS = ("tri_bsdf", "tri_emitter", "bsdf_type", "bsdf_tex",
                "bsdf_bump", "bsdf_child0", "bsdf_child1", "em_tri_idx",
                "pt_kind", "clas_ids", "tri_medium", "tri_medium_ext",
-               "ambient_med", "med_vol", "tri_sss", "iw_pattern", "tri_mot")
+               "ambient_med", "med_vol", "tri_sss", "iw_pattern", "tri_mot",
+               "bvh_leaf_start", "bvh_leaf_count", "bvh_miss", "btri_orig")
 
 
 def scene_from_numpy(arrays: dict, device="cuda") -> SceneData:
@@ -549,6 +562,7 @@ class SceneBuilder:
 
     def build(self, device="cuda") -> tuple[SceneData, RenderConfig]:
         # Imported here: render.clas reaches this module through ops.
+        from ..render.bvh import build_bvh
         from ..render.clas import build_clusters
 
         media_rows, ambient = self._media_rows()
@@ -618,6 +632,14 @@ class SceneBuilder:
         fov = np.deg2rad(self.fov_deg)
         clas = build_clusters(v0.astype(np.float32), e1.astype(np.float32),
                               e2.astype(np.float32))
+        bvh = build_bvh(verts)
+        perm = bvh["perm"]
+        safe = np.maximum(perm, 0)
+        sel = (perm >= 0)[:, None]
+
+        def btri(a):
+            return np.where(sel, a[safe] if len(verts)
+                            else np.zeros((len(perm), 3)), 0.0)
         env_row_cdf, env_col_cdf, env_pdf, env_select = self._env_tables(
             radius, area_power)
         # Mesh-attribute tables ship only when a texture reads them: their
@@ -682,6 +704,10 @@ class SceneBuilder:
             aabb_lo=aabb_lo, aabb_hi=aabb_hi,
             clas_ids=clas["ids"], clas_woop=clas["woop"],
             clas_aabb=clas["aabb"],
+            bvh_lo=bvh["lo"], bvh_hi=bvh["hi"],
+            bvh_leaf_start=bvh["leaf_start"], bvh_leaf_count=bvh["leaf_count"],
+            bvh_miss=bvh["miss"], btri_v0=btri(v0), btri_e1=btri(e1),
+            btri_e2=btri(e2), btri_orig=perm,
             tri_medium=tri_medium, tri_medium_ext=tri_medium_ext,
             tri_sss=tri_sss,
             sss_eta=[s["eta"] for s in self.subsurfaces] or [1.0],

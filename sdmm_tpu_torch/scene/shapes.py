@@ -465,10 +465,13 @@ def load_obj(path: str, to_world: np.ndarray | None = None,
              flip_normals: bool = False, face_normals: bool = False,
              native: bool = True) -> TriSoup:
     """OBJ loader (v/vn/vt/f, polygons fan-triangulated). The native
-    parser (``native.obj_load``) runs unless ``native`` is False; this
-    module's Python parser is its plain twin."""
+    parser (``native.obj_load``) runs unless ``native`` is False or
+    SDMM_TPU_NO_NATIVE is set (``native.disabled``); this module's Python
+    parser is its plain twin."""
+    from ..native import disabled
+
     check_lfs_stub(path)
-    if native:
+    if native and not disabled():
         from ..native import obj_load
 
         v_t, n_t, uv_t = obj_load(path)

@@ -12,6 +12,7 @@ import os
 import pathlib
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -155,10 +156,30 @@ def test_intersect_kernels_take_cuda_tensors_alone(no_gpu, monkeypatch):
 @pytest.mark.parametrize("option", [{"n_components": 4},
                                     {"n_components": 8}])
 def test_unported_options_raise(option):
+    """Mixtures of K != 16 components are ported: such a trainer trains and
+    renders on the CPU on the mixture route (no kernel table, both fused
+    gates shut, the E-step the twin's math); the mesh option still
+    raises."""
     scene, cfg = _scene()
+    tr = ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(
+        max_leaves=8, train_fraction=0.8, **option), device="cpu")
+    gs = tr.guide_state()
+    assert gs.kernel_table is None and tguided.mixture_route(gs)
+    assert not tguided.guided_fused_supported(scene, cfg, gs)
+    assert not tem.use_em_kernel(tr.sdmm)
+    img, iters = tr.run(total_spp=24)
+    k = option["n_components"]
+    assert tr.sdmm.weight.shape == (8, k) and tr.em.stats_w.shape == (8, k)
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.0 and len(iters) == 6
+    # The fifth iteration (past 12 spp) trains the leaves; the sixth is
+    # frozen on the mixture route.
+    assert tr.stats[4]["optimized_nodes_count"] > 0
+    assert int(tr.initialized.sum()) > 0
+    assert not torch.isnan(tr.sdmm.weight).any()
     with pytest.raises(NotImplementedError):
         ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(**option),
-                             device="cpu")
+                             mesh=object(), device="cpu")
 
 
 EXTRAS = [{"sample_product": True}, {"data_init": True},
