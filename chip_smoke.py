@@ -200,6 +200,26 @@ Phases (any failure raises and the script exits non-zero):
      the statistics report, which the process then does not print again
      at exit. One
      "schedulers:" JSON line and the phase's wall.
+ 16. inverse rendering and the mesh (phase_inverse_mesh): (a) on the
+     four-type box at 640x360, depth 10, 4 spp, the gradients of the image
+     mean in bsdf_albedo and bsdf_alpha through make_render_fn_multi
+     (forward + backward seconds, peak memory, mt_sweep's launches), no
+     non-finite entry, the albedo's within 8% of the same-seed central
+     difference (eps 3e-2); the roughness's central differences printed
+     at eps 5e-3 down to 4e-5, and held within 5% (the eps shrunk until
+     one agrees) on tests/test_diff.py's rough box, 12x12, depth 3; both
+     gradients against the same call on the twin's hits (mt_sweep_plain
+     on the card's tensors) within rtol 1e-3; (b) optimize_parameters at
+     depth 3 from the red wall at 0.3 grey and the rough cube's alpha at
+     0.6: the loss below 0.1x its start, the red albedo within 0.1 and
+     alpha within 0.08 of the truth; (c) a NCCL mesh of one
+     (make_mesh()): SDMMTrainer(mesh=) two training iterations and a
+     frozen one (K = 16, 640x360, 4 spp an iteration) equal to
+     SDMMTrainer(pooled_training=False) on the scan tracer within rtol
+     1e-5, the trained weights and initialized leaves too, guided_sample
+     and the E-step launched; build_render_step equal to its
+     single-process replay; the group destroyed. One "inverse_mesh:" JSON
+     line and the phase's wall.
 The SDMM_TPU_* switches are cleared at the start: every phase takes the
 default routes.
 Phases 5, 7, 10 and 11 run their training under EmCensus, which counts the
@@ -212,6 +232,7 @@ Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last the {"ok": true, "device": ...} line.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -3893,6 +3914,252 @@ def phase_schedulers(dev, smi, large, width=640, height=360,
     print(f"schedulers: phase 15 took {report['wall']:.2f} s", flush=True)
 
 
+# Phase 16's tolerances: tests/test_diff.py's limits for the gradients
+# against same-seed central differences (albedo at eps 3e-2 within 8%; the
+# roughness from eps 5e-3 down, as long as a narrower difference is needed
+# to step off the estimator's jumps, within 5%); the kernels' hits against
+# the twins' (rtol 1e-3); the mesh of one against one process (rtol 1e-5).
+FD_ALBEDO = (3e-2, 0.08)
+FD_ALPHA = ((5e-3, 1e-3, 2e-4, 4e-5), 0.05)
+RECOVERY_SPP, RECOVERY_STEPS, RECOVERY_LR = 1, 80, 4e-2
+
+
+def _fd_check(name, render, scene, seed, entry, epss, tol, grad,
+              hold=True):
+    """The same-seed central difference of the image mean at ``entry`` of
+    ``name``, at each eps until one agrees with ``grad`` within ``tol``;
+    returns [(eps, fd, rel)] of every eps tried, and with ``hold`` fails
+    if none agrees. The means accumulate in float64 over the float32
+    image, and the step is the float32 one the parameter took."""
+    base = getattr(scene, name)
+    tried = []
+    for eps in epss:
+        e = torch.zeros_like(base)
+        e[entry] = eps
+        lo_p, hi_p = base - e, base + e
+        with torch.no_grad():
+            lo = render({name: lo_p}, seed).double().mean()
+            hi = render({name: hi_p}, seed).double().mean()
+        fd = float(hi - lo) / float(hi_p[entry].double() - lo_p[entry].double())
+        tried.append((eps, fd, abs(grad - fd) / max(abs(fd), 1e-8)))
+        if tried[-1][2] < tol:
+            break
+    print(f"inverse_mesh: d mean / d {name}{list(np.atleast_1d(entry))} "
+          f"{grad:.6g}; FD (eps, value, rel) {tried}", flush=True)
+    check(tried[-1][2] < tol or not hold, f"inverse_mesh: {name} gradient "
+          "disagrees with the central difference")
+    return tried
+
+
+def phase_inverse_mesh(dev, smi, width=640, height=360, seed=7):
+    """Phase 16: inverse rendering on the four-type box and the mesh of
+    one over NCCL (see the module docstring). One "inverse_mesh:" JSON
+    line and the phase's wall."""
+    import torch.distributed as dist
+
+    from sdmm_tpu_torch.core.draws import seeded
+    from sdmm_tpu_torch.diff import inverse
+    from sdmm_tpu_torch.guiding.trainer import SDMMTrainer, TrainerConfig
+    from sdmm_tpu_torch.ops import intersect_sweep as isweep
+    from sdmm_tpu_torch.parallel import mesh as pmesh
+    from sdmm_tpu_torch.render import intersect as risect
+    from sdmm_tpu_torch.render.volpath import trace_wave
+    from sdmm_tpu_torch.scene.scene import BSDF_ROUGHCONDUCTOR
+    from sdmm_tpu_torch.scene.sensor import generate_rays
+
+    t_phase = time.time()
+    counters = _counts()
+    report = {"card": smi}
+    names = ("bsdf_albedo", "bsdf_alpha")
+
+    # (a) Gradients of the image mean at full width, depth 10, 4 spp.
+    scene, cfg = cornell_box(width, height, dev, extra_bsdfs=True)
+    pix = torch.arange(width * height, device=dev)
+    rough = int(scene.bsdf_alpha.shape[0]) - 1
+    check(int(scene.bsdf_type[rough]) == BSDF_ROUGHCONDUCTOR
+          and cfg.max_depth == 10
+          and cfg.rr_depth == 10, "inverse_mesh: the four-type box changed")
+    render = inverse.make_render_fn_multi(scene, cfg, pix, spp=4,
+                                          device=dev)
+
+    def grads():
+        p = {n: getattr(scene, n).clone().requires_grad_(True)
+             for n in names}
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        render(p, seed).mean().backward()
+        torch.cuda.synchronize()
+        return ({n: v.grad for n, v in p.items()}, time.time() - t0,
+                torch.cuda.max_memory_allocated(dev) - base,
+                {n: c.launches for n, c in counters.items() if c.launches})
+
+    # The first call warms the card up; the second is timed and repeats
+    # the first's gradients.
+    g0 = grads()[0]
+    g, sec, peak, launches = grads()
+    check(all(torch.allclose(g0[n], g[n], rtol=1e-5, atol=0.0)
+              for n in names), "inverse_mesh: two calls' gradients differ")
+    nonfinite = sum(int((~v.isfinite()).sum()) for v in g.values())
+    report.update(grad_seconds=sec, peak_bytes=peak, launches=launches,
+                  nonfinite=nonfinite)
+    print(f"inverse_mesh: gradients at {width}x{height}, depth 10, 4 spp: "
+          f"forward + backward {sec:.3f} s, peak {peak / 2**30:.3f} GiB "
+          f"above the {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB "
+          f"held, launches {launches}, non-finite entries {nonfinite}",
+          flush=True)
+    check(nonfinite == 0, "inverse_mesh: non-finite gradient entries")
+    check(launches.get("mt_sweep", 0) > 0, "inverse_mesh: no mt_sweep")
+    report["fd_albedo"] = _fd_check(
+        "bsdf_albedo", render, scene, seed, (0, 1), (FD_ALBEDO[0],),
+        FD_ALBEDO[1], float(g["bsdf_albedo"][0, 1]))
+    # At full width the roughness's central difference also measures the
+    # visibility jumps of rays the rough cube reflects across edges (the
+    # boundary term the interior estimator leaves out, as
+    # tests/test_diff.py's note says): printed here, and held on the
+    # reference test's rough box, where the interior term is what it
+    # measures.
+    report["fd_alpha_full"] = _fd_check(
+        "bsdf_alpha", render, scene, seed, rough, *FD_ALPHA,
+        float(g["bsdf_alpha"][rough]), hold=False)
+    from torch_parity import make_rough_box
+    from sdmm_tpu_torch.scene import scene as tscene
+    from sdmm_tpu_torch.scene import shapes as tshapes
+
+    rbox, rcfg = make_rough_box(tscene, tshapes).build(device=dev)
+    rrender = inverse.make_render_fn_multi(
+        rbox, rcfg, torch.arange(rcfg.width * rcfg.height, device=dev),
+        spp=4, device=dev)
+    rid = int(rbox.bsdf_alpha.shape[0]) - 1
+    ra = rbox.bsdf_alpha.clone().requires_grad_(True)
+    rrender({"bsdf_alpha": ra}, seed).mean().backward()
+    report["fd_alpha"] = _fd_check(
+        "bsdf_alpha", rrender, rbox, seed, rid, *FD_ALPHA,
+        float(ra.grad[rid]))
+    # The same call with the hits from the twin on the card's tensors.
+    risect.mt_sweep = isweep.mt_sweep_plain
+    try:
+        g_twin, sec_twin, _, launches_twin = grads()
+    finally:
+        risect.mt_sweep = isweep.mt_sweep
+    check(launches_twin.get("mt_sweep", 0) == 0,
+          "inverse_mesh: the twin route launched mt_sweep")
+    rel = {}
+    for n in names:
+        a, b = g[n], g_twin[n]
+        rel[n] = float(((a - b).abs() / b.abs().clamp_min(1e-12)).max())
+        check(torch.allclose(a, b, rtol=1e-3, atol=1e-6 * float(
+            b.abs().max())), f"inverse_mesh: {n} gradient through the kernel"
+              " differs from the twin's")
+    report.update(twin_seconds=sec_twin, twin_rel=rel)
+    print(f"inverse_mesh: against the twin's hits ({sec_twin:.3f} s): "
+          f"largest relative difference {rel}", flush=True)
+
+    # (b) Joint recovery at depth 3: the red wall from 0.3 grey, the rough
+    # conductor's alpha from 0.6.
+    cfg3 = dataclasses.replace(cfg, max_depth=3, rr_depth=3)
+    truth = {n: getattr(scene, n) for n in names}
+    with torch.no_grad():
+        target = inverse.make_render_fn_multi(
+            scene, cfg3, pix, spp=RECOVERY_SPP, device=dev)(truth, 0)
+    init = {n: v.clone() for n, v in truth.items()}
+    init["bsdf_albedo"][1] = 0.3
+    init["bsdf_alpha"][rough] = 0.6
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fitted, losses = inverse.optimize_parameters(
+        scene, cfg3, target.reshape(height, width, 3), names, init,
+        steps=RECOVERY_STEPS, lr=RECOVERY_LR, spp=RECOVERY_SPP, seed=0,
+        device=dev)
+    torch.cuda.synchronize()
+    err_a = float((fitted["bsdf_albedo"][1] - truth["bsdf_albedo"][1])
+                  .abs().max())
+    err_r = abs(float(fitted["bsdf_alpha"][rough])
+                - float(truth["bsdf_alpha"][rough]))
+    report["recovery"] = {"spp": RECOVERY_SPP, "steps": RECOVERY_STEPS,
+                          "seconds": time.time() - t0, "loss0": losses[0],
+                          "loss": losses[-1], "err_albedo": err_a,
+                          "err_alpha": err_r}
+    print(f"inverse_mesh: recovery {report['recovery']}", flush=True)
+    check(losses[-1] < 0.1 * losses[0], "inverse_mesh: the loss did not fall")
+    check(err_a < 0.1 and err_r < 0.08,
+          "inverse_mesh: albedo or roughness not recovered")
+
+    # (c) The mesh of one over NCCL against one process.
+    box, box_cfg = cornell_box(width, height, dev)
+    mesh = pmesh.make_mesh()
+    try:
+        check(dist.get_backend() == "nccl" and mesh.world_size == 1,
+              "inverse_mesh: not a NCCL mesh of one")
+
+        def train(m):
+            tr = SDMMTrainer(box, box_cfg, TrainerConfig(
+                pooled_training=False), mesh=m, device=dev)
+            films = []
+            for _ in range(2):
+                img, sqr, wgt, batches = tr.render_iteration(collect=True)
+                tr.optimize(batches)
+                tr.iteration += 1
+                tr.total_spp += tr.cfg.samples_per_iteration
+                films.append((img, sqr, wgt))
+            # The frozen iteration: the scan tracer on both sides.
+            films.append(tr.render_iteration(collect=False)[:3]
+                         if m is not None else tr._render_scan(False, 4)[:3])
+            return tr, films
+
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.time()
+        tr_m, films_m = train(mesh)
+        torch.cuda.synchronize()
+        sec_m = time.time() - t0
+        lm = {n: c.launches for n, c in counters.items() if c.launches}
+        t0 = time.time()
+        tr_s, films_s = train(None)
+        torch.cuda.synchronize()
+        sec_s = time.time() - t0
+        for i, (fm, fs) in enumerate(zip(films_m, films_s)):
+            for a, b in zip(fm, fs):
+                check(torch.allclose(a, b, rtol=1e-5, atol=1e-7),
+                      f"inverse_mesh: iteration {i}'s film differs on the "
+                      "mesh")
+        check(torch.allclose(tr_m.sdmm.weight, tr_s.sdmm.weight, rtol=1e-5,
+                             atol=1e-7)
+              and torch.equal(tr_m.initialized, tr_s.initialized),
+              "inverse_mesh: the mesh trained another model")
+        check(lm.get("guided_sample", 0) > 0 and lm.get("em_suffstats", 0)
+              > 0, "inverse_mesh: the mesh trainer skipped rows 1-2")
+        step = pmesh.build_render_step(box, box_cfg, mesh)
+        film = step(pix, 3)
+        gen = seeded(dev, 3, 0)  # rank 0's generator of seed 3
+        u = torch.rand((pix.shape[0], 2), generator=gen, device=dev)
+        ro, rd = generate_rays(box, torch.stack(
+            [(pix % width).float() + u[:, 0],
+             (pix // width).float() + u[:, 1]], -1), width, height,
+            box_cfg.fov_axis)
+        li = torch.nan_to_num(trace_wave(
+            box, gen, ro, rd, max_depth=box_cfg.max_depth,
+            rr_depth=box_cfg.rr_depth, bsdf_types=box_cfg.bsdf_types or None),
+            nan=0.0, posinf=0.0, neginf=0.0)
+        replay = torch.zeros_like(film).index_add_(0, pix, li)
+        check(torch.allclose(film, replay, rtol=1e-5, atol=1e-7),
+              "inverse_mesh: build_render_step differs from its replay")
+    finally:
+        dist.destroy_process_group()
+    report["mesh"] = {"seconds": sec_m, "single_seconds": sec_s,
+                      "launches": lm, "active": int(tr_m.initialized.sum()),
+                      "render_step_mean": float(film.mean())}
+    print(f"inverse_mesh: SDMMTrainer(mesh=make_mesh()) {sec_m:.2f} s, one "
+          f"process {sec_s:.2f} s, films, weights and leaves equal; "
+          f"launches {lm}", flush=True)
+    report["wall"] = time.time() - t_phase
+    print("inverse_mesh: " + json.dumps(report), flush=True)
+    print(f"inverse_mesh: phase 16 took {report['wall']:.2f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3950,6 +4217,7 @@ def main():
     phase_light_paths(dev, smi)
     phase_mcmc_irrcache(dev, smi)
     phase_schedulers(dev, smi, large)
+    phase_inverse_mesh(dev, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -17,7 +17,8 @@ import math
 import torch
 
 from ..core import warp
-from ..core.frame import coordinate_system, normalize, reflect, to_world
+from ..core.frame import (coordinate_system, normalize, reflect, safe_sqrt,
+                          to_world)
 from ..core.spectrum import luminance
 from ..scene.scene import (
     BSDF_BLEND, BSDF_COATING, BSDF_CONDUCTOR, BSDF_DIELECTRIC,
@@ -400,7 +401,7 @@ def _hg_sample(g, wi, u):
     two_g = torch.where(g.abs() > 1e-6, 2.0 * g, 1e-6)
     cos_t = torch.where(iso, 1.0 - 2.0 * u[..., 0],
                         (1.0 + g * g - sqr * sqr) / two_g).clamp(-1.0, 1.0)
-    sin_t = torch.sqrt((1.0 - cos_t * cos_t).clamp_min(0.0))
+    sin_t = safe_sqrt(1.0 - cos_t * cos_t)
     phi = 2.0 * math.pi * u[..., 1]
     local = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
                          cos_t], -1)
@@ -493,8 +494,8 @@ def eval_pdf(params: dict, wi: torch.Tensor, wo: torch.Tensor,
         sig2 = params["alpha"] * params["alpha"]
         a_on = 1.0 - sig2 / (2.0 * (sig2 + 0.33))
         b_on = 0.45 * sig2 / (sig2 + 0.66)
-        s_i = torch.sqrt((1.0 - cos_i * cos_i).clamp_min(0.0))
-        s_o = torch.sqrt((1.0 - cos_o * cos_o).clamp_min(0.0))
+        s_i = safe_sqrt(1.0 - cos_i * cos_i)
+        s_o = safe_sqrt(1.0 - cos_o * cos_o)
         sin_prod = s_i * s_o
         cos_phi_d = torch.where(
             sin_prod > 1e-8,
@@ -704,7 +705,7 @@ def sample(params: dict, wi: torch.Tensor, u1: torch.Tensor,
         p_d = _lobe_probs(params)[0]
         n_exp = params["exponent"]
         cos_a = torch.pow(u2[..., 0].clamp_min(1e-12), 1.0 / (n_exp + 1.0))
-        sin_a = torch.sqrt((1.0 - cos_a * cos_a).clamp_min(0.0))
+        sin_a = safe_sqrt(1.0 - cos_a * cos_a)
         phi = 2.0 * math.pi * u2[..., 1]
         lobe_local = torch.stack([sin_a * torch.cos(phi),
                                   sin_a * torch.sin(phi), cos_a], -1)
@@ -729,7 +730,7 @@ def sample(params: dict, wi: torch.Tensor, u1: torch.Tensor,
         kphi = cp * cp / (au * au) + sp * sp / (av * av)
         tan2t = -torch.log(u2[..., 0].clamp_min(1e-9)) / kphi.clamp_min(1e-12)
         cos_t = 1.0 / torch.sqrt(1.0 + tan2t)
-        sin_t = torch.sqrt((1.0 - cos_t * cos_t).clamp_min(0.0))
+        sin_t = safe_sqrt(1.0 - cos_t * cos_t)
         h_w = torch.stack([sin_t * cp, sin_t * sp, cos_t], -1)
         wo_w_spec = 2.0 * (wi * h_w).sum(-1, keepdim=True) * h_w - wi
         wo_w = torch.where((u1 >= p_d_w)[..., None], wo_w_spec, wo_diff)
@@ -746,9 +747,9 @@ def sample(params: dict, wi: torch.Tensor, u1: torch.Tensor,
                                                           params["eta"])
         pick_refl = u1 < f_m
         wo_refl = 2.0 * idotm[..., None] * m_rd - wi
-        wo_refr = ((eta_ti_rd * idotm - torch.sign(idotm) * torch.sqrt(
-            (1.0 + eta_ti_rd * eta_ti_rd * (idotm * idotm - 1.0))
-            .clamp_min(0.0)))[..., None] * m_rd
+        wo_refr = ((eta_ti_rd * idotm - torch.sign(idotm) * safe_sqrt(
+            1.0 + eta_ti_rd * eta_ti_rd * (idotm * idotm - 1.0)))[..., None]
+            * m_rd
             - eta_ti_rd[..., None] * wi)
         wo_rd = normalize(torch.where(pick_refl[..., None], wo_refl,
                                       wo_refr))
@@ -829,7 +830,7 @@ def _refract_in(w, eta):
     cos_i = w[..., 2].abs()
     inv_eta = 1.0 / eta
     cos_t_sqr = 1.0 - (1.0 - cos_i * cos_i) * (inv_eta * inv_eta)
-    cos_t = torch.sqrt(cos_t_sqr.clamp_min(0.0))
+    cos_t = safe_sqrt(cos_t_sqr)
     rs = (cos_i - eta * cos_t) / (cos_i + eta * cos_t).clamp_min(1e-12)
     rp = (eta * cos_i - cos_t) / (eta * cos_i + cos_t).clamp_min(1e-12)
     r = torch.where(cos_t_sqr <= 0.0, 1.0, 0.5 * (rs * rs + rp * rp))
@@ -841,7 +842,7 @@ def _refract_out(w, eta):
     """Refract out of the coating layer; returns (w', R)."""
     cos_i = w[..., 2].abs()
     cos_t_sqr = 1.0 - (1.0 - cos_i * cos_i) * (eta * eta)
-    cos_t = torch.sqrt(cos_t_sqr.clamp_min(0.0))
+    cos_t = safe_sqrt(cos_t_sqr)
     inv_eta = 1.0 / eta
     rs = (cos_i - inv_eta * cos_t) / (cos_i + inv_eta * cos_t).clamp_min(
         1e-12)

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.frame import safe_sqrt
+
 
 def fresnel_dielectric(cos_i: torch.Tensor, eta: torch.Tensor):
     """Exact dielectric Fresnel. Returns (F, cos_t, eta_it, eta_ti);
@@ -14,7 +16,7 @@ def fresnel_dielectric(cos_i: torch.Tensor, eta: torch.Tensor):
     eta_ti = torch.where(outside, rcp_eta, eta)
     cos_t2 = 1.0 - eta_ti * eta_ti * (1.0 - cos_i * cos_i)
     abs_cos_i = cos_i.abs()
-    cos_t = torch.sqrt(cos_t2.clamp_min(0.0))
+    cos_t = safe_sqrt(cos_t2)
     rs = (abs_cos_i - eta_it * cos_t) / (abs_cos_i + eta_it * cos_t).clamp_min(1e-12)
     rp = (eta_it * abs_cos_i - cos_t) / (eta_it * abs_cos_i + cos_t).clamp_min(1e-12)
     f = 0.5 * (rs * rs + rp * rp)
@@ -30,9 +32,9 @@ def fresnel_conductor(cos_i: torch.Tensor, eta: torch.Tensor, k: torch.Tensor):
     e2 = eta * eta
     k2 = k * k
     t0 = e2 - k2 - s2
-    a2b2 = torch.sqrt((t0 * t0 + 4.0 * e2 * k2).clamp_min(0.0))
+    a2b2 = safe_sqrt(t0 * t0 + 4.0 * e2 * k2)
     t1 = a2b2 + c2
-    a = torch.sqrt((0.5 * (a2b2 + t0)).clamp_min(0.0))
+    a = safe_sqrt(0.5 * (a2b2 + t0))
     t2 = 2.0 * a * cos_i.abs()[..., None]
     rs = (t1 - t2) / (t1 + t2).clamp_min(1e-12)
     t3 = c2 * a2b2 + s2 * s2

@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from ..core.frame import safe_sqrt
+
 
 def ggx_ndf(m: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Isotropic GGX D(m)."""
@@ -45,8 +47,8 @@ def sample_vndf(wi: torch.Tensor, alpha: torch.Tensor, u: torch.Tensor):
     p1 = r * torch.cos(phi)
     p2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + v[..., 2])
-    p2 = (1.0 - s) * torch.sqrt((1.0 - p1 * p1).clamp_min(0.0)) + s * p2
-    p3 = torch.sqrt((1.0 - p1 * p1 - p2 * p2).clamp_min(0.0))
+    p2 = (1.0 - s) * safe_sqrt(1.0 - p1 * p1) + s * p2
+    p3 = safe_sqrt(1.0 - p1 * p1 - p2 * p2)
     n = p1[..., None] * t1 + p2[..., None] * t2 + p3[..., None] * v
     m = torch.stack([alpha * n[..., 0], alpha * n[..., 1],
                      n[..., 2].clamp_min(0.0)], -1)

@@ -40,6 +40,30 @@ def to_world(s, t, n, v: torch.Tensor) -> torch.Tensor:
     return v[..., 0:1] * s + v[..., 1:2] * t + v[..., 2:3] * n
 
 
+def cos_theta(v: torch.Tensor) -> torch.Tensor:
+    """Cosine of the angle with the local frame normal (z axis)."""
+    return v[..., 2]
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.cross(a, b)
+
+
+def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(x, 0)), NaN kept. Where autograd records ``x`` the
+    derivative is 0 at x <= 0: a plain root's inf there times a zero
+    cotangent (a branch that ``where`` leaves unselected) would be NaN."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.sqrt(x.clamp_min(0.0))
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)),
+                       x.clamp(0.0, 0.0))
+
+
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Safe normalization of [..., 3] vectors."""
     return v * torch.rsqrt((v * v).sum(-1, keepdim=True).clamp_min(eps))

@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from .frame import safe_sqrt
+
 INV_PI = 1.0 / math.pi
 
 
@@ -34,7 +36,7 @@ def square_to_uniform_disk_concentric(u: torch.Tensor) -> torch.Tensor:
 def square_to_cosine_hemisphere(u: torch.Tensor) -> torch.Tensor:
     """Cosine-weighted hemisphere (z up); pdf = cos(theta)/pi."""
     p = square_to_uniform_disk_concentric(u)
-    z = torch.sqrt((1.0 - p[..., 0] ** 2 - p[..., 1] ** 2).clamp_min(0.0))
+    z = safe_sqrt(1.0 - p[..., 0] ** 2 - p[..., 1] ** 2)
     return torch.stack([p[..., 0], p[..., 1], z], dim=-1)
 
 
@@ -45,7 +47,7 @@ def square_to_cosine_hemisphere_pdf(w: torch.Tensor) -> torch.Tensor:
 def square_to_uniform_sphere(u: torch.Tensor) -> torch.Tensor:
     """Uniform direction on the unit sphere; pdf = 1/(4 pi)."""
     z = 1.0 - 2.0 * u[..., 0]
-    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    r = safe_sqrt(1.0 - z * z)
     phi = 2.0 * math.pi * u[..., 1]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
@@ -53,7 +55,7 @@ def square_to_uniform_sphere(u: torch.Tensor) -> torch.Tensor:
 def square_to_uniform_hemisphere(u: torch.Tensor) -> torch.Tensor:
     """Uniform direction on the z-up hemisphere; pdf = 1/(2 pi)."""
     z = u[..., 0]
-    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    r = safe_sqrt(1.0 - z * z)
     phi = 2.0 * math.pi * u[..., 1]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
@@ -66,8 +68,6 @@ def square_to_uniform_triangle(u: torch.Tensor) -> torch.Tensor:
 
 def square_to_std_normal(u: torch.Tensor) -> torch.Tensor:
     """Box-Muller: [..., 2] uniforms → [..., 2] standard normals."""
-    r = torch.sqrt(
-        (-2.0 * torch.log1p(-u[..., 0].clamp_max(1.0 - 1e-7))).clamp_min(0.0)
-    )
+    r = safe_sqrt(-2.0 * torch.log1p(-u[..., 0].clamp_max(1.0 - 1e-7)))
     theta = 2.0 * math.pi * u[..., 1]
     return torch.stack([r * torch.sin(theta), r * torch.cos(theta)], dim=-1)

@@ -255,3 +255,17 @@ def em_step(sdmm, em, pos, d, weight, leaf, active, cfg: EMConfig = EMConfig(),
     new_sdmm, new_em = m_step(sdmm, prep, em, sw, sm, sc, ws, active, cfg,
                               leaf_ext=leaf_ext)
     return new_sdmm, new_em, cnt
+
+
+def batch_em(sdmm, pos, d, weight, leaf, active, n_iters: int = 8,
+             cfg: EMConfig = EMConfig(), device: str | torch.device = "cuda"):
+    """Full-batch (non-stepwise) EM: every iteration refits from the whole
+    sample set with a fresh EMState, so no running statistics blend in
+    (eta = 1, full MAP priors each pass). For offline fits; the online
+    path stays stepwise. Returns the fitted mixtures."""
+    L, K = sdmm.weight.shape
+    for _ in range(n_iters):
+        em = init_em_state(L, K, device)
+        sdmm, em, _ = em_step(sdmm, em, pos, d, weight, leaf, active, cfg,
+                              device=device)
+    return sdmm

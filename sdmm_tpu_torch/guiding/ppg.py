@@ -35,6 +35,7 @@ import torch
 
 from ..bsdf import bsdf as bsdf_mod
 from ..core.device import resolve_device
+from ..core.draws import seeded
 from ..core.frame import to_local, to_world
 from ..render import film as film_mod
 from ..render.intersect import intersect, surface_interaction
@@ -43,7 +44,6 @@ from ..scene import emitters
 from ..scene.scene import scene_to
 from ..scene.sensor import generate_rays
 from .stree import STree, find_leaf
-from .trainer import _seeded
 
 RES = 64
 LEVELS = 6  # log2(RES): depth of the complete quadtree
@@ -220,7 +220,7 @@ def trace_wave_ppg(scene, eff2d, eff_row, total, theta, initialized, tables,
         thr = thr * torch.where(active_next[:, None], bweight, 0.0)
         eta_sq = eta_sq * torch.where(active_next, bs["eta"] ** 2, 1.0)
         if depth + 1 >= rr_depth:
-            q = (thr.max(-1).values * eta_sq).clamp_max(0.95)
+            q = (thr.max(-1).values * eta_sq).clamp_max(0.95).detach()
             active_next = active_next & ~(u_rr >= q)
             thr = torch.where(active_next[:, None],
                               thr / q.clamp_min(1e-6)[:, None], thr)
@@ -443,7 +443,7 @@ class PPGTrainer:
             t0 = time.time()
             for s in range(spp_this):
                 for wv in range(n_waves):
-                    gen = _seeded(dev, c.seed, self.iteration, s, wv)
+                    gen = seeded(dev, c.seed, self.iteration, s, wv)
                     idx = pix_all[wv * wave:(wv + 1) * wave]
                     u = torch.rand((idx.shape[0], 2), generator=gen,
                                    device=dev)

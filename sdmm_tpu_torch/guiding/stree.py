@@ -198,6 +198,14 @@ def find_leaf(tables: dict, p: torch.Tensor) -> torch.Tensor:
     return _find_leaf_descent(tables, p)
 
 
+def find_leaf_with_bounds(tables: dict, p: torch.Tensor):
+    """Canonical positions [N, 3] → (leaf slots [N], their leaves' lower
+    and upper corners [N, 3] each)."""
+    leaf = find_leaf(tables, p)
+    li = leaf.long()
+    return leaf, tables["leaf_lo"][li], tables["leaf_hi"][li]
+
+
 def _find_leaf_descent(tables: dict, p: torch.Tensor) -> torch.Tensor:
     """Vectorized node-table descent: positions [N, 3] → leaf slots [N]."""
     node = torch.zeros(p.shape[0], dtype=torch.long, device=p.device)

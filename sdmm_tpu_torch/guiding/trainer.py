@@ -1,5 +1,5 @@
 """SDMM training loop: iterate render → collect → split → EM (port of
-sdmm_tpu/guiding/trainer.py for one device).
+sdmm_tpu/guiding/trainer.py).
 
 Per iteration: render ``samples_per_iteration`` spp with guided sampling
 while recording training vertices, refit the spatial tree (split leaves at
@@ -15,7 +15,8 @@ next iteration (``optimize_async``), learned-BSDF product sampling
 (``restore``, ``run(iters=)``). Training iterations with
 ``pooled_training=False``, and every iteration of an image above 2^20
 pixels, take the scan tracer ``trace_wave_guided`` over fixed waves of
-camera rays instead. Per-iteration images are combined by inverse
+camera rays instead, as does every iteration on a multi-rank mesh
+(``parallel/mesh.py``). Per-iteration images are combined by inverse
 variance. Mixtures of ``n_components`` != 16 take the reference's route for
 such a K: no kernel table, so guided lanes condition and sample through the
 mixture (``render.guided.mixture_route``), both fused gates stay shut, and
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.draws import WaveBlock, seeded
 from ..ops import guided_sample as gso
 from ..render import film as film_mod
 from ..render.guided import (
@@ -42,7 +44,7 @@ from ..render.guided import (
     render_pool_guided_fused, trace_wave_guided,
 )
 from ..scene.scene import scene_to
-from ..scene.sensor import generate_rays
+from ..scene.sensor import pixel_rays
 from ..utils import stats as stats_mod
 from . import em as em_mod
 from . import init as init_mod
@@ -87,21 +89,20 @@ class TrainerConfig:
 SCAN_PIXELS = 1 << 20  # above it every iteration takes the scan tracer
 
 
-def _seeded(device, *parts) -> torch.Generator:
-    """A generator on ``device`` seeded from integer parts."""
-    seed = 0
-    for p in parts:
-        seed = (seed * 1_000_003 + int(p)) % (1 << 62)
-    return torch.Generator(device=device).manual_seed(seed)
-
-
 class SDMMTrainer:
     def __init__(self, scene, render_cfg, cfg: TrainerConfig | None = None,
                  mesh=None, device: str | torch.device = "cuda"):
-        self.device = resolve_device(device)
+        """``mesh``: a ``parallel/mesh.Mesh``. Its ranks split every wave,
+        each tracing its block on its own device (``mesh.device``, which
+        then takes the place of ``device``) with the uniforms one process
+        would give those rows; the films are all-reduced and the sample
+        batches all-gathered, so the whole training algorithm (counts, tree
+        refit, jitter replicas, reservoir, the gate, EM) runs replicated on
+        the same global arrays on every rank, as the reference runs it on
+        its sharded arrays. A mesh always takes the scan tracer."""
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.cfg = c = cfg or TrainerConfig()
-        if mesh is not None:
-            raise NotImplementedError("multi-device meshes are not ported")
         self.scene = scene_to(scene, self.device)
         if render_cfg.has_sss and not render_cfg.sss_baked:
             from ..render.subsurface import bake_subsurface
@@ -123,7 +124,7 @@ class SDMMTrainer:
         self.tables = self.tree.device_tables(self.device)
 
         self.sdmm = init_mod.init_leaf_params(
-            _seeded(self.device, c.seed), self.tables["leaf_lo"],
+            seeded(self.device, c.seed), self.tables["leaf_lo"],
             self.tables["leaf_hi"], c.n_components)
         self.prep = mix.prepare(self.sdmm)
         self.em = em_mod.init_em_state(c.max_leaves, c.n_components,
@@ -224,14 +225,15 @@ class SDMMTrainer:
         spp = c.samples_per_iteration if spp is None else spp
         w, h = rc.width, rc.height
         n_pix = w * h
-        if n_pix > SCAN_PIXELS or (collect and not c.pooled_training):
+        if n_pix > SCAN_PIXELS or (collect and not c.pooled_training) \
+                or self.mesh is not None:
             return self._render_scan(collect, spp)
         gs = self.guide_state()
         lanes = min(c.rays_per_wave * 2, n_pix * spp)
         if not collect and self.device.type == "cuda" and \
                 guided_fused_supported(self.scene, rc, gs):
             out = render_pool_guided_fused(
-                self.scene, gs, _seeded(self.device, c.seed, self.iteration),
+                self.scene, gs, seeded(self.device, c.seed, self.iteration),
                 n_lanes=max(2048, lanes // 2048 * 2048), spp=spp, width=w,
                 height=h, max_depth=rc.max_depth, rr_depth=rc.rr_depth,
                 bsdf_fraction=c.bsdf_fraction,
@@ -245,7 +247,7 @@ class SDMMTrainer:
                                         rc.max_depth))
             cap = -(-cap // 1024) * 1024
         out = render_pool_guided(
-            self.scene, gs, _seeded(self.device, c.seed, self.iteration),
+            self.scene, gs, seeded(self.device, c.seed, self.iteration),
             n_lanes=lanes, spp=spp, width=w, height=h,
             max_depth=rc.max_depth, rr_depth=rc.rr_depth,
             bsdf_fraction=c.bsdf_fraction,
@@ -263,15 +265,21 @@ class SDMMTrainer:
     def _render_scan(self, collect: bool, spp: int):
         """An iteration on the scan tracer: ``spp`` passes over the pixels
         in waves of ``rays_per_wave`` camera rays; returns what
-        ``render_iteration`` does, one sample batch per wave."""
-        rc, c, dev = self.render_cfg, self.cfg, self.device
+        ``render_iteration`` does, one sample batch per wave. On a mesh of
+        more than one rank, waves are rounded up to a multiple of the world
+        size and each rank traces its block of every wave, drawing through
+        a ``core/draws.WaveBlock``."""
+        rc, c, dev, mesh = self.render_cfg, self.cfg, self.device, self.mesh
         w, h = rc.width, rc.height
         n_pix = w * h
         gs = self.guide_state()
         table = None if gs.kernel_table is None else \
             gso.pack_sample_table(gs.kernel_table)
-        gen = _seeded(dev, c.seed, self.iteration)
+        gen = seeded(dev, c.seed, self.iteration)
         wave = min(c.rays_per_wave, n_pix)
+        split = mesh is not None and mesh.world_size > 1
+        if split:
+            wave = -(-wave // mesh.world_size) * mesh.world_size
         n_waves = -(-n_pix // wave)
         pix_all = torch.arange(n_waves * wave, device=dev) % n_pix
         image = torch.zeros((n_pix, 3), device=dev)
@@ -281,13 +289,14 @@ class SDMMTrainer:
         for _ in range(spp):
             for wv in range(n_waves):
                 idx = pix_all[wv * wave:(wv + 1) * wave]
-                u = torch.rand((idx.shape[0], 2), generator=gen, device=dev)
-                ro, rd = generate_rays(
-                    self.scene, torch.stack([(idx % w).float() + u[:, 0],
-                                             (idx // w).float() + u[:, 1]],
-                                            -1), w, h, rc.fov_axis)
+                g = gen
+                if split:
+                    blk = mesh.block(wave)
+                    idx = idx[blk]
+                    g = WaveBlock(gen, blk.start, wave)
+                ro, rd = pixel_rays(self.scene, idx, g, w, h, rc.fov_axis)
                 li, samples = trace_wave_guided(
-                    self.scene, gs, gen, ro, rd, max_depth=rc.max_depth,
+                    self.scene, gs, g, ro, rd, max_depth=rc.max_depth,
                     rr_depth=rc.rr_depth, bsdf_fraction=c.bsdf_fraction,
                     bsdf_types=rc.bsdf_types or None,
                     saved_samples_per_path=c.saved_samples_per_path,
@@ -296,7 +305,12 @@ class SDMMTrainer:
                 image, sqr, weight = film_mod.splat(
                     image, sqr, weight, idx, torch.nan_to_num(
                         li, nan=0.0, posinf=0.0, neginf=0.0))
+                if mesh is not None:
+                    samples = self._gather_samples(samples, collect)
                 batches.append(samples)
+        if mesh is not None:
+            image, sqr, weight = (mesh.all_reduce(x)
+                                  for x in (image, sqr, weight))
         if collect:
             return image, sqr, weight, batches
         out = {"n_vertices": sum(float(b["n_vertices"]) for b in batches),
@@ -304,6 +318,22 @@ class SDMMTrainer:
                "n_cond_try": sum(float(b["n_cond_try"]) for b in batches),
                "image": image, "sqr": sqr, "weight": weight}
         return self._frozen_result(out, n_pix * spp)
+
+    def _gather_samples(self, samples: dict, collect: bool) -> dict:
+        """One wave's sample batch of every rank: the counts summed, and
+        with ``collect`` the [depth · rows] arrays gathered so that each
+        depth's rows lie in wave order, as one process records them."""
+        mesh = self.mesh
+        out = {k: mesh.all_reduce(v.clone()) for k, v in samples.items()
+               if k.startswith("n_")}
+        if collect:
+            d = self.render_cfg.max_depth
+            for k, v in samples.items():
+                if not k.startswith("n_"):
+                    v = v.reshape((d, -1) + tuple(v.shape[1:]))
+                    out[k] = mesh.all_gather(v, 1).reshape(
+                        (-1,) + tuple(v.shape[2:]))
+        return out
 
     def _frozen_result(self, out, n_paths: int):
         """Counters of a frozen iteration; returns its render outputs."""
@@ -418,7 +448,7 @@ class SDMMTrainer:
             parts = {"pos": [pos], "lk": [lookup_pos], "d": [d], "w": [wgt],
                      "leaf": [leaf], "v": [valid]}
             for r, rcap in ((0, rcap0), (1, rcap1)):
-                gen = _seeded(dev, c.seed ^ 0x9E37, self.iteration, r)
+                gen = seeded(dev, c.seed ^ 0x9E37, self.iteration, r)
                 mask = valid & (n_rep > r)
                 filled, (cpos, cd, cw, cleaf, cdiag) = self._compact(
                     mask, rcap, pos, d, wgt, leaf, diag)
@@ -445,7 +475,7 @@ class SDMMTrainer:
 
             self.reservoir = reservoir_update(
                 self.reservoir, pos, d, wgt, valid,
-                _seeded(dev, c.seed ^ 0x51ED, self.iteration),
+                seeded(dev, c.seed ^ 0x51ED, self.iteration),
                 c.reservoir_capacity, c.per_decay, lookup_pos=lookup_pos)
             pos = self.reservoir["pos"]
             d = self.reservoir["dir"]
@@ -469,7 +499,7 @@ class SDMMTrainer:
             newly = active & ~self.initialized
             if bool(newly.any()):
                 centers, has = init_mod.kmeanspp_centers(
-                    _seeded(dev, c.seed ^ 0x4B4D, self.iteration), pos, leaf,
+                    seeded(dev, c.seed ^ 0x4B4D, self.iteration), pos, leaf,
                     valid, L, n_centers=2)
                 self.sdmm = init_mod.reseed_spatial_means(
                     self.sdmm, centers, newly & has, n_spatial=2)
@@ -482,6 +512,15 @@ class SDMMTrainer:
                 self.sdmm, self.em, pos, d, wgt, leaf.to(torch.int32), active,
                 c.em, leaf_ext=leaf_ext, device=dev)
         mark("em")
+        if self.mesh is not None:
+            # Ranks run the same EM on the same arrays; rank 0's result
+            # keeps them bit-identical where the device's arithmetic is not.
+            def bcast(x):
+                return self.mesh.broadcast(x.contiguous())
+
+            self.sdmm = mix.SDMM(*(bcast(x) for x in self.sdmm))
+            self.em = em_mod.EMState(*(bcast(x) for x in self.em))
+            active = bcast(active)
         self.prep = mix.prepare(self.sdmm)
         self.initialized = self.initialized | active
         self._bump_model_version()
@@ -544,7 +583,8 @@ class SDMMTrainer:
             t0 = time.time()
             still_training = self.total_spp < total_spp * c.train_fraction
             spp_iter = c.samples_per_iteration
-            if not still_training and c.tail_chunk_spp > 0:
+            if not still_training and c.tail_chunk_spp > 0 \
+                    and self.mesh is None:
                 spp_iter = min(c.tail_chunk_spp, total_spp - self.total_spp)
             if pending is not None:
                 self.sdmm, self.em, self.prep, self.initialized = pending

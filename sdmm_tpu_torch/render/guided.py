@@ -49,6 +49,7 @@ from typing import NamedTuple
 import torch
 
 from ..bsdf import bsdf as bsdf_mod
+from ..core import draws
 from ..core.device import resolve_device
 from ..core.frame import to_local, to_world
 from ..guiding import mixture as mix
@@ -174,7 +175,8 @@ def trace_wave_guided(
     """Trace one guided wave for ``max_depth`` + 1 steps (the last only as
     the radiance target of the last vertex; it never reaches the image).
     ``sample_table`` is ``pack_sample_table(gs.kernel_table)``, packed here
-    when not given.
+    when not given. ``generator``: a ``torch.Generator``, or a mesh rank's
+    ``core/draws.WaveBlock`` of the wave.
 
     Returns (li [N, 3], samples): flat [(max_depth)·N] pos, dir, weight
     (-1 where invalid), valid, terminal (the path's last valid vertex), and
@@ -200,11 +202,11 @@ def trace_wave_guided(
     outs = {k: [] for k in ("le", "bweight", "pdf", "cacheable", "pos",
                             "dir")}
     for depth in range(max_depth + 1):
-        rnd = torch.rand((n, 14), generator=generator, device=dev)
+        rnd = draws.rand((n, 14), generator, dev)
         u_sel, u1, u2, u0 = rnd[:, 0], rnd[:, 1], rnd[:, 2:4], rnd[:, 4]
         ug, u_rr, u_m, u_ph = rnd[:, 5:8], rnd[:, 8], rnd[:, 9], rnd[:, 10:12]
         if learned:
-            up = torch.rand((n, 3), generator=generator, device=dev)
+            up = draws.rand((n, 3), generator, dev)
 
         hit = intersect(scene, ro, rd)
         it = surface_interaction(scene, ro, rd, hit)
@@ -293,7 +295,7 @@ def trace_wave_guided(
         thr = thr * torch.where(surf_cont[:, None], bweight, 1.0)
         thr = torch.where(active_next[:, None], thr, 0.0)
         eta_sq = eta_sq * torch.where(surf_cont, bs["eta"] * bs["eta"], 1.0)
-        q = (thr.max(-1).values * eta_sq).clamp_max(0.95)
+        q = (thr.max(-1).values * eta_sq).clamp_max(0.95).detach()
         if depth + 1 >= rr_depth:
             active_next = active_next & (u_rr < q)
             thr = torch.where(active_next[:, None],
@@ -571,7 +573,7 @@ def render_pool_guided(
         thr_next = thr * torch.where(cont[:, None], bweight, 1.0)
         eta_sq = eta2 * torch.where(cont, bs["eta"] * bs["eta"], 1.0)
 
-        q = (thr_next.max(-1).values * eta_sq).clamp_max(0.95)
+        q = (thr_next.max(-1).values * eta_sq).clamp_max(0.95).detach()
         do_rr = depth + 1 >= rr_depth
         survive = survive & ~(do_rr & (u_rr >= q))
         thr_next = torch.where((do_rr & survive)[:, None],

@@ -18,6 +18,12 @@ The route depends on the triangle count alone:
 
 The reference's SDMM_TPU_PALLAS_ISECT picks a TPU route that has no
 counterpart: the port takes its kernels on the card without it.
+
+Every route's hit is a constant to autograd. Where autograd records the
+rays (inverse rendering, ``diff/inverse.py``), ``intersect`` re-attaches
+``t``, ``u`` and ``v`` by Möller–Trumbore on the winning triangle alone, as
+the reference's XLA sweep differentiates its argmin's pick: the forward
+values stay the route's, only the gradient is added.
 """
 
 from __future__ import annotations
@@ -39,10 +45,45 @@ def use_bvh() -> bool:
     return bool(os.environ.get("SDMM_TPU_BVH"))
 
 
+def _records_grad(scene, ro, rd) -> bool:
+    return torch.is_grad_enabled() and (
+        ro.requires_grad or rd.requires_grad or scene.tri_v0.requires_grad
+        or scene.tri_e1.requires_grad or scene.tri_e2.requires_grad)
+
+
+def _reattach(scene, ro, rd, hit: dict) -> dict:
+    """``hit`` with t, u and v carrying the gradient of Möller–Trumbore on
+    each valid ray's winning triangle; their values stay ``hit``'s."""
+    tri = hit["tri"].clamp_min(0).long()
+    v0, e1, e2 = scene.tri_v0[tri], scene.tri_e1[tri], scene.tri_e2[tri]
+    p = torch.linalg.cross(rd, e2)
+    det = (e1 * p).sum(-1)
+    ok = hit["valid"] & (det.abs() > 1e-12)
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    s = ro - v0
+    q = torch.linalg.cross(s, e1)
+    out = dict(hit)
+    for k, val in (("u", (s * p).sum(-1) * inv_det),
+                   ("v", (rd * q).sum(-1) * inv_det),
+                   ("t", (e2 * q).sum(-1) * inv_det)):
+        val = torch.where(ok, val, 0.0)
+        out[k] = hit[k] + (val - val.detach())
+    return out
+
+
 def intersect(scene, ro: torch.Tensor, rd: torch.Tensor, t_max=None):
     """Closest hit. Returns dict with t, tri [int32, -1 = miss], u, v, valid.
     The kernels take contiguous rows: a camera wave's origins are one
     expanded row."""
+    if _records_grad(scene, ro, rd):
+        with torch.no_grad():
+            hit = _route(scene, ro, rd, t_max)
+        return _reattach(scene, ro, rd, hit)
+    return _route(scene, ro, rd, t_max)
+
+
+def _route(scene, ro, rd, t_max):
+    """The closest hit by the triangle count's route (module docstring)."""
     ro, rd = ro.contiguous(), rd.contiguous()
     if scene.tri_v0.shape[0] > BRUTE_FORCE_MAX:
         if use_bvh():
@@ -55,9 +96,11 @@ def intersect(scene, ro: torch.Tensor, rd: torch.Tensor, t_max=None):
     return mt_sweep(ro, rd, t_max, scene.tri_v0, scene.tri_e1, scene.tri_e2)
 
 
+@torch.no_grad()
 def occluded(scene, ro: torch.Tensor, rd: torch.Tensor,
              t_max: torch.Tensor) -> torch.Tensor:
-    """Any hit within (EPS, t_max) [N]. Returns bool [N]."""
+    """Any hit within (EPS, t_max) [N]. Returns bool [N], which carries no
+    gradient."""
     ro, rd = ro.contiguous(), rd.contiguous()
     if scene.tri_v0.shape[0] > BRUTE_FORCE_MAX:
         if use_bvh():

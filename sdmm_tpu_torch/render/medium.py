@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from ..core import draws
 from ..core.frame import coordinate_system, to_world
 
 CHECK_EVERY = 16  # delta-tracking steps between host checks of the loop
@@ -69,8 +70,8 @@ def sample_distance_hetero(scene, med_id: torch.Tensor,
     """Delta (Woodcock) tracking through grid-density media: free flights
     against the majorant, null collisions where the local density lies
     below it, for ``max_steps`` steps whose uniforms (``generator``, on the
-    rays' device) are drawn at once; the loop ends early once every ray is
-    done. The gray extinction (the channels' mean) drives the tracking;
+    rays' device, through ``core/draws.rand``) are drawn at once; the loop
+    ends early once every ray is done. The gray extinction (the channels' mean) drives the tracking;
     the free-flight pdf cancels the transmittance, so a scatter weighs the
     albedo and an escape 1.
 
@@ -81,7 +82,7 @@ def sample_distance_hetero(scene, med_id: torch.Tensor,
     maj = scene.med_majorant[mid] * sigma_bar
     in_medium = maj > 1e-12
     inv_maj = 1.0 / maj.clamp_min(1e-12)
-    u = torch.rand((max_steps, 2, n), generator=generator, device=ro.device)
+    u = draws.rand((max_steps, 2, n), generator, ro.device, axis=2)
     t = torch.zeros(n, device=ro.device)
     done = ~in_medium
     scattered = torch.zeros(n, dtype=torch.bool, device=ro.device)

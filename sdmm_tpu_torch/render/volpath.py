@@ -1,7 +1,6 @@
 """The volumetric path tracer with optional NEE (port of
 sdmm_tpu/render/volpath.py ``trace_wave``, ``mi_weight``,
-``shading_frame`` and ``RAY_EPS``; the ``_clean_*`` custom VJP of the
-reference's differentiable renderer is not ported).
+``shading_frame``, ``_clean_cotangent`` and ``RAY_EPS``).
 
 ``trace_wave`` traces a wave of rays for a fixed number of bounces: closest
 hit, free-flight sampling through the ray's medium (delta tracking where a
@@ -9,13 +8,18 @@ medium has a density grid), emission with MIS against NEE, the environment,
 the dipole subsurface exitance, NEE at surface and medium vertices (shadow
 rays attenuated through the current medium), Henyey-Greenstein scattering
 in a medium, BSDF sampling, the medium switch at a crossed boundary, and
-Russian roulette. Uniforms come from a ``torch.Generator``.
+Russian roulette. Uniforms come from a ``torch.Generator`` or a mesh rank's
+``core/draws.WaveBlock``. The radiance is differentiable in the scene's
+parameters under autograd (``diff/inverse.py``): the roulette probability
+is detached, and the next ray's origin and direction pass through
+``_clean_cotangent``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core import draws
 from ..core.frame import coordinate_system, to_local, to_world
 from ..scene.scene import (BSDF_DIELECTRIC, BSDF_HK, BSDF_NULL,
                            BSDF_ROUGHDIELECTRIC)
@@ -28,6 +32,29 @@ def spawn(p, ng, d):
     the side of ``d``."""
     return p + ng * torch.where((ng * d).sum(-1) > 0, RAY_EPS,
                                 -RAY_EPS)[:, None]
+
+
+class _CleanCotangent(torch.autograd.Function):
+    """Identity whose backward zeroes non-finite cotangents: a sampled
+    direction's gradient flows back through the next bounce's hit, where
+    an edge-on graze gives an isolated inf (a boundary term the interior
+    estimator does not model) that would poison the shared parameter
+    gradient. Forward values and finite cotangents are untouched."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def _clean_cotangent(x: torch.Tensor) -> torch.Tensor:
+    """``_CleanCotangent`` where autograd records ``x``; else ``x``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CleanCotangent.apply(x)
+    return x
 
 
 def mi_weight(pdf_a, pdf_b):
@@ -78,7 +105,7 @@ def trace_wave(scene, generator: torch.Generator, ro: torch.Tensor,
     prev_delta = torch.ones(n, dtype=torch.bool, device=dev)
     med_id = scene.ambient_med.to(torch.int32).expand(n).clone()
     for depth in range(max_depth):
-        rnd = torch.rand((n, 15), generator=generator, device=dev)
+        rnd = draws.rand((n, 15), generator, dev)
         u_m, u1n, u2n = rnd[:, 0], rnd[:, 1], rnd[:, 2:4]
         u1m, u2m, u_ph = rnd[:, 4], rnd[:, 5:7], rnd[:, 7:9]
         u0, u1, u2, u_rr = rnd[:, 9], rnd[:, 10], rnd[:, 11:13], rnd[:, 13]
@@ -202,16 +229,18 @@ def trace_wave(scene, generator: torch.Generator, ro: torch.Tensor,
         thr = thr * torch.where(scattered[:, None], 1.0, bs["weight"])
         eta_sq = eta_sq * torch.where(scattered, 1.0, bs["eta"] * bs["eta"])
 
-        # Russian roulette after rr_depth bounces.
-        q = (thr.max(-1).values * eta_sq).clamp_max(0.95)
+        # Russian roulette after rr_depth bounces, its probability detached
+        # (an unbiased gradient estimator).
+        q = (thr.max(-1).values * eta_sq).clamp_max(0.95).detach()
         do_rr = depth + 1 >= rr_depth
         if do_rr:
             active = active & (u_rr < q)
             thr = torch.where(active[:, None],
                               thr / q.clamp_min(1e-6)[:, None], thr)
 
-        ro_next = it["p"] + it["ng"] * torch.where(
-            wo_dot_geo > 0, RAY_EPS, -RAY_EPS)[:, None]
+        wo_world = _clean_cotangent(wo_world)
+        ro_next = _clean_cotangent(it["p"] + it["ng"] * torch.where(
+            wo_dot_geo > 0, RAY_EPS, -RAY_EPS)[:, None])
         prev_pdf = bs["pdf"]
         prev_delta = bs["delta"]
         if has_medium:

@@ -229,7 +229,7 @@ def render_pool(
         thr_next = thr * torch.where(survive[:, None], bs["weight"], 1.0)
         eta_sq = eta2 * torch.where(survive, bs["eta"] * bs["eta"], 1.0)
         # Russian roulette (reference: sdmm_proc.cpp:858).
-        q = (thr_next.max(-1).values * eta_sq).clamp_max(0.95)
+        q = (thr_next.max(-1).values * eta_sq).clamp_max(0.95).detach()
         do_rr = depth + 1 >= rr_depth
         survive = survive & ~(do_rr & (u_rr >= q))
         thr_next = torch.where((do_rr & survive)[:, None],

@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from ..core import draws
 from ..core.frame import normalize
 
 SENSOR_TYPES = ("perspective", "thinlens", "orthographic", "spherical")
@@ -69,3 +70,14 @@ def generate_rays(scene, pixel_xy: torch.Tensor, width: int, height: int,
         return o_cam @ rot.T + org, normalize(d_cam @ rot.T)
     d_world = normalize(d_cam @ rot.T)
     return org.expand_as(d_world), d_world
+
+
+def pixel_rays(scene, pix: torch.Tensor, generator, width: int, height: int,
+               fov_axis: str = "x"):
+    """Camera rays through the pixels ``pix`` [N] (row-major indices),
+    each jittered by two uniforms of ``generator`` (``core/draws.rand``:
+    a ``torch.Generator`` or a mesh rank's ``WaveBlock``)."""
+    u = draws.rand((pix.shape[0], 2), generator, pix.device)
+    return generate_rays(scene, torch.stack(
+        [(pix % width).float() + u[:, 0], (pix // width).float() + u[:, 1]],
+        -1), width, height, fov_axis)

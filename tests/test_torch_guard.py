@@ -26,6 +26,7 @@ from sdmm_tpu_torch.ops import bounce as gbounce  # noqa: E402
 from sdmm_tpu_torch.ops import clas_cull as ccull  # noqa: E402
 from sdmm_tpu_torch.ops import intersect_sweep as isweep  # noqa: E402
 from sdmm_tpu_torch.ops import guided_step as gstep  # noqa: E402
+from sdmm_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from sdmm_tpu_torch.render import guided as tguided  # noqa: E402
 from sdmm_tpu_torch.render import wavefront as twf  # noqa: E402
 from sdmm_tpu_torch.scene import scene as tscene  # noqa: E402
@@ -158,8 +159,9 @@ def test_intersect_kernels_take_cuda_tensors_alone(no_gpu, monkeypatch):
 def test_unported_options_raise(option):
     """Mixtures of K != 16 components are ported: such a trainer trains and
     renders on the CPU on the mixture route (no kernel table, both fused
-    gates shut, the E-step the twin's math); the mesh option still
-    raises."""
+    gates shut, the E-step the twin's math). The mesh option is ported
+    too: such a trainer on a mesh of one on the CPU (gloo) renders every
+    iteration on the scan tracer."""
     scene, cfg = _scene()
     tr = ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(
         max_leaves=8, train_fraction=0.8, **option), device="cpu")
@@ -177,9 +179,17 @@ def test_unported_options_raise(option):
     assert tr.stats[4]["optimized_nodes_count"] > 0
     assert int(tr.initialized.sum()) > 0
     assert not torch.isnan(tr.sdmm.weight).any()
-    with pytest.raises(NotImplementedError):
-        ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(**option),
-                             mesh=object(), device="cpu")
+    mesh = tmesh.make_mesh(device="cpu")
+    try:
+        tr = ttrainer.SDMMTrainer(scene, cfg, ttrainer.TrainerConfig(
+            max_leaves=8, rays_per_wave=48, **option), mesh=mesh,
+            device="cpu")
+        img, iters = tr.run(total_spp=8)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert mesh.world_size == 1 and len(iters) == 2
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.0
 
 
 EXTRAS = [{"sample_product": True}, {"data_init": True},

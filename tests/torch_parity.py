@@ -67,6 +67,22 @@ def make_box(scene_mod, shapes_mod, width=16, height=16, extra_bsdfs=False):
     return b
 
 
+def make_rough_box(scene_mod, shapes_mod, width=12, height=12):
+    """tests/test_diff.py's rough_scene: the box with a rough-conductor slab
+    (GGX alpha a scene parameter), max depth 3, with either package's
+    SceneBuilder."""
+    b = make_box(scene_mod, shapes_mod, width, height)
+    m = b.add_bsdf(scene_mod.BSDF_ROUGHCONDUCTOR, specular=[0.9, 0.9, 0.9],
+                   eta=0.2, k=[3.0, 3.0, 3.0], alpha=0.3)
+    t = np.eye(4)
+    t[:3, 3] = [0.0, 0.45, -0.5]
+    t[0, 0] = t[1, 1] = 0.5
+    b.add_shape(shapes_mod.make_rectangle(t), m)
+    b.max_depth = 3
+    b.rr_depth = 3
+    return b
+
+
 def make_glossy_box(scene_mod, shapes_mod, width=24, height=24):
     """The 18-triangle box of tests/test_bounce_pallas.py
     (``_glossy_box_scene``): the box above plus a conductor, a dielectric
